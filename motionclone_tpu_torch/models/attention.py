@@ -1,0 +1,130 @@
+"""Spatial transformer: per-frame self- and cross-attention.
+
+Port of ``motionclone_tpu/models/attention.py`` (the unfused path).
+Submodule names follow the diffusers keys (``attn1.to_q``, ``attn1.to_out.0``,
+``ff.net.0.proj``, ``ff.net.2``), so a diffusers state dict loads directly.
+
+Self-attention (``attn1``) goes through the flash kernels at every
+resolution; cross-attention (``attn2``, 77 text tokens) is plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from motionclone_tpu_torch.models.layers import GroupNorm, LayerNorm
+from motionclone_tpu_torch.ops.attention import dot_product_attention
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention with q from x and k/v from the context (or x)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = x if context is None else context
+        out = dot_product_attention(
+            self.to_q(x), self.to_k(ctx), self.to_v(ctx),
+            heads=self.heads, scale=self.dim_head**-0.5,
+            impl="flash" if context is None else "plain",
+        )
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    """diffusers GEGLU: project to 2*inner, gate with the exact (erf) GELU."""
+
+    def __init__(self, dim: int, inner_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner_dim * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    """diffusers FeedForward with the geglu activation, mult=4 (``net.1`` is
+    the dropout slot, an identity at inference)."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList(
+            [GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)]
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+class BasicTransformerBlock(nn.Module):
+    """Self-attn + cross-attn + FF, each after a LayerNorm, with residuals."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 cross_attention_dim: Optional[int]):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.has_cross = cross_attention_dim is not None
+        if self.has_cross:
+            self.norm2 = LayerNorm(dim)
+            self.attn2 = CrossAttention(dim, heads, dim_head, cross_attention_dim)
+        self.norm3 = LayerNorm(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        if self.has_cross:
+            x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer3DModel(nn.Module):
+    """Per-frame spatial transformer over a (B, F, H, W, C) video tensor: the
+    text context is shared by every frame."""
+
+    def __init__(self, in_channels: int, heads: int, dim_head: int,
+                 cross_attention_dim: Optional[int] = 768,
+                 norm_num_groups: int = 32, use_linear_projection: bool = False):
+        super().__init__()
+        inner = heads * dim_head
+        self.use_linear_projection = use_linear_projection
+        self.norm = GroupNorm(norm_num_groups, in_channels, eps=1e-6)
+        if use_linear_projection:
+            self.proj_in = nn.Linear(in_channels, inner)
+            self.proj_out = nn.Linear(inner, in_channels)
+        else:
+            self.proj_in = nn.Conv2d(in_channels, inner, 1)
+            self.proj_out = nn.Conv2d(inner, in_channels, 1)
+        # one block, as in every SD1.5 / AnimateDiff checkpoint
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim)]
+        )
+
+    def _project(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        # a 1x1 conv on channels-last data is a dense layer on the last axis
+        w = layer.weight if self.use_linear_projection else layer.weight[:, :, 0, 0]
+        return F.linear(x, w, layer.bias)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+        b, f, hh, ww, c = x.shape
+        h = self._project(self.proj_in, self.norm(x, per_frame=True))
+        h = h.reshape(b * f, hh * ww, h.shape[-1])
+        ctx = None if context is None else context.repeat_interleave(f, dim=0)
+        h = self.transformer_blocks[0](h, ctx)
+        h = self._project(self.proj_out, h.reshape(b, f, hh, ww, h.shape[-1]))
+        return h + x

@@ -1,0 +1,93 @@
+"""Video-tensor primitives in channels-last layout.
+
+Port of ``motionclone_tpu/models/layers.py``.  Activations are
+``(batch, frames, height, width, channels)``, the JAX package's layout: the
+attention projections and both attention kernels read it without a
+transpose.  A convolution folds frames into the batch and presents the
+tensor to ``conv2d`` as NCHW with channels-last strides (a view, no copy).
+Norm statistics are float32 whatever the activation dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+
+def spatial_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """Per-frame 2D convolution of a (B, F, H, W, C) tensor (AnimateDiff's
+    ``InflatedConv3d``)."""
+    b, f, h, w, c = x.shape
+    y = conv(x.reshape(b * f, h, w, c).permute(0, 3, 1, 2))
+    return y.permute(0, 2, 3, 1).reshape(b, f, y.shape[2], y.shape[3], y.shape[1])
+
+
+def conv2d(in_channels: int, out_channels: int, stride: int = 1) -> nn.Conv2d:
+    """A 3x3 convolution with torch's symmetric padding of 1."""
+    return nn.Conv2d(in_channels, out_channels, 3, stride=stride, padding=1)
+
+
+def group_norm_nhwc(
+    x: torch.Tensor, num_groups: int, eps: float, weight: torch.Tensor,
+    bias: torch.Tensor,
+) -> torch.Tensor:
+    """GroupNorm over (N, ..., C) with f32 statistics per sample and group,
+    result in x's dtype."""
+    n, c = x.shape[0], x.shape[-1]
+    xf = x.reshape(n, -1, num_groups, c // num_groups).float()
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf.square().mean(dim=(1, 3), keepdim=True) - mean.square()).clamp_min(0.0)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    out = out.reshape(x.shape) * weight.float() + bias.float()
+    return out.to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` (same parameters and state-dict keys) applied to a
+    channels-last tensor.  On a video tensor, ``per_frame`` statistics
+    reproduce AnimateDiff's ``InflatedGroupNorm``; otherwise they span the
+    frames too."""
+
+    def forward(self, x: torch.Tensor, per_frame: bool = True) -> torch.Tensor:
+        if x.dim() == 5 and per_frame:
+            b, f = x.shape[:2]
+            return group_norm_nhwc(
+                x.reshape(b * f, *x.shape[2:]), self.num_groups, self.eps,
+                self.weight, self.bias,
+            ).reshape(x.shape)
+        return group_norm_nhwc(x, self.num_groups, self.eps, self.weight, self.bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last axis with f32 statistics, result in the
+    input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), self.normalized_shape, self.weight.float(),
+            self.bias.float(), self.eps,
+        ).to(x.dtype)
+
+
+class Upsample(nn.Module):
+    """Nearest 2x spatial upsample + 3x3 conv; frames untouched."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = conv2d(channels, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        return spatial_conv(x, self.conv)
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv downsample."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = conv2d(channels, channels, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return spatial_conv(x, self.conv)

@@ -1,0 +1,190 @@
+"""UNet3DConditionModel: the AnimateDiff SD1.5 UNet.
+
+Port of ``motionclone_tpu/models/unet3d.py`` without the controlnet
+residuals.  Submodule names follow the diffusers keys.  Activations are
+channels-last video tensors (B, F, H, W, C); latents are (B, F, 64, 64, 4)
+at 512x512.
+
+* ``guidance_blocks``: the temporal-attention probabilities of matching
+  motion modules come back as an explicit dict (no recorder hooks), so the
+  motion representation and the guidance loss are functions of the inputs.
+* ``max_up_block``: run up blocks ``0..max_up_block`` only and return no
+  noise prediction (the extraction early exit).
+* ``post_guidance_cut``: up blocks after this index run under
+  ``torch.no_grad()`` on detached inputs.  The guidance loss reads only
+  probabilities emitted at or before the cut, so this changes no value and
+  no gradient; it keeps autograd from storing the tail's activations (the
+  reference's no-grad split after the last guidance block).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from motionclone_tpu_torch.config import UNet3DConfig
+from motionclone_tpu_torch.models.embeddings import TimestepEmbedding, timestep_embedding
+from motionclone_tpu_torch.models.layers import GroupNorm, conv2d, spatial_conv
+from motionclone_tpu_torch.models.unet_blocks import (
+    CrossAttnDownBlock3D,
+    CrossAttnUpBlock3D,
+    DownBlock3D,
+    UNetMidBlock3DCrossAttn,
+    UpBlock3D,
+)
+
+ProbsDict = Dict[str, torch.Tensor]
+
+
+class UNet3DConditionModel(nn.Module):
+    def __init__(self, cfg: UNet3DConfig):
+        super().__init__()
+        self.cfg = cfg
+        ch0 = cfg.block_out_channels[0]
+        temb_ch = ch0 * 4
+        mm = cfg.motion_module
+        self.time_embedding = TimestepEmbedding(ch0, temb_ch)
+        self.conv_in = conv2d(cfg.in_channels, ch0)
+
+        skip_ch = [ch0]
+        ch = ch0
+        self.down_blocks = nn.ModuleList()
+        for i, block_type in enumerate(cfg.down_block_types):
+            out_ch = cfg.block_out_channels[i]
+            use_mm = (
+                cfg.use_motion_module
+                and 2**i in cfg.motion_module_resolutions
+                and not cfg.motion_module_decoder_only
+            )
+            common = dict(
+                in_channels=ch, out_channels=out_ch, temb_channels=temb_ch,
+                num_layers=cfg.layers_per_block,
+                norm_num_groups=cfg.norm_num_groups, norm_eps=cfg.norm_eps,
+                add_downsample=i < len(cfg.block_out_channels) - 1,
+                use_inflated_groupnorm=cfg.use_inflated_groupnorm,
+                use_motion_module=use_mm, motion_module_cfg=mm,
+                path=f"down_blocks.{i}",
+            )
+            if block_type == "CrossAttnDownBlock3D":
+                block = CrossAttnDownBlock3D(
+                    heads=cfg.num_heads, cross_attention_dim=cfg.cross_attention_dim,
+                    use_linear_projection=cfg.use_linear_projection, **common)
+            elif block_type == "DownBlock3D":
+                block = DownBlock3D(**common)
+            else:
+                raise ValueError(f"unknown down block type: {block_type}")
+            self.down_blocks.append(block)
+            ch = out_ch
+            skip_ch += [out_ch] * (cfg.layers_per_block + common["add_downsample"])
+
+        self.mid_block = UNetMidBlock3DCrossAttn(
+            channels=cfg.block_out_channels[-1], temb_channels=temb_ch,
+            num_layers=1, heads=cfg.num_heads,
+            cross_attention_dim=cfg.cross_attention_dim,
+            norm_num_groups=cfg.norm_num_groups, norm_eps=cfg.norm_eps,
+            use_inflated_groupnorm=cfg.use_inflated_groupnorm,
+            use_motion_module=cfg.use_motion_module and cfg.motion_module_mid_block,
+            motion_module_cfg=mm,
+            use_linear_projection=cfg.use_linear_projection,
+        )
+
+        reversed_ch = list(reversed(cfg.block_out_channels))
+        self.up_blocks = nn.ModuleList()
+        for i, block_type in enumerate(cfg.up_block_types):
+            out_ch = reversed_ch[i]
+            num_layers = cfg.layers_per_block + 1
+            in_chs = []
+            for _ in range(num_layers):
+                in_chs.append(ch + skip_ch.pop())
+                ch = out_ch
+            common = dict(
+                in_channels=in_chs, out_channels=out_ch, temb_channels=temb_ch,
+                num_layers=num_layers,
+                norm_num_groups=cfg.norm_num_groups, norm_eps=cfg.norm_eps,
+                add_upsample=i < len(cfg.up_block_types) - 1,
+                use_inflated_groupnorm=cfg.use_inflated_groupnorm,
+                use_motion_module=(
+                    cfg.use_motion_module
+                    and 2 ** (3 - i) in cfg.motion_module_resolutions
+                ),
+                motion_module_cfg=mm, path=f"up_blocks.{i}",
+            )
+            if block_type == "CrossAttnUpBlock3D":
+                block = CrossAttnUpBlock3D(
+                    heads=cfg.num_heads, cross_attention_dim=cfg.cross_attention_dim,
+                    use_linear_projection=cfg.use_linear_projection, **common)
+            elif block_type == "UpBlock3D":
+                block = UpBlock3D(**common)
+            else:
+                raise ValueError(f"unknown up block type: {block_type}")
+            self.up_blocks.append(block)
+
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch0, eps=cfg.norm_eps)
+        self.conv_out = conv2d(ch0, cfg.out_channels)
+
+    def forward(
+        self,
+        sample: torch.Tensor,  # (B, F, H, W, C_in)
+        timestep,  # int or 0-d / (B,) tensor
+        encoder_hidden_states: torch.Tensor,  # (B, L, cross_attention_dim)
+        *,
+        guidance_blocks: Tuple[str, ...] = (),
+        max_up_block: Optional[int] = None,
+        post_guidance_cut: Optional[int] = None,
+    ) -> Tuple[Optional[torch.Tensor], ProbsDict]:
+        """Returns ``(noise_pred, probs)``; noise_pred is None when
+        ``max_up_block`` cuts the forward short."""
+        cfg = self.cfg
+        dtype = self.conv_in.weight.dtype
+        probs: ProbsDict = {}
+        sample = sample.to(dtype)
+        context = encoder_hidden_states.to(dtype)
+        b = sample.shape[0]
+
+        t = torch.as_tensor(timestep, device=sample.device).reshape(-1).expand(b)
+        t_emb = timestep_embedding(
+            t, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift
+        ).to(dtype)
+        temb = self.time_embedding(t_emb)
+
+        x = spatial_conv(sample, self.conv_in)
+        skips = [x]
+        for block in self.down_blocks:
+            if isinstance(block, CrossAttnDownBlock3D):
+                x, block_skips, p = block(x, temb, context, guidance_blocks)
+            else:
+                x, block_skips, p = block(x, temb, guidance_blocks)
+            skips.extend(block_skips)
+            probs.update(p)
+
+        x, p = self.mid_block(x, temb, context, guidance_blocks)
+        probs.update(p)
+
+        for i, block in enumerate(self.up_blocks):
+            if max_up_block is not None and i > max_up_block:
+                return None, probs  # extraction early exit
+            n = len(block.resnets)
+            block_skips = tuple(skips[-n:])
+            del skips[-n:]
+            post_cut = post_guidance_cut is not None and i > post_guidance_cut
+            with torch.no_grad() if post_cut else contextlib.nullcontext():
+                if post_cut:
+                    x = x.detach()
+                    block_skips = tuple(s.detach() for s in block_skips)
+                if isinstance(block, CrossAttnUpBlock3D):
+                    x, p = block(x, block_skips, temb, context, guidance_blocks)
+                else:
+                    x, p = block(x, block_skips, temb, guidance_blocks)
+            probs.update(p)
+
+        with (
+            torch.no_grad() if post_guidance_cut is not None
+            else contextlib.nullcontext()
+        ):
+            x = F.silu(self.conv_norm_out(x, per_frame=cfg.use_inflated_groupnorm))
+            x = spatial_conv(x, self.conv_out)
+        return x, probs

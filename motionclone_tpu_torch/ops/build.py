@@ -1,0 +1,126 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
+process per source, all started together), linked into one shared library
+with a plain C interface, and loaded with ``ctypes``.  The library's name
+carries a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is reused.  The build goes to ``build/`` at the repository
+root, which ``.gitignore`` lists.
+
+Nothing here runs at import: the first kernel launch calls
+:func:`load_library`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argument types of the C entry points (csrc/*.cu, ``extern "C"``)
+SIGNATURES = {
+    "mc_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "mc_flash_bwd": (_P,) * 10 + (_I, _I, _I, _I, _I, _F, _P),
+    "mc_temporal_fwd": (_P,) * 5 + (_I, _I, _I, _I, _I, _F, _P),
+    "mc_temporal_bwd": (_P,) * 8 + (_I, _I, _I, _I, _I, _F, _P),
+}
+
+_library: Optional[ctypes.CDLL] = None
+build_info: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked under $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA kernels cannot be built"
+    )
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into ``build/libmotionclone_kernels_<hash>.so``
+    unless that file exists; return its path.  Raises with the compiler's
+    output if any source fails."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    lib = BUILD_DIR / f"libmotionclone_kernels_{_digest(sources)}.so"
+    if lib.exists():
+        build_info.update(path=str(lib), seconds=0.0, cached=True)
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    # objects in a private directory, the library renamed into place: two
+    # processes building at once never see each other's partial files
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objs)
+        ]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "\n".join(f"== {src.name}\n{out}" for src, out in zip(sources, outs))
+        (BUILD_DIR / f"{lib.stem}.log").write_text(log)
+        failed = [src.name for src, proc in zip(sources, procs) if proc.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp_lib = Path(tmp) / lib.name
+        subprocess.run([nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)],
+                       check=True, capture_output=True, text=True)
+        os.replace(tmp_lib, lib)
+    build_info.update(
+        path=str(lib), seconds=time.perf_counter() - t0, cached=False, log=log
+    )
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _library = lib
+    return _library
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a C entry point reported a launch error."""
+    if status == -1:
+        raise ValueError(f"{name}: no kernel for this shape")
+    if status:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")

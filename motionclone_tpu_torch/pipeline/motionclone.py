@@ -1,0 +1,235 @@
+"""The MotionClone algorithm: extraction, guided and vanilla DDIM steps.
+
+Port of the exact, unsharded, no-controlnet subset of
+``motionclone_tpu/pipeline/motionclone.py`` (``make_sampling_fns`` and
+``MotionClonePipeline``):
+
+* extraction is one truncated UNet forward (up to the last guidance block)
+  on the reference latents noised to ``add_noise_step``, then top-1
+  sparsification of the guidance blocks' temporal-attention probabilities;
+* a guided step runs the unconditional forward without grad, then the
+  conditional forward under autograd and ``torch.autograd.grad`` of the
+  motion-guidance loss with respect to the latents (up blocks after the
+  last guidance block run without grad), scales the gradient by the step's
+  warm-up/cool-down ramp, combines CFG as ``cond + s * (cond - uncond)``
+  and takes the DDIM step with the gradient as score;
+* a vanilla step is one batch-2 CFG forward and a DDIM step;
+* ``sample`` runs the guided phase then the vanilla phase as a Python loop.
+
+The lower-level functions take explicit noise and latents, so tests can
+feed numpy inputs.  Entry points run on CUDA unless ``device="cpu"`` is
+passed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from motionclone_tpu_torch.config import InferenceConfig, NoiseScheduleConfig, UNet3DConfig
+from motionclone_tpu_torch.diffusion.ddim import (
+    add_noise,
+    build_timesteps,
+    ddim_step,
+    make_ddim_params,
+    prev_timesteps,
+)
+from motionclone_tpu_torch.diffusion.guidance import (
+    motion_guidance_loss,
+    ramp_scales,
+    sparsify_top1,
+)
+from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
+
+MotionRep = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for CUDA on a machine without it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available on this machine; pass device='cpu' to run "
+            "the port on the CPU (with the kernels' plain PyTorch versions)"
+        )
+    return dev
+
+
+def guidance_cut_index(guidance_blocks: Tuple[str, ...]) -> int:
+    """Index of the last up block needed for the guidance features: the
+    trailing integer of the last entry."""
+    return int(guidance_blocks[-1].rsplit(".", 1)[-1])
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingFns:
+    extract: Callable[..., MotionRep]
+    guided_step: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+    vanilla_step: Callable[..., torch.Tensor]
+    sample: Callable[..., torch.Tensor]
+    timesteps: np.ndarray
+
+
+def make_sampling_fns(
+    unet: UNet3DConditionModel,
+    sched_cfg: NoiseScheduleConfig,
+    infer_cfg: InferenceConfig,
+) -> SamplingFns:
+    """Build extract / guided_step / vanilla_step / sample around ``unet``
+    (its parameters' device and dtype set where the work runs)."""
+    device = unet.conv_in.weight.device
+    ddim = make_ddim_params(sched_cfg, device)
+    guidance = tuple(infer_cfg.motion_guidance_blocks)
+    cut = guidance_cut_index(guidance)
+    cfg_scale = infer_cfg.cfg_scale
+    timesteps = build_timesteps(
+        infer_cfg.inference_steps,
+        sched_cfg.num_train_timesteps,
+        guidance_steps=infer_cfg.guidance_steps,
+        guidance_fraction=infer_cfg.guidance_fraction,
+        steps_offset=sched_cfg.steps_offset,
+        spacing="uneven",
+    )
+    t_prev = prev_timesteps(timesteps)
+    ramps = ramp_scales(
+        infer_cfg.guidance_steps, infer_cfg.warm_up_steps, infer_cfg.cool_up_steps
+    )
+    g = infer_cfg.guidance_steps
+
+    def extract(video_latents, noise, uncond_emb) -> MotionRep:
+        with torch.no_grad():
+            noisy = add_noise(ddim, infer_cfg.add_noise_step, video_latents, noise)
+            _, probs = unet(noisy, infer_cfg.add_noise_step, uncond_emb,
+                            guidance_blocks=guidance, max_up_block=cut)
+        return {k: sparsify_top1(p) for k, p in probs.items()}
+
+    def guided_step(latents, t: int, tp: int, ramp: float, uncond_emb, cond_emb,
+                    motion_rep: MotionRep):
+        """Returns (new latents, guidance loss)."""
+        with torch.no_grad():
+            uncond_pred, _ = unet(latents, t, uncond_emb)
+        with torch.enable_grad():
+            leaf = latents.detach().requires_grad_(True)
+            cond_pred, probs = unet(leaf, t, cond_emb, guidance_blocks=guidance,
+                                    post_guidance_cut=cut)
+            loss = infer_cfg.motion_guidance_weight * motion_guidance_loss(
+                probs, motion_rep
+            )
+            (grad,) = torch.autograd.grad(loss, leaf)
+        grad = grad * ramp  # the loss ramp scales the score linearly
+        cond_pred = cond_pred.detach()
+        noise_pred = cond_pred + cfg_scale * (cond_pred - uncond_pred)
+        new = ddim_step(ddim, noise_pred, t, tp, latents, score=grad,
+                        guidance_scale=1.0)
+        return new, loss.detach()
+
+    def vanilla_step(latents, t: int, tp: int, uncond_emb, cond_emb):
+        b = latents.shape[0]
+        with torch.no_grad():
+            pred2, _ = unet(torch.cat([latents, latents]), t,
+                            torch.cat([uncond_emb, cond_emb]))
+        uncond_pred, cond_pred = pred2[:b], pred2[b:]
+        noise_pred = cond_pred + cfg_scale * (cond_pred - uncond_pred)
+        return ddim_step(ddim, noise_pred, t, tp, latents)
+
+    def sample(init_latents, uncond_emb, cond_emb, motion_rep: MotionRep,
+               on_step: Optional[Callable[[int, bool], None]] = None):
+        """Guided then vanilla phase; ``on_step(index, guided)`` is called
+        after each step."""
+        latents = init_latents  # init_noise_sigma == 1 for DDIM
+        for i, (t, tp) in enumerate(zip(timesteps.tolist(), t_prev.tolist())):
+            if i < g:
+                latents, _ = guided_step(latents, t, tp, float(ramps[i]),
+                                         uncond_emb, cond_emb, motion_rep)
+            else:
+                latents = vanilla_step(latents, t, tp, uncond_emb, cond_emb)
+            if on_step is not None:
+                on_step(i, i < g)
+        return latents
+
+    return SamplingFns(extract=extract, guided_step=guided_step,
+                       vanilla_step=vanilla_step, sample=sample,
+                       timesteps=timesteps)
+
+
+class MotionClonePipeline:
+    """Host-side orchestration: seeds, text and VAE integration.
+
+    ``unet`` (and the optional ``vae`` / ``text_encoder``) are moved to
+    ``device`` and ``dtype``; the default is CUDA in bfloat16.
+    """
+
+    def __init__(
+        self,
+        unet_cfg: UNet3DConfig,
+        sched_cfg: NoiseScheduleConfig,
+        infer_cfg: InferenceConfig,
+        unet: UNet3DConditionModel,
+        *,
+        vae=None,
+        text_encoder=None,
+        device="cuda",
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        infer_cfg.validate()
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.unet_cfg, self.sched_cfg, self.infer_cfg = unet_cfg, sched_cfg, infer_cfg
+        self.unet = unet.to(device=self.device, dtype=dtype).eval()
+        self.vae = None if vae is None else vae.to(device=self.device, dtype=dtype).eval()
+        self.text_encoder = (
+            None if text_encoder is None
+            else text_encoder.to(device=self.device, dtype=dtype).eval()
+        )
+        self.fns = make_sampling_fns(self.unet, sched_cfg, infer_cfg)
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    @torch.no_grad()
+    def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token ids (B, 77) -> text embeddings (B, 77, hidden)."""
+        return self.text_encoder(input_ids.to(self.device))
+
+    @torch.no_grad()
+    def encode_video(self, video: torch.Tensor, seed: int) -> torch.Tensor:
+        """Pixels (F, H, W, 3) in [-1, 1] -> scaled latents (1, F, h, w, 4)
+        with a posterior draw."""
+        from motionclone_tpu_torch.models.vae import sample_latents
+
+        x = video.to(device=self.device, dtype=self.dtype)[None]
+        mean, logvar = self.vae.encode(x)
+        z = sample_latents(mean, logvar, self._generator(seed))
+        return z * self.vae.cfg.scaling_factor
+
+    @torch.no_grad()
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """Latents (1, F, h, w, 4) -> pixels (F, H, W, 3) in [-1, 1]."""
+        z = latents.to(self.dtype) / self.vae.cfg.scaling_factor
+        return self.vae.decode(z)[0]
+
+    def extract_motion_representation(
+        self, video_latents: torch.Tensor, uncond_emb: torch.Tensor, seed: int
+    ) -> MotionRep:
+        """One truncated forward -> the sparse motion representation."""
+        noise = torch.randn(video_latents.shape, generator=self._generator(seed),
+                            device=self.device)
+        return self.fns.extract(video_latents.to(self.dtype), noise.to(self.dtype),
+                                uncond_emb.to(self.dtype))
+
+    def sample_latents(
+        self, uncond_emb: torch.Tensor, cond_emb: torch.Tensor,
+        motion_rep: MotionRep, seed: int,
+        on_step: Optional[Callable[[int, bool], None]] = None,
+    ) -> torch.Tensor:
+        """Guided DDIM sampling from seeded noise -> final latents."""
+        cfg = self.infer_cfg
+        shape = (1, cfg.video_length, cfg.height // 8, cfg.width // 8,
+                 self.unet_cfg.in_channels)
+        latents = torch.randn(shape, generator=self._generator(seed),
+                              device=self.device).to(self.dtype)
+        return self.fns.sample(latents, uncond_emb.to(self.dtype),
+                               cond_emb.to(self.dtype), motion_rep, on_step=on_step)
