@@ -8,9 +8,13 @@ Phase 1  build: compiles motionclone_tpu_torch/csrc/*.cu with nvcc for
          sm_90a (one process per source) and prints the seconds it took.
 Phase 2  kernels: each of the four kernels (flash fwd/bwd, temporal fwd/bwd)
          at every shape the main path gives it, held against its plain
-         PyTorch version on the same bf16 inputs, with times beside the
-         bound (989 TFLOP/s bf16, 3.35 TB/s) and, for flash forward, the
-         time of F.scaled_dot_product_attention as a yardstick.
+         PyTorch version on the same bf16 inputs over the whole batch, with
+         times beside the bound (989 TFLOP/s bf16, 3.35 TB/s) and beside
+         PyTorch's own attention as a yardstick that the port never calls:
+         F.scaled_dot_product_attention for the forwards, the aten flash
+         attention backward op (fed its own forward's out and LSE) for the
+         backwards.  Temporal attention is handed to them as a strided
+         (B, S*heads, F, D) view of its (B, F, S, heads*D) tensors.
 Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          width, 512x512x16 frames, random weights from a seed: CLIP on random
          token ids for the CFG pair, VAE encode of a random video,
@@ -19,6 +23,10 @@ Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          its shape, and each kernel must have launched in this phase.
 Phase 4  reference: the port on the card (bf16, kernels) against the port
          on the CPU (f32, plain versions) at reduced depth and size.
+Phase 5  only with ``--profile DIR``: one guided and one vanilla step of the
+         main path's pipeline under torch.profiler: wall time, the device's
+         busy and idle share, device time by category and the top kernels,
+         and a chrome trace per step in DIR.
 
 The line before the last is the kernels JSON; the last line is the result
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -27,10 +35,13 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import torch
 
@@ -90,6 +101,38 @@ def max_err(got, ref) -> tuple:
     return err, ATOL + RTOL * mag
 
 
+def batch_slices(b: int, nb: int):
+    """Slices of at most ``nb`` that cover the whole batch: they bound the
+    plain version's (nb, heads, S, S) f32 logits at S = 4096."""
+    return [slice(i, min(i + nb, b)) for i in range(0, b, nb)]
+
+
+def flash_view(x, b, s, d):
+    """(B, S, heads*D) -> the (B, heads, S, D) view PyTorch's attention takes."""
+    return x.view(b, s, HEADS, d).transpose(1, 2)
+
+
+def temporal_view(x, b, f, s, d):
+    """(B, F, S, heads*D) -> a (B, S*heads, F, D) view: one attention over
+    the F frames per (pixel, head), as the temporal kernels compute."""
+    return x.view(b, f, s * HEADS, d).transpose(1, 2)
+
+
+def library_bwd(q4, k4, v4, do4, scale):
+    """(ms, (dq, dk, dv)) of PyTorch's flash attention backward on 4-D
+    views, fed the out and LSE of its own forward."""
+    aten = torch.ops.aten
+    out, lse, cq, ck, mq, mk, seed, offset = aten._scaled_dot_product_flash_attention(
+        q4, k4, v4, 0.0, False, False, scale=scale)[:8]
+
+    def run():
+        return aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset,
+            scale=scale)
+
+    return time_ms(run), run()
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -108,12 +151,13 @@ def check_kernels(dev) -> dict:
 
     rows = {}
 
-    def record(name, shape, err, tol, ms, plain_ms, b_ms, b_by, lib_ms):
+    def record(name, shape, err, tol, ms, plain_ms, b_ms, b_by, lib_ms, lib_dev):
         ok = err <= tol
         log(
             f"kernel {name:13s} shape={shape} max_abs_err={err:.3e} tol={tol:.3e} "
             f"{'OK' if ok else 'FAIL'} kernel_ms={ms:.4f} plain_ms={fmt(plain_ms)} "
-            f"bound_ms={b_ms:.4f} ({b_by}) library_ms={fmt(lib_ms)}"
+            f"bound_ms={b_ms:.4f} ({b_by}) library_ms={fmt(lib_ms)} "
+            f"library_vs_kernel={lib_dev:.3e}"
         )
         if not ok:
             raise AssertionError(f"{name} at {shape}: error {err} > tolerance {tol}")
@@ -131,22 +175,28 @@ def check_kernels(dev) -> dict:
             q, k, v = randn(b, s, hd), randn(b, s, hd), randn(b, s, hd)
             out, lse = fa.flash_fwd(q, k, v, HEADS, scale)
             torch.cuda.synchronize()
-            nb = 2 if s == 4096 else b  # batch slice bounds the plain version's memory
-            ref_out, ref_lse = fa.flash_attention_plain(q[:nb], k[:nb], v[:nb], HEADS, scale)
-            err, tol = max_err((out[:nb],), (ref_out,))
-            lse_err = (lse[:nb] - ref_lse).abs().max().item()
+            got, ref, lse_err = [], [], 0.0
+            for sl in batch_slices(b, 4 if s == 4096 else b):
+                ref_out, ref_lse = fa.flash_attention_plain(q[sl], k[sl], v[sl], HEADS, scale)
+                got.append(out[sl])
+                ref.append(ref_out)
+                lse_err = max(lse_err, (lse[sl] - ref_lse).abs().max().item())
+            err, tol = max_err(got, ref)
             if lse_err > 1e-2:
                 raise AssertionError(f"flash_fwd lse error {lse_err} at {(b, s, hd)}")
-            del ref_out, ref_lse
+            del got, ref, ref_out, ref_lse
             ms = time_ms(lambda: fa.flash_fwd(q, k, v, HEADS, scale))
             plain_ms = None  # the plain (B, heads, S, S) f32 logits would pass 40 GB
             if b * s * s <= 16 * 4096 * 4096:
                 plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, HEADS, scale),
                                    reps=3, warmup=1)
-            q4, k4, v4 = (x.view(b, s, HEADS, d).transpose(1, 2) for x in (q, k, v))
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+            q4, k4, v4 = (flash_view(x, b, s, d) for x in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            lib_ms = time_ms(lib)
+            lib_dev = (lib().transpose(1, 2).reshape(b, s, hd).float() - out.float()).abs().max().item()
             b_ms, b_by = bound(4 * b * s * s * hd, (4 * b * s * hd) * 2 + b * HEADS * s * 4)
-            record("flash_fwd", (b, s, HEADS, d), err, tol, ms, plain_ms, b_ms, b_by, lib_ms)
+            record("flash_fwd", (b, s, HEADS, d), err, tol, ms, plain_ms, b_ms, b_by,
+                   lib_ms, lib_dev)
             torch.cuda.empty_cache()
 
         # flash backward, B*F = 16 (the cond pass)
@@ -155,18 +205,26 @@ def check_kernels(dev) -> dict:
         out, lse = fa.flash_fwd(q, k, v, HEADS, scale)
         grads = fa.flash_bwd(q, k, v, out, lse, dout, HEADS, scale)
         torch.cuda.synchronize()
-        nb = 2 if s == 4096 else b
-        ref = fa.flash_attention_bwd_plain(q[:nb], k[:nb], v[:nb], dout[:nb], HEADS, scale)
-        err, tol = max_err(tuple(g[:nb] for g in grads), ref)
-        del ref
+        got, ref = [], []
+        for sl in batch_slices(b, 2 if s == 4096 else b):
+            got.extend(g[sl] for g in grads)
+            ref.extend(fa.flash_attention_bwd_plain(q[sl], k[sl], v[sl], dout[sl], HEADS, scale))
+        err, tol = max_err(got, ref)
+        del got, ref
         ms = time_ms(lambda: fa.flash_bwd(q, k, v, out, lse, dout, HEADS, scale))
         plain_ms = time_ms(
             lambda: fa.flash_attention_bwd_plain(q, k, v, dout, HEADS, scale),
             reps=2, warmup=1,
         )
+        lib_ms, lib_grads = library_bwd(*(flash_view(x, b, s, d) for x in (q, k, v, dout)),
+                                        scale)
+        lib_dev = max((lg.transpose(1, 2).reshape(b, s, hd).float() - g.float()).abs().max().item()
+                      for lg, g in zip(lib_grads, grads))
+        del lib_grads
         b_ms, b_by = bound(10 * b * s * s * hd,
                            (8 * b * s * hd) * 2 + b * HEADS * s * 4)
-        record("flash_bwd", (b, s, HEADS, d), err, tol, ms, plain_ms, b_ms, b_by, None)
+        record("flash_bwd", (b, s, HEADS, d), err, tol, ms, plain_ms, b_ms, b_by,
+               lib_ms, lib_dev)
         torch.cuda.empty_cache()
 
         # temporal forward, batch 1 (one CFG half) and 2 (the vanilla pair)
@@ -182,9 +240,15 @@ def check_kernels(dev) -> dict:
                 raise AssertionError(f"temporal_fwd lse error {lse_err} at {(b, f, s, hd)}")
             ms = time_ms(lambda: ta.temporal_fwd(q, k, v, HEADS, scale), reps=20)
             plain_ms = time_ms(lambda: ta.temporal_attention_plain(q, k, v, HEADS, scale))
+            q4, k4, v4 = (temporal_view(x, b, f, s, d) for x in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            lib_ms = time_ms(lib, reps=20)
+            lib_dev = (lib().transpose(1, 2).reshape(b, f, s, hd).float()
+                       - out.float()).abs().max().item()
             b_ms, b_by = bound(4 * b * s * HEADS * f * f * d,
                                (4 * b * f * s * hd) * 2 + b * s * HEADS * f * 4)
-            record("temporal_fwd", (b, f, s, hd), err, tol, ms, plain_ms, b_ms, b_by, None)
+            record("temporal_fwd", (b, f, s, hd), err, tol, ms, plain_ms, b_ms, b_by,
+                   lib_ms, lib_dev)
 
         # temporal backward, batch 1 (the cond pass)
         b = 1
@@ -196,9 +260,14 @@ def check_kernels(dev) -> dict:
         err, tol = max_err(grads, ref)
         ms = time_ms(lambda: ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale), reps=20)
         plain_ms = time_ms(lambda: ta.temporal_attention_bwd_plain(q, k, v, dout, HEADS, scale))
+        lib_ms, lib_grads = library_bwd(
+            *(temporal_view(x, b, f, s, d) for x in (q, k, v, dout)), scale)
+        lib_dev = max((lg.transpose(1, 2).reshape(b, f, s, hd).float() - g.float()).abs().max().item()
+                      for lg, g in zip(lib_grads, grads))
         b_ms, b_by = bound(10 * b * s * HEADS * f * f * d,
                            (7 * b * f * s * hd) * 2 + b * s * HEADS * f * 4)
-        record("temporal_bwd", (b, f, s, hd), err, tol, ms, plain_ms, b_ms, b_by, None)
+        record("temporal_bwd", (b, f, s, hd), err, tol, ms, plain_ms, b_ms, b_by,
+               lib_ms, lib_dev)
         torch.cuda.empty_cache()
     return rows
 
@@ -248,9 +317,10 @@ def t2v_config(**overrides):
     return InferenceConfig(**kw)
 
 
-def main_path(dev, wrappers) -> dict:
+def main_path(dev, wrappers, profile_dir=None) -> dict:
     """Text embeddings, VAE encode, extraction, 2 guided + 2 vanilla steps
-    and VAE decode at 512x512x16 frames, through the port's entry points."""
+    and VAE decode at 512x512x16 frames, through the port's entry points;
+    then, with ``profile_dir``, phase 5 on the same pipeline."""
     from motionclone_tpu_torch.config import NoiseScheduleConfig, UNet3DConfig
     from motionclone_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
     from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
@@ -340,7 +410,69 @@ def main_path(dev, wrappers) -> dict:
     log(f"peak device memory: {peak_gb:.2f} GB")
     log(f"launches in extraction: {counts_after_extract}")
     log(f"launches on the main path: {launches}")
+    if profile_dir is not None:
+        t, tp = (int(x) for x in pipe.fns.timesteps[:2])
+        lat = out.to(dtype)
+        profile_steps(profile_dir, {
+            "guided step": lambda: pipe.fns.guided_step(lat, t, tp, 1.0, uncond, cond, rep),
+            "vanilla step": lambda: pipe.fns.vanilla_step(lat, t, tp, uncond, cond),
+        })
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5 (--profile): where a guided and a vanilla step spend the card's time
+# ---------------------------------------------------------------------------
+
+
+def category(name: str) -> str:
+    n = name.lower()
+    if "flash_" in n and "kernel" in n:
+        return "flash attention (port kernels)"
+    if "temporal_" in n and "kernel" in n:
+        return "temporal attention (port kernels)"
+    if "conv" in n or "implicit" in n or "wgrad" in n or "dgrad" in n or "xmma" in n:
+        return "convolution"
+    if "gemm" in n or "cutlass" in n or "sm90_" in n or "nvjet" in n:
+        return "matrix product"
+    if "reduce" in n or "norm" in n:
+        return "reduction / norm"
+    if "elementwise" in n or "vectorized" in n or "unrolled" in n:
+        return "elementwise"
+    if "copy" in n or "memcpy" in n or "memset" in n or "cat" in n:
+        return "copy / layout"
+    return "other"
+
+
+def profile_steps(out_dir: str, steps: dict) -> None:
+    """Each step once under torch.profiler (the main path has warmed them
+    up): wall time, device busy and idle share, device time by category and
+    the top kernels; a chrome trace per step in ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, fn in steps.items():
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        by_kernel = defaultdict(float)
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                by_kernel[evt.name] += evt.device_time_total / 1e3  # ms
+        busy = sum(by_kernel.values())
+        log(f"profile {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+            f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
+        cats = defaultdict(float)
+        for name, ms in by_kernel.items():
+            cats[category(name)] += ms
+        for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
+            log(f"  {cat:36s} {ms:9.2f} ms {100 * ms / busy:5.1f}%")
+        log("  top kernels:")
+        for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"    {ms:8.2f} ms  {name[:110]}")
+        prof.export_chrome_trace(os.path.join(out_dir, label.replace(" ", "_") + ".json"))
 
 
 def reference_check(dev) -> None:
@@ -421,6 +553,11 @@ KERNELS = {
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", metavar="DIR", default=None,
+                        help="also profile one guided and one vanilla step, "
+                             "writing chrome traces to DIR (phase 5)")
+    args = parser.parse_args()
     # phase 0: device
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -456,7 +593,7 @@ def main() -> int:
                 "temporal_fwd": ta.temporal_fwd, "temporal_bwd": ta.temporal_bwd}
     # phase 3: the main path (the only window the launch counts cover)
     t0 = time.perf_counter()
-    launches = main_path(dev, wrappers)
+    launches = main_path(dev, wrappers, args.profile)
     log(f"phase main path: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     # phase 4: the card against the CPU at a reduced depth

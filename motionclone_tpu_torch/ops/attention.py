@@ -22,6 +22,18 @@ import torch
 from motionclone_tpu_torch.ops.flash_attention import flash_attention
 
 
+def attention_probs(
+    q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None
+) -> torch.Tensor:
+    """Full attention probability maps in float32: q/k (batch, seq, heads,
+    head_dim) -> (batch, heads, seq_q, seq_k), with an explicit softmax that
+    autograd differentiates."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    return torch.softmax(logits * scale, dim=-1)
+
+
 def plain_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float
 ) -> torch.Tensor:
@@ -30,12 +42,9 @@ def plain_attention(
     b, sq, hd = q.shape
     sk = k.shape[1]
     d = hd // heads
-    qh = q.reshape(b, sq, heads, d)
-    kh = k.reshape(b, sk, heads, d)
+    probs = attention_probs(q.reshape(b, sq, heads, d), k.reshape(b, sk, heads, d), scale)
     vh = v.reshape(b, sk, heads, d)
-    logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * scale
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(b, sq, hd)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), vh).reshape(b, sq, hd)
 
 
 def dot_product_attention(
@@ -50,14 +59,3 @@ def dot_product_attention(
         return plain_attention(q, k, v, heads, scale)
     raise ValueError(f"unknown attention impl: {impl}")
 
-
-def attention_probs(
-    q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None
-) -> torch.Tensor:
-    """Full attention probability maps in float32: q/k (batch, seq, heads,
-    head_dim) -> (batch, heads, seq_q, seq_k), with an explicit softmax that
-    autograd differentiates."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    return torch.softmax(logits * scale, dim=-1)

@@ -32,8 +32,7 @@ def _imported_roots(tree: ast.AST):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py",
-                                              ROOT / "scripts" / "profile_torch_port.py"],
+@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
