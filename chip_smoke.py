@@ -6,23 +6,34 @@ Phase 0  device: exits non-zero without CUDA; prints the card's name and
          power limit (nvidia-smi).
 Phase 1  build: compiles motionclone_tpu_torch/csrc/*.cu with nvcc for
          sm_90a (one process per source) and prints the seconds it took.
-Phase 2  kernels: each of the four kernels (flash fwd/bwd, temporal fwd/bwd)
-         at every shape the main path gives it, held against its plain
-         PyTorch version on the same bf16 inputs over the whole batch, with
-         times beside the bound (989 TFLOP/s bf16, 3.35 TB/s) and beside
-         PyTorch's own attention as a yardstick that the port never calls:
+Phase 2  kernels: each of the eight kernels at every shape the main path
+         gives it, held against its plain PyTorch version on the same bf16
+         inputs over the whole batch, with times beside the bound
+         (989 TFLOP/s bf16, 3.35 TB/s).  The attention kernels (flash
+         fwd/bwd, temporal fwd/bwd) are also timed beside PyTorch's own
+         attention as a yardstick that the port never calls:
          F.scaled_dot_product_attention for the forwards, the aten flash
          attention backward op (fed its own forward's out and LSE) for the
-         backwards.  Temporal attention is handed to them as a strided
-         (B, S*heads, F, D) view of its (B, F, S, heads*D) tensors.
+         backwards; temporal attention is handed to them as a strided
+         (B, S*heads, F, D) view of its (B, F, S, heads*D) tensors.  The
+         fused modules (spatial transformer, transformer block, motion
+         module, resnet) have no single PyTorch call to compare with; they
+         are timed beside the port's unfused module on the same input.
 Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          width, 512x512x16 frames, random weights from a seed: CLIP on random
          token ids for the CFG pair, VAE encode of a random video,
          extraction, 2 guided + 2 vanilla DDIM steps (the t2v_camera schedule
-         cut from 100 steps), VAE decode.  Every output must be finite and of
-         its shape, and each kernel must have launched in this phase.
-Phase 4  reference: the port on the card (bf16, kernels) against the port
-         on the CPU (f32, plain versions) at reduced depth and size.
+         cut from 100 steps) on the default path (the fused modules), VAE
+         decode.  Every output must be finite and of its shape, and each
+         kernel of the path must have launched in this phase (the fused
+         transformer block is off the SD1.5 path; phase 4 drives it).  Then
+         steady guided and vanilla steps of the fused and the unfused
+         ("flash") path, in turns, with their peak memory.
+Phase 4  reference: the port on the card (bf16, kernels), on its default
+         fused path and on its "flash" path, against the port on the CPU
+         (f32, plain versions, unfused) at reduced depth and size; and one
+         linear-projection Transformer3DModel, whose block is the fused
+         transformer block, on the card against the CPU.
 Phase 5  only with ``--profile DIR``: one guided and one vanilla step of the
          main path's pipeline under torch.profiler: wall time, the device's
          busy and idle share, device time by category and the top kernels,
@@ -57,6 +68,21 @@ HEADS = 8
 # 2**-8 relative, so errors scale with the output's magnitude
 RTOL = 2e-2
 ATOL = 2e-3
+FRAMES = 16
+# (H = W, C) of the fused spatial transformer and motion module at 512x512
+FUSED_SHAPES = ((64, 320), (32, 640))
+# (H = W, Cin, Cout) of every resnet the fused route takes at 512x512
+RESNET_SHAPES = ((64, 320, 320), (64, 960, 320), (64, 640, 320),
+                 (32, 320, 640), (32, 640, 640), (32, 1920, 640),
+                 (32, 1280, 640), (32, 960, 640), (16, 640, 1280))
+# launches predicted from the JAX package's routing for extraction + 2
+# guided + 2 vanilla steps (extraction / per guided step / per vanilla step)
+PREDICTED_LAUNCHES = {
+    "fused_spatial_transformer": (0, 16, 10), "fused_temporal_module": (0, 16, 10),
+    "fused_resnet_block": (0, 17, 11), "flash_fwd": (10, 16, 6),
+    "flash_bwd": (0, 10, 0), "temporal_fwd": (22, 42, 20), "temporal_bwd": (0, 22, 0),
+    "fused_transformer_block": (0, 0, 0),
+}
 
 
 def log(msg: str) -> None:
@@ -272,6 +298,143 @@ def check_kernels(dev) -> dict:
     return rows
 
 
+def module_on_card(ctor, dev, gen):
+    """A port module with seeded random weights (init_scaled_), bf16 on the
+    card, in eval mode."""
+    with torch.device("meta"):
+        m = ctor()
+    m.to_empty(device=dev)
+    init_scaled_(m, gen)
+    return m.to(torch.bfloat16).eval()
+
+
+def check_fused_kernels(dev) -> dict:
+    """Kernels 5-8 at every main-path shape, over the whole batch, against
+    their plain versions on the same bf16 inputs and weights (the module's
+    own weights in the kernel's layout), timed beside the port's unfused
+    module on the same input."""
+    from motionclone_tpu_torch.config import MotionModuleConfig
+    from motionclone_tpu_torch.models.attention import Transformer3DModel
+    from motionclone_tpu_torch.models.motion_module import TemporalTransformer3D
+    from motionclone_tpu_torch.models.resnet import ResnetBlock3D
+    from motionclone_tpu_torch.ops import fused_block as fb
+    from motionclone_tpu_torch.ops import fused_resnet as fr
+    from motionclone_tpu_torch.ops import fused_temporal as ft
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    def run(name, shape, kernel, plain, slices, unfused, flops, nbytes, main):
+        """``plain(sl)`` is the plain version on batch slice ``sl``; the
+        plain time is the sum over the slices."""
+        out = kernel()
+        torch.cuda.synchronize()
+        got, ref = [], []
+        for sl in slices:
+            ref.append(plain(sl))
+            got.append(out[sl])
+        err, tol = max_err(got, ref)
+        del got, ref, out
+        ms = time_ms(kernel, reps=5, warmup=1)
+        plain_ms = sum(time_ms(lambda: plain(sl), reps=2, warmup=1) for sl in slices)
+        unfused_ms = time_ms(unfused, reps=5, warmup=1)
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"kernel {name:25s} shape={shape} max_abs_err={err:.3e} tol={tol:.3e} "
+            f"{'OK' if err <= tol else 'FAIL'} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) unfused_ms={unfused_ms:.4f} library_ms=null")
+        if err > tol:
+            raise AssertionError(f"{name} at {shape}: error {err} > tolerance {tol}")
+        if main and name not in rows:
+            rows[name] = dict(shape=list(shape), max_abs_err=err, ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=None, unfused_ms=unfused_ms)
+        torch.cuda.empty_cache()
+
+    def frame_slices(bf, s):
+        # slices of 4 frames bound the plain attention's (4, 8, S, S) f32
+        # logits at S = 4096 (2.1 GB)
+        n = 4 if s == 4096 else FRAMES
+        return [slice(i, i + n) for i in range(0, bf, n)]
+
+    with torch.no_grad():
+        for hw, c in FUSED_SHAPES:
+            s, d = hw * hw, c // HEADS
+            m = module_on_card(lambda: Transformer3DModel(c, HEADS, d), dev, gen)
+            blk = m.transformer_blocks[0]
+            wt, wb = m.fused_weights(bf16), blk.fused_weights(bf16)
+            for b in (1, 2):
+                bf = b * FRAMES
+                x, ctx = randn(bf, s, c), randn(b, 77, 768)
+                x5 = x.view(b, FRAMES, hw, hw, c)
+                slices = frame_slices(bf, s)
+
+                def ctx_of(sl):  # the text of the videos the slice's frames belong to
+                    return ctx[sl.start // FRAMES: (sl.stop - 1) // FRAMES + 1]
+
+                def frames_of(sl):
+                    return min(FRAMES, sl.stop - sl.start)
+
+                mm = 2 * bf * s * c * c  # flops of one C x C product over all rows
+                attn = 4 * bf * s * s * c + 4 * bf * s * 77 * c + 4 * b * 77 * 768 * c
+                wbytes = 2 * (20 * c * c + 2 * 768 * c)
+                run("fused_spatial_transformer", (bf, s, c),
+                    lambda: fb.fused_spatial_transformer_kernel(
+                        x, ctx, wt, heads=HEADS, groups=32, frames=FRAMES),
+                    lambda sl: fb.fused_spatial_transformer_plain(
+                        x[sl], ctx_of(sl), wt, heads=HEADS, groups=32, frames=frames_of(sl)),
+                    slices, lambda: m(x5, ctx, "flash"),
+                    20 * mm + attn, 2 * 2 * bf * s * c + 2 * b * 77 * 768 + wbytes, True)
+                # the block alone (kernel 6): off the SD1.5 path, checked at
+                # the same shapes
+                ctx_f = ctx.repeat_interleave(FRAMES, dim=0)
+                run("fused_transformer_block", (bf, s, c),
+                    lambda: fb.fused_transformer_block_kernel(
+                        x, ctx, wb, heads=HEADS, frames=FRAMES),
+                    lambda sl: fb.fused_transformer_block_plain(
+                        x[sl], ctx_of(sl), wb, heads=HEADS, frames=frames_of(sl)),
+                    slices, lambda: blk(x, ctx_f),
+                    18 * mm + attn, 2 * 2 * bf * s * c + 2 * b * 77 * 768 + wbytes,
+                    True)
+                del x, x5, ctx, ctx_f
+
+            mc = module_on_card(lambda: TemporalTransformer3D(c, MotionModuleConfig()),
+                                dev, gen)
+            for b in (1, 2):
+                x = randn(b, FRAMES, s, c)
+                x5 = x.view(b, FRAMES, hw, hw, c)
+                wm = mc.fused_weights(x5)
+                m_rows = b * FRAMES * s
+                run("fused_temporal_module", (b, FRAMES, s, c),
+                    lambda: ft.fused_temporal_kernel(x, wm, heads=HEADS, groups=32),
+                    lambda sl: ft.fused_temporal_module_plain(
+                        x[sl], wm, heads=HEADS, groups=32),
+                    [slice(0, b)], lambda: mc(x5),
+                    44 * m_rows * c * c + 2 * 4 * b * s * FRAMES * FRAMES * c,
+                    2 * 2 * m_rows * c + 2 * 22 * c * c, True)
+                del x, x5
+
+        for hw, cin, cout in RESNET_SHAPES:
+            m = module_on_card(lambda: ResnetBlock3D(cin, cout, 1280), dev, gen)
+            w = m.fused_weights(bf16)
+            for b in (1, 2):
+                x, temb = randn(b, FRAMES, hw, hw, cin), randn(b, 1280)
+                t = m.time_emb_proj(torch.nn.functional.silu(temb))
+                pix = b * FRAMES * hw * hw
+                macs = 9 * cin * cout + 9 * cout * cout + (cin * cout if cin != cout else 0)
+                run("fused_resnet_block", (b * FRAMES, hw, hw, cin, cout),
+                    lambda: fr.fused_resnet_kernel(x, t, w, groups=32, eps=1e-5),
+                    lambda sl: fr.fused_resnet_block_plain(x[sl], t[sl], w, groups=32, eps=1e-5),
+                    [slice(0, b)], lambda: m(x, temb, "flash"),
+                    2 * pix * macs, 2 * pix * (cin + cout) + 2 * macs + 2 * b * cout,
+                    hw == 64 and cin == cout)
+                del x, t, temb
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at SD1.5 + AnimateDiff v3 width
 # ---------------------------------------------------------------------------
@@ -399,7 +562,10 @@ def main_path(dev, wrappers, profile_dir=None) -> dict:
                 or int(idx.max()) >= 16:
             raise AssertionError(f"motion representation {name} malformed")
     for name, n in launches.items():
-        if n <= 0:
+        # the fused transformer block (kernel 6) is the linear-projection
+        # models' route; SD1.5's transformers take kernel 5 whole, so it
+        # launches in phases 2 and 4 only
+        if n <= 0 and name != "fused_transformer_block":
             raise AssertionError(f"kernel {name} was never launched on the main path")
 
     for name, sec in phases.items():
@@ -410,6 +576,13 @@ def main_path(dev, wrappers, profile_dir=None) -> dict:
     log(f"peak device memory: {peak_gb:.2f} GB")
     log(f"launches in extraction: {counts_after_extract}")
     log(f"launches on the main path: {launches}")
+    g, v = infer.guidance_steps, infer.inference_steps - infer.guidance_steps
+    for name, (ext, per_g, per_v) in PREDICTED_LAUNCHES.items():
+        want = ext + g * per_g + v * per_v
+        log(f"launches {name:25s} measured {launches[name]:4d} predicted {want:4d} "
+            f"(extraction {counts_after_extract[name]} / {ext})"
+            f"{'' if launches[name] == want else '  DIFFERS'}")
+    steady_steps(pipe, rep, uncond, cond, out.to(dtype))
     if profile_dir is not None:
         t, tp = (int(x) for x in pipe.fns.timesteps[:2])
         lat = out.to(dtype)
@@ -420,6 +593,39 @@ def main_path(dev, wrappers, profile_dir=None) -> dict:
     return launches
 
 
+def steady_steps(pipe, rep, uncond, cond, lat) -> None:
+    """One guided and one vanilla step of the fused (default) and the
+    unfused ("flash") path on the main path's pipeline, in turns (fused,
+    flash, flash, fused, after one warm-up round of each); ms per step and
+    peak memory per path."""
+    from motionclone_tpu_torch.config import NoiseScheduleConfig
+    from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns
+
+    paths = {"fused": pipe.fns,
+             "flash": make_sampling_fns(pipe.unet, NoiseScheduleConfig(), pipe.infer_cfg,
+                                        attention_impl="flash")}
+    t, tp = (int(x) for x in pipe.fns.timesteps[:2])
+    res = defaultdict(list)
+    for name in ("fused", "flash", "fused", "flash", "flash", "fused"):
+        fns = paths[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fns.guided_step(lat, t, tp, 1.0, uncond, cond, rep)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fns.vanilla_step(lat, t, tp, uncond, cond)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res[name].append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                          torch.cuda.max_memory_allocated() / 1e9))
+    for name, runs in res.items():
+        steady = runs[1:]  # the first round of each path is its warm-up
+        log(f"steady {name:5s} path: guided ms " + ", ".join(f"{r[0]:.1f}" for r in steady)
+            + "; vanilla ms " + ", ".join(f"{r[1]:.1f}" for r in steady)
+            + f"; peak device memory {max(r[2] for r in steady):.2f} GB")
+
+
 # ---------------------------------------------------------------------------
 # phase 5 (--profile): where a guided and a vanilla step spend the card's time
 # ---------------------------------------------------------------------------
@@ -427,6 +633,9 @@ def main_path(dev, wrappers, profile_dir=None) -> dict:
 
 def category(name: str) -> str:
     n = name.lower()
+    if "fz::" in n or "gemm_kernel" in n or "gn_partial" in n or "gn_finalize" in n \
+            or "row_stats" in n:
+        return "fused modules: products, norms (port kernels)"
     if "flash_" in n and "kernel" in n:
         return "flash attention (port kernels)"
     if "temporal_" in n and "kernel" in n:
@@ -475,14 +684,18 @@ def profile_steps(out_dir: str, steps: dict) -> None:
         prof.export_chrome_trace(os.path.join(out_dir, label.replace(" ", "_") + ".json"))
 
 
-def reference_check(dev) -> None:
+def reference_check(dev, wrappers) -> None:
     """The port on the card (bf16, kernels) against the port on the CPU
-    (f32, plain versions) at a reduced depth that keeps the card's kernel
-    shapes: SD1.5 channels 320/640, 8 heads (head dims 40/80), 16 frames,
-    16x16 latents; one guided and one vanilla step from the same inputs."""
+    (f32, plain versions, unfused) at a reduced depth that keeps the card's
+    kernel shapes: SD1.5 channels 320/640, 8 heads (head dims 40/80), 16
+    frames, 16x16 latents; one guided and one vanilla step from the same
+    inputs, on the card's default (fused) path and on its "flash" path.
+    Then one linear-projection Transformer3DModel (320 channels, 8 heads),
+    whose block takes kernel 6 on the fused path."""
     from motionclone_tpu_torch.config import NoiseScheduleConfig, UNet3DConfig
+    from motionclone_tpu_torch.models.attention import Transformer3DModel
     from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
-    from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns
+    from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns, resolve_impl
 
     cfg = UNet3DConfig(
         down_block_types=("CrossAttnDownBlock3D", "DownBlock3D"),
@@ -499,11 +712,14 @@ def reference_check(dev) -> None:
     shape = (1, 16, 16, 16, 4)
     lat, noise = torch.randn(shape, generator=gen), torch.randn(shape, generator=gen)
     uncond, cond = torch.randn(1, 77, 768, generator=gen), torch.randn(1, 77, 768, generator=gen)
-    results = {}
-    for name, unet, d in (("cpu", ref, "cpu"), ("cuda", card, dev)):
+    results, launches = {}, {}
+    for name, unet, d, impl in (("cpu", ref, "cpu", "auto"), ("card fused", card, dev, "auto"),
+                                ("card flash", card, dev, "flash")):
         # inputs and the DDIM step math stay f32 on both sides; only the
         # card's UNet computes in bf16
-        fns = make_sampling_fns(unet, NoiseScheduleConfig(), infer)
+        for w in wrappers.values():
+            w.launches = 0
+        fns = make_sampling_fns(unet, NoiseScheduleConfig(), infer, attention_impl=impl)
         mv = lambda x: x.to(device=d)
         rep = fns.extract(mv(lat), mv(noise), mv(uncond))
         t, tp = (int(x) for x in fns.timesteps[:2])
@@ -511,28 +727,58 @@ def reference_check(dev) -> None:
         t, tp = int(fns.timesteps[2]), int(fns.timesteps[3])
         vanilla = fns.vanilla_step(mv(lat), t, tp, mv(uncond), mv(cond))
         with torch.no_grad():
-            pred, _ = unet(mv(lat), t, mv(cond))
+            pred, _ = unet(mv(lat), t, mv(cond),
+                           attention_impl=resolve_impl(impl, torch.device(d)))
+        launches[name] = {n: w.launches for n, w in wrappers.items()}
         results[name] = {
             "rep_values": torch.cat([v.flatten() for v, _ in rep.values()]),
             "noise_pred": pred,
             "guided_update": guided - mv(lat), "vanilla_update": vanilla - mv(lat),
             "loss": loss.reshape(1),
         }
+    log(f"reference launches, card fused path: {launches['card fused']}")
+    for name in ("fused_spatial_transformer", "fused_temporal_module", "fused_resnet_block"):
+        if launches["card fused"][name] <= 0 or launches["card flash"][name]:
+            raise AssertionError(f"reference: {name} launched {launches['card fused'][name]} "
+                                 f"times on the fused path, {launches['card flash'][name]} "
+                                 f"on the flash path")
     # bf16 weights and activations through the whole depth against f32: a
     # few 1e-3 of relative error per layer, compounded.  The steps' updates
     # carry CFG, cond + 7.5 * (cond - uncond), which multiplies the error of
     # the small cond - uncond difference by 8.5, and the guidance gradient.
+    # The fused path rounds to bf16 where the unfused one does, so both
+    # paths are held to the same tolerances.
     tols = {"rep_values": 3e-2, "noise_pred": 3e-2, "guided_update": 1e-1,
             "vanilla_update": 1e-1, "loss": 1e-1}
-    for key, tol in tols.items():
-        a = results["cpu"][key].float()
-        b = results["cuda"][key].float().cpu()
-        rel = ((a - b).norm() / a.norm()).item()
-        ok = rel <= tol
-        log(f"reference {key}: relative L2 error {rel:.3e} (tol {tol:.0e}) "
-            f"{'OK' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"reference check {key}: {rel}")
+    for path in ("card fused", "card flash"):
+        for key, tol in tols.items():
+            a = results["cpu"][key].float()
+            b = results[path][key].float().cpu()
+            rel = ((a - b).norm() / a.norm()).item()
+            ok = rel <= tol
+            log(f"reference {path} {key}: relative L2 error {rel:.3e} (tol {tol:.0e}) "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"reference check {path} {key}: {rel}")
+
+    # kernel 6: the linear-projection model's block on the card
+    m_cpu = Transformer3DModel(320, HEADS, 320 // HEADS, use_linear_projection=True)
+    init_scaled_(m_cpu, gen)
+    m_card = Transformer3DModel(320, HEADS, 320 // HEADS, use_linear_projection=True)
+    m_card.load_state_dict(m_cpu.state_dict())
+    m_card = m_card.to(device=dev, dtype=torch.bfloat16).eval()
+    x, ctx = torch.randn(1, 16, 16, 16, 320, generator=gen), torch.randn(1, 77, 768, generator=gen)
+    before = wrappers["fused_transformer_block"].launches
+    with torch.no_grad():
+        want = m_cpu.eval()(x, ctx)
+        got = m_card(x.to(dev, torch.bfloat16), ctx.to(dev, torch.bfloat16), "fused")
+    n = wrappers["fused_transformer_block"].launches - before
+    rel = ((want - got.float().cpu()).norm() / want.norm()).item()
+    # one bf16 module against f32: a few 1e-3
+    log(f"reference linear-projection transformer (kernel 6, {n} launch): "
+        f"relative L2 error {rel:.3e} (tol 2e-02) {'OK' if rel <= 2e-2 else 'FAIL'}")
+    if n != 1 or rel > 2e-2:
+        raise AssertionError(f"reference kernel 6: {n} launches, error {rel}")
 
 
 # ---------------------------------------------------------------------------
@@ -549,6 +795,14 @@ KERNELS = {
                      "motionclone_tpu/ops/temporal_attention.py:147"),
     "temporal_bwd": ("motionclone_tpu_torch/csrc/temporal_attention.cu",
                      "motionclone_tpu/ops/temporal_attention.py:172"),
+    "fused_spatial_transformer": ("motionclone_tpu_torch/csrc/fused_block.cu",
+                                  "motionclone_tpu/ops/fused_block.py:306"),
+    "fused_transformer_block": ("motionclone_tpu_torch/csrc/fused_block.cu",
+                                "motionclone_tpu/ops/fused_block.py:387"),
+    "fused_temporal_module": ("motionclone_tpu_torch/csrc/fused_temporal.cu",
+                              "motionclone_tpu/ops/fused_temporal.py:171"),
+    "fused_resnet_block": ("motionclone_tpu_torch/csrc/fused_resnet.cu",
+                           "motionclone_tpu/ops/fused_resnet.py:200"),
 }
 
 
@@ -564,6 +818,9 @@ def main() -> int:
         return 1
     from motionclone_tpu_torch.ops import build as kbuild
     from motionclone_tpu_torch.ops import flash_attention as fa
+    from motionclone_tpu_torch.ops import fused_block as fb
+    from motionclone_tpu_torch.ops import fused_resnet as fr
+    from motionclone_tpu_torch.ops import fused_temporal as ft
     from motionclone_tpu_torch.ops import temporal_attention as ta
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -587,10 +844,15 @@ def main() -> int:
     # phase 2: kernels against their plain versions
     t0 = time.perf_counter()
     rows = check_kernels(dev)
+    rows.update(check_fused_kernels(dev))
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     wrappers = {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
-                "temporal_fwd": ta.temporal_fwd, "temporal_bwd": ta.temporal_bwd}
+                "temporal_fwd": ta.temporal_fwd, "temporal_bwd": ta.temporal_bwd,
+                "fused_spatial_transformer": fb.fused_spatial_transformer_kernel,
+                "fused_transformer_block": fb.fused_transformer_block_kernel,
+                "fused_temporal_module": ft.fused_temporal_kernel,
+                "fused_resnet_block": fr.fused_resnet_kernel}
     # phase 3: the main path (the only window the launch counts cover)
     t0 = time.perf_counter()
     launches = main_path(dev, wrappers, args.profile)
@@ -598,7 +860,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 4: the card against the CPU at a reduced depth
     t0 = time.perf_counter()
-    reference_check(dev)
+    reference_check(dev, wrappers)
     log(f"phase reference: {time.perf_counter() - t0:.1f} s")
 
     kernels = []

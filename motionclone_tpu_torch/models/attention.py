@@ -6,6 +6,13 @@ Submodule names follow the diffusers keys (``attn1.to_q``, ``attn1.to_out.0``,
 
 Self-attention (``attn1``) goes through the flash kernels at every
 resolution; cross-attention (``attn2``, 77 text tokens) is plain PyTorch.
+
+With ``impl="fused"``, under the JAX package's conditions and predicate
+(``ops/fused_block.supported``), a whole single-layer Transformer3DModel
+with 1x1-conv projections runs as kernel 5, and otherwise its
+BasicTransformerBlock as kernel 6 (the linear-projection models): forward
+only, on weights repacked once into the kernels' layout and cached on the
+module.  ``impl="flash"`` and every other shape run the unfused path.
 """
 
 from __future__ import annotations
@@ -17,7 +24,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from motionclone_tpu_torch.models.layers import GroupNorm, LayerNorm
+from motionclone_tpu_torch.ops import fused_block
 from motionclone_tpu_torch.ops.attention import dot_product_attention
+from motionclone_tpu_torch.ops.fused_common import cached_pack, geglu_weights
 
 
 class CrossAttention(nn.Module):
@@ -86,6 +95,25 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
+    def fused_weights(self, dtype: torch.dtype) -> fused_block.BlockWeights:
+        """The block's weights in kernel 6's layout, matrices in ``dtype``."""
+        def build():
+            a1, a2 = self.attn1, self.attn2
+            wff1, bff1 = geglu_weights(self.ff.net[0].proj, dtype)
+            return fused_block.BlockWeights(
+                self.norm1.weight.float(), self.norm1.bias.float(),
+                torch.cat([a1.to_q.weight, a1.to_k.weight, a1.to_v.weight]).to(dtype),
+                a1.to_out[0].weight.to(dtype), a1.to_out[0].bias.float(),
+                self.norm2.weight.float(), self.norm2.bias.float(),
+                a2.to_q.weight.to(dtype),
+                torch.cat([a2.to_k.weight, a2.to_v.weight]).to(dtype),
+                a2.to_out[0].weight.to(dtype), a2.to_out[0].bias.float(),
+                self.norm3.weight.float(), self.norm3.bias.float(),
+                wff1, bff1,
+                self.ff.net[2].weight.to(dtype), self.ff.net[2].bias.float(),
+            )
+        return cached_pack(self, dtype, build)
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x))
         if self.has_cross:
@@ -115,16 +143,46 @@ class Transformer3DModel(nn.Module):
             [BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim)]
         )
 
-    def _project(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    def _weight(self, layer: nn.Module) -> torch.Tensor:
         # a 1x1 conv on channels-last data is a dense layer on the last axis
-        w = layer.weight if self.use_linear_projection else layer.weight[:, :, 0, 0]
-        return F.linear(x, w, layer.bias)
+        return layer.weight if self.use_linear_projection else layer.weight[:, :, 0, 0]
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+    def _project(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self._weight(layer), layer.bias)
+
+    def fused_weights(self, dtype: torch.dtype) -> fused_block.TransformerWeights:
+        """The model's weights in kernel 5's layout, matrices in ``dtype``."""
+        def build():
+            return fused_block.TransformerWeights(
+                self.norm.weight.float(), self.norm.bias.float(),
+                self._weight(self.proj_in).to(dtype).contiguous(),
+                self.proj_in.bias.float(),
+                self.transformer_blocks[0].fused_weights(dtype),
+                self._weight(self.proj_out).to(dtype).contiguous(),
+                self.proj_out.bias.float(),
+            )
+        return cached_pack(self, dtype, build)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                impl: str = "flash") -> torch.Tensor:
         b, f, hh, ww, c = x.shape
+        block = self.transformer_blocks[0]
+        heads, inner = block.attn1.heads, block.attn1.heads * block.attn1.dim_head
+        fused = impl == "fused" and context is not None and block.has_cross
+        if (fused and not self.use_linear_projection and inner == c
+                and fused_block.supported(hh * ww, inner, heads)):
+            out = fused_block.fused_spatial_transformer(
+                x.reshape(b * f, hh * ww, c), context, self.fused_weights(x.dtype),
+                heads=heads, groups=self.norm.num_groups, frames=f, eps=self.norm.eps,
+            )
+            return out.reshape(x.shape)
         h = self._project(self.proj_in, self.norm(x, per_frame=True))
         h = h.reshape(b * f, hh * ww, h.shape[-1])
-        ctx = None if context is None else context.repeat_interleave(f, dim=0)
-        h = self.transformer_blocks[0](h, ctx)
+        if fused and fused_block.supported(hh * ww, inner, heads):
+            h = fused_block.fused_transformer_block(
+                h, context, block.fused_weights(x.dtype), heads=heads, frames=f)
+        else:
+            ctx = None if context is None else context.repeat_interleave(f, dim=0)
+            h = block(h, ctx)
         h = self._project(self.proj_out, h.reshape(b, f, hh, ww, h.shape[-1]))
         return h + x

@@ -8,6 +8,11 @@ Temporal attention outside the guidance blocks goes through kernels 3 and 4
 on the natural (B, F, S, C) layout.  Where the probabilities are requested
 (the guidance blocks) they are formed with an explicit softmax that autograd
 differentiates, and returned as (B, S, heads, F, F) float32.
+
+With ``impl="fused"``, under the JAX package's conditions and predicate
+(``ops/fused_temporal.supported``), a module whose probabilities are not
+requested runs as kernel 7, forward only, on its weights repacked once into
+the kernel's layout and cached on the module.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ from motionclone_tpu_torch.config import MotionModuleConfig
 from motionclone_tpu_torch.models.attention import FeedForward
 from motionclone_tpu_torch.models.embeddings import temporal_positional_encoding
 from motionclone_tpu_torch.models.layers import GroupNorm, LayerNorm
+from motionclone_tpu_torch.ops import fused_temporal
 from motionclone_tpu_torch.ops.attention import attention_probs
+from motionclone_tpu_torch.ops.fused_common import cached_pack, geglu_weights
 from motionclone_tpu_torch.ops.temporal_attention import temporal_attention
 
 
@@ -147,11 +154,46 @@ class TemporalTransformer3D(nn.Module):
         if zero_init_proj_out:
             nn.init.zeros_(self.proj_out.weight)
             nn.init.zeros_(self.proj_out.bias)
+        self.cfg, self.heads, self.inner = cfg, heads, inner
+
+    def fused_weights(self, x: torch.Tensor) -> fused_temporal.TemporalModuleWeights:
+        """The module's weights in kernel 7's layout, matrices in x's dtype."""
+        dtype = x.dtype
+        blk = self.transformer_blocks[0]
+
+        def build():
+            attn = tuple(
+                fused_temporal.AttnWeights(
+                    norm.weight.float(), norm.bias.float(),
+                    torch.cat([a.to_q.weight, a.to_k.weight, a.to_v.weight]).to(dtype),
+                    a.to_out[0].weight.to(dtype), a.to_out[0].bias.float(),
+                )
+                for norm, a in zip(blk.norms, blk.attention_blocks)
+            )
+            a0 = blk.attention_blocks[0]
+            wff1, bff1 = geglu_weights(blk.ff.net[0].proj, dtype)
+            return fused_temporal.TemporalModuleWeights(
+                self.norm.weight.float(), self.norm.bias.float(),
+                a0._pos_encoding(x) if a0.use_pos_encoding else None,
+                self.proj_in.weight.to(dtype), self.proj_in.bias.float(),
+                attn, blk.ff_norm.weight.float(), blk.ff_norm.bias.float(),
+                wff1, bff1, blk.ff.net[2].weight.to(dtype), blk.ff.net[2].bias.float(),
+                self.proj_out.weight.to(dtype), self.proj_out.bias.float(),
+            )
+        return cached_pack(self, dtype, build)
 
     def forward(
-        self, x: torch.Tensor, return_probs: bool = False
+        self, x: torch.Tensor, return_probs: bool = False, impl: str = "flash"
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         b, f, hh, ww, c = x.shape
+        if (impl == "fused" and not return_probs and self.inner == c
+                and self.cfg.num_transformer_block == 1
+                and fused_temporal.supported(f, hh * ww, c, self.heads)):
+            out = fused_temporal.fused_temporal_module(
+                x.reshape(b, f, hh * ww, c), self.fused_weights(x),
+                heads=self.heads, groups=self.norm.num_groups, eps=self.norm.eps,
+            )
+            return out.reshape(x.shape), ()
         h = self.norm(x, per_frame=True).reshape(b, f, hh * ww, c)
         h = self.proj_in(h)
         all_probs = []
@@ -173,6 +215,6 @@ class VanillaTemporalModule(nn.Module):
         )
 
     def forward(
-        self, x: torch.Tensor, return_probs: bool = False
+        self, x: torch.Tensor, return_probs: bool = False, impl: str = "flash"
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        return self.temporal_transformer(x, return_probs=return_probs)
+        return self.temporal_transformer(x, return_probs=return_probs, impl=impl)

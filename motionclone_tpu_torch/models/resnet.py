@@ -1,8 +1,13 @@
 """ResnetBlock3D: the UNet's conv backbone block.
 
-Port of ``motionclone_tpu/models/resnet.py`` (the unfused path).  Submodule
-names follow the diffusers keys: ``norm1``, ``conv1``, ``time_emb_proj``,
-``norm2``, ``conv2``, ``conv_shortcut``.
+Port of ``motionclone_tpu/models/resnet.py``.  Submodule names follow the
+diffusers keys: ``norm1``, ``conv1``, ``time_emb_proj``, ``norm2``,
+``conv2``, ``conv_shortcut``.
+
+With ``impl="fused"`` a block that the JAX package fuses (same predicate,
+``ops/fused_resnet.supported``) runs as kernel 8, forward only, on its
+weights repacked once into the kernel's layout and cached on the module;
+any other block, and ``impl="flash"``, runs the unfused path.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from motionclone_tpu_torch.models.layers import GroupNorm, conv2d, spatial_conv
+from motionclone_tpu_torch.ops import fused_resnet
+from motionclone_tpu_torch.ops.fused_common import cached_pack
 
 
 class ResnetBlock3D(nn.Module):
@@ -33,7 +40,32 @@ class ResnetBlock3D(nn.Module):
             if in_channels != out_channels else None
         )
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def fused_weights(self, dtype: torch.dtype) -> fused_resnet.ResnetWeights:
+        """The block's weights in kernel 8's layout, matrices in ``dtype``."""
+        def build():
+            sc = self.conv_shortcut
+            return fused_resnet.ResnetWeights(
+                self.norm1.weight.float(), self.norm1.bias.float(),
+                fused_resnet.conv_weight(self.conv1.weight).to(dtype),
+                self.conv1.bias.float(),
+                self.norm2.weight.float(), self.norm2.bias.float(),
+                fused_resnet.conv_weight(self.conv2.weight).to(dtype),
+                self.conv2.bias.float(),
+                None if sc is None else sc.weight[:, :, 0, 0].to(dtype).contiguous(),
+                None if sc is None else sc.bias.float(),
+            )
+        return cached_pack(self, dtype, build)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor, impl: str = "flash") -> torch.Tensor:
+        if impl == "fused" and self.per_frame and fused_resnet.supported(
+            x.shape, self.conv1.out_channels, self.norm1.num_groups,
+            itemsize=x.element_size(),
+        ):
+            t = self.time_emb_proj(F.silu(temb))
+            return fused_resnet.fused_resnet_block(
+                x, t, self.fused_weights(x.dtype), groups=self.norm1.num_groups,
+                eps=self.norm1.eps,
+            )
         h = spatial_conv(F.silu(self.norm1(x, per_frame=self.per_frame)), self.conv1)
         h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
         h = F.silu(self.norm2(h, per_frame=self.per_frame))

@@ -15,6 +15,11 @@ at 512x512.
   probabilities emitted at or before the cut, so this changes no value and
   no gradient; it keeps autograd from storing the tail's activations (the
   reference's no-grad split after the last guidance block).
+* ``attention_impl``: "flash" (the unfused path: flash and temporal
+  attention kernels) or "fused" (resnets, spatial transformers and motion
+  modules that the JAX package fuses run as kernels 5-8, forward only);
+  ``post_guidance_impl`` overrides it for the up blocks past the cut, as the
+  JAX package runs them fused in the differentiated pass.
 """
 
 from __future__ import annotations
@@ -135,12 +140,18 @@ class UNet3DConditionModel(nn.Module):
         guidance_blocks: Tuple[str, ...] = (),
         max_up_block: Optional[int] = None,
         post_guidance_cut: Optional[int] = None,
+        attention_impl: str = "flash",
+        post_guidance_impl: Optional[str] = None,
     ) -> Tuple[Optional[torch.Tensor], ProbsDict]:
         """Returns ``(noise_pred, probs)``; noise_pred is None when
         ``max_up_block`` cuts the forward short."""
         cfg = self.cfg
         dtype = self.conv_in.weight.dtype
         probs: ProbsDict = {}
+        impl = attention_impl
+        for name in (impl, post_guidance_impl):
+            if name not in ("flash", "fused", None):
+                raise ValueError(f"unknown attention impl {name!r} (flash or fused)")
         sample = sample.to(dtype)
         context = encoder_hidden_states.to(dtype)
         b = sample.shape[0]
@@ -155,13 +166,13 @@ class UNet3DConditionModel(nn.Module):
         skips = [x]
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlock3D):
-                x, block_skips, p = block(x, temb, context, guidance_blocks)
+                x, block_skips, p = block(x, temb, context, guidance_blocks, impl)
             else:
-                x, block_skips, p = block(x, temb, guidance_blocks)
+                x, block_skips, p = block(x, temb, guidance_blocks, impl)
             skips.extend(block_skips)
             probs.update(p)
 
-        x, p = self.mid_block(x, temb, context, guidance_blocks)
+        x, p = self.mid_block(x, temb, context, guidance_blocks, impl)
         probs.update(p)
 
         for i, block in enumerate(self.up_blocks):
@@ -171,14 +182,15 @@ class UNet3DConditionModel(nn.Module):
             block_skips = tuple(skips[-n:])
             del skips[-n:]
             post_cut = post_guidance_cut is not None and i > post_guidance_cut
+            up_impl = (post_guidance_impl or impl) if post_cut else impl
             with torch.no_grad() if post_cut else contextlib.nullcontext():
                 if post_cut:
                     x = x.detach()
                     block_skips = tuple(s.detach() for s in block_skips)
                 if isinstance(block, CrossAttnUpBlock3D):
-                    x, p = block(x, block_skips, temb, context, guidance_blocks)
+                    x, p = block(x, block_skips, temb, context, guidance_blocks, up_impl)
                 else:
-                    x, p = block(x, block_skips, temb, guidance_blocks)
+                    x, p = block(x, block_skips, temb, guidance_blocks, up_impl)
             probs.update(p)
 
         with (

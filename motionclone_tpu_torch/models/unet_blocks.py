@@ -11,6 +11,8 @@ layer:
 
 Each block returns a dict of temporal-attention probability maps of the
 motion modules whose dotted path contains a ``guidance_blocks`` substring.
+``impl`` ("flash" or "fused") is handed to every resnet, spatial
+transformer and motion module of the block.
 """
 
 from __future__ import annotations
@@ -53,12 +55,12 @@ class _Block(nn.Module):
         self.mm_cfg = mm_cfg
 
     def _motion(self, x: torch.Tensor, idx: int, guidance_blocks: Tuple[str, ...],
-                probs: ProbsDict) -> torch.Tensor:
+                probs: ProbsDict, impl: str) -> torch.Tensor:
         if self.motion_modules is None:
             return x
         mm_path = f"{self.path}.motion_modules.{idx}"
         collect = match_guidance(mm_path, guidance_blocks)
-        x, p = self.motion_modules[idx](x, return_probs=collect)
+        x, p = self.motion_modules[idx](x, return_probs=collect, impl=impl)
         if collect:
             probs.update(zip(probs_keys(mm_path, self.mm_cfg), p))
         return x
@@ -107,12 +109,12 @@ class CrossAttnDownBlock3D(_Block):
             if add_downsample else None
         )
 
-    def forward(self, x, temb, context, guidance_blocks=()):
+    def forward(self, x, temb, context, guidance_blocks=(), impl="flash"):
         skips: List[torch.Tensor] = []
         probs: ProbsDict = {}
         for i, (resnet, attn) in enumerate(zip(self.resnets, self.attentions)):
-            x = attn(resnet(x, temb), context)
-            x = self._motion(x, i, guidance_blocks, probs)
+            x = attn(resnet(x, temb, impl), context, impl)
+            x = self._motion(x, i, guidance_blocks, probs, impl)
             skips.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
@@ -139,11 +141,11 @@ class DownBlock3D(_Block):
             if add_downsample else None
         )
 
-    def forward(self, x, temb, guidance_blocks=()):
+    def forward(self, x, temb, guidance_blocks=(), impl="flash"):
         skips: List[torch.Tensor] = []
         probs: ProbsDict = {}
         for i, resnet in enumerate(self.resnets):
-            x = self._motion(resnet(x, temb), i, guidance_blocks, probs)
+            x = self._motion(resnet(x, temb, impl), i, guidance_blocks, probs, impl)
             skips.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
@@ -172,12 +174,12 @@ class UNetMidBlock3DCrossAttn(_Block):
         self.motion_modules = _motion_modules(
             channels, num_layers, use_motion_module, motion_module_cfg)
 
-    def forward(self, x, temb, context, guidance_blocks=()):
+    def forward(self, x, temb, context, guidance_blocks=(), impl="flash"):
         probs: ProbsDict = {}
-        x = self.resnets[0](x, temb)
+        x = self.resnets[0](x, temb, impl)
         for i, attn in enumerate(self.attentions):
-            x = self._motion(attn(x, context), i, guidance_blocks, probs)
-            x = self.resnets[i + 1](x, temb)
+            x = self._motion(attn(x, context, impl), i, guidance_blocks, probs, impl)
+            x = self.resnets[i + 1](x, temb, impl)
         return x, probs
 
 
@@ -208,12 +210,12 @@ class CrossAttnUpBlock3D(_Block):
             if add_upsample else None
         )
 
-    def forward(self, x, skips, temb, context, guidance_blocks=()):
+    def forward(self, x, skips, temb, context, guidance_blocks=(), impl="flash"):
         probs: ProbsDict = {}
         skips = list(skips)
         for i, (resnet, attn) in enumerate(zip(self.resnets, self.attentions)):
-            x = resnet(torch.cat([x, skips.pop()], dim=-1), temb)
-            x = self._motion(attn(x, context), i, guidance_blocks, probs)
+            x = resnet(torch.cat([x, skips.pop()], dim=-1), temb, impl)
+            x = self._motion(attn(x, context, impl), i, guidance_blocks, probs, impl)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x, probs
@@ -239,12 +241,12 @@ class UpBlock3D(_Block):
             if add_upsample else None
         )
 
-    def forward(self, x, skips, temb, guidance_blocks=()):
+    def forward(self, x, skips, temb, guidance_blocks=(), impl="flash"):
         probs: ProbsDict = {}
         skips = list(skips)
         for i, resnet in enumerate(self.resnets):
-            x = self._motion(resnet(torch.cat([x, skips.pop()], dim=-1), temb),
-                             i, guidance_blocks, probs)
+            x = self._motion(resnet(torch.cat([x, skips.pop()], dim=-1), temb, impl),
+                             i, guidance_blocks, probs, impl)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x, probs

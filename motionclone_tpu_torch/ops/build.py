@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
 process per source, all started together), linked into one shared library
 with a plain C interface, and loaded with ``ctypes``.  The library's name
-carries a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.  The build goes to ``build/`` at the repository
+carries a hash of the sources, the headers they share (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds and an unchanged tree is
+reused.  The build goes to ``build/`` at the repository
 root, which ``.gitignore`` lists.
 
 Nothing here runs at import: the first kernel launch calls
@@ -39,6 +40,11 @@ SIGNATURES = {
     "mc_flash_bwd": (_P,) * 10 + (_I, _I, _I, _I, _I, _F, _P),
     "mc_temporal_fwd": (_P,) * 5 + (_I, _I, _I, _I, _I, _F, _P),
     "mc_temporal_bwd": (_P,) * 8 + (_I, _I, _I, _I, _I, _F, _P),
+    # the fused modules: (pointer array, int array of dims, eps, stream)
+    "mc_fused_resnet_block": (_P, _P, _F, _P),
+    "mc_fused_temporal_module": (_P, _P, _F, _P),
+    "mc_fused_spatial_transformer": (_P, _P, _F, _P),
+    "mc_fused_transformer_block": (_P, _P, _F, _P),
 }
 
 _library: Optional[ctypes.CDLL] = None
@@ -58,9 +64,10 @@ def _nvcc() -> str:
     )
 
 
-def _digest(sources) -> str:
+def _digest(csrc: Path) -> str:
+    """Hash of the flags and of every source and header under ``csrc``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -71,7 +78,7 @@ def build() -> Path:
     unless that file exists; return its path.  Raises with the compiler's
     output if any source fails."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    lib = BUILD_DIR / f"libmotionclone_kernels_{_digest(sources)}.so"
+    lib = BUILD_DIR / f"libmotionclone_kernels_{_digest(CSRC_DIR)}.so"
     if lib.exists():
         build_info.update(path=str(lib), seconds=0.0, cached=True)
         return lib
@@ -116,6 +123,20 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _library = lib
     return _library
+
+
+def pointers(*tensors) -> ctypes.Array:
+    """A C array of the tensors' device pointers (None for a null pointer),
+    the first argument of the fused modules' entry points."""
+    return (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors)
+    )
+
+
+def ints(*values: int) -> ctypes.Array:
+    """A C array of ints, the dims argument of the fused modules' entry
+    points."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def check(status: int, name: str) -> None:

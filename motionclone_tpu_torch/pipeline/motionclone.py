@@ -16,6 +16,15 @@ Port of the exact, unsharded, no-controlnet subset of
 * a vanilla step is one batch-2 CFG forward and a DDIM step;
 * ``sample`` runs the guided phase then the vanilla phase as a Python loop.
 
+``attention_impl`` picks the path of the passes that are not
+differentiated, as the JAX package's ``make_sampling_fns`` does: "auto" is
+"fused" on CUDA (the guided step's unconditional pass, the up blocks past
+the guidance cut in its conditional pass, and the vanilla pass run the
+fused kernels 5-8) and "flash" on the CPU; "flash" keeps every pass on the
+unfused path; "fused" on the CPU runs the fused kernels' plain versions.
+Extraction and the conditional pass up to the cut stay unfused: they need
+the probabilities and the gradient.
+
 The lower-level functions take explicit noise and latents, so tests can
 feed numpy inputs.  Entry points run on CUDA unless ``device="cpu"`` is
 passed.
@@ -73,14 +82,25 @@ class SamplingFns:
     timesteps: np.ndarray
 
 
+def resolve_impl(attention_impl: str, device: torch.device) -> str:
+    """The implementation of the non-differentiated passes."""
+    if attention_impl == "auto":
+        return "fused" if device.type == "cuda" else "flash"
+    if attention_impl not in ("flash", "fused"):
+        raise ValueError(f"unknown attention_impl {attention_impl!r} (auto, flash or fused)")
+    return attention_impl
+
+
 def make_sampling_fns(
     unet: UNet3DConditionModel,
     sched_cfg: NoiseScheduleConfig,
     infer_cfg: InferenceConfig,
+    attention_impl: str = "auto",
 ) -> SamplingFns:
     """Build extract / guided_step / vanilla_step / sample around ``unet``
     (its parameters' device and dtype set where the work runs)."""
     device = unet.conv_in.weight.device
+    plain_impl = resolve_impl(attention_impl, device)
     ddim = make_ddim_params(sched_cfg, device)
     guidance = tuple(infer_cfg.motion_guidance_blocks)
     cut = guidance_cut_index(guidance)
@@ -110,11 +130,12 @@ def make_sampling_fns(
                     motion_rep: MotionRep):
         """Returns (new latents, guidance loss)."""
         with torch.no_grad():
-            uncond_pred, _ = unet(latents, t, uncond_emb)
+            uncond_pred, _ = unet(latents, t, uncond_emb, attention_impl=plain_impl)
         with torch.enable_grad():
             leaf = latents.detach().requires_grad_(True)
             cond_pred, probs = unet(leaf, t, cond_emb, guidance_blocks=guidance,
-                                    post_guidance_cut=cut)
+                                    post_guidance_cut=cut,
+                                    post_guidance_impl=plain_impl)
             loss = infer_cfg.motion_guidance_weight * motion_guidance_loss(
                 probs, motion_rep
             )
@@ -130,7 +151,8 @@ def make_sampling_fns(
         b = latents.shape[0]
         with torch.no_grad():
             pred2, _ = unet(torch.cat([latents, latents]), t,
-                            torch.cat([uncond_emb, cond_emb]))
+                            torch.cat([uncond_emb, cond_emb]),
+                            attention_impl=plain_impl)
         uncond_pred, cond_pred = pred2[:b], pred2[b:]
         noise_pred = cond_pred + cfg_scale * (cond_pred - uncond_pred)
         return ddim_step(ddim, noise_pred, t, tp, latents)
@@ -160,6 +182,7 @@ class MotionClonePipeline:
 
     ``unet`` (and the optional ``vae`` / ``text_encoder``) are moved to
     ``device`` and ``dtype``; the default is CUDA in bfloat16.
+    ``attention_impl`` is that of :func:`make_sampling_fns`.
     """
 
     def __init__(
@@ -173,6 +196,7 @@ class MotionClonePipeline:
         text_encoder=None,
         device="cuda",
         dtype: torch.dtype = torch.bfloat16,
+        attention_impl: str = "auto",
     ):
         infer_cfg.validate()
         self.device = resolve_device(device)
@@ -184,7 +208,7 @@ class MotionClonePipeline:
             None if text_encoder is None
             else text_encoder.to(device=self.device, dtype=dtype).eval()
         )
-        self.fns = make_sampling_fns(self.unet, sched_cfg, infer_cfg)
+        self.fns = make_sampling_fns(self.unet, sched_cfg, infer_cfg, attention_impl)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)

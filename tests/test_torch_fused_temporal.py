@@ -1,0 +1,108 @@
+"""Port kernel 7 (fused motion module) against the JAX package, on the CPU.
+
+* the port's plain version (``ops/fused_temporal.fused_temporal_module_plain``,
+  on the module's own weights in the kernel's layout, GroupNorm statistics
+  included) against JAX's ``folded_groupnorm_affine`` + the kernel function
+  ``fused_temporal_module`` in Pallas interpret mode, at the sizes of
+  tests/test_fused_temporal.py, f32, atol 1e-4;
+* the port's module with ``impl="fused"`` against the JAX module with
+  ``attention_impl="fused"`` and ``"xla"``, checking that the fused route
+  was taken, and that requested probabilities keep the unfused route;
+* the port's copy of the routing predicate against JAX's."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from motionclone_tpu import config as jcfg
+from motionclone_tpu.models import motion_module as jmm
+from motionclone_tpu.models.embeddings import temporal_positional_encoding
+from motionclone_tpu.ops import fused_temporal as jft
+from motionclone_tpu_torch import config as tcfg
+from motionclone_tpu_torch.models import motion_module as tmm
+from motionclone_tpu_torch.ops import fused_temporal as tft
+from test_torch_models import close, load_port, random_flax_params
+
+B, F, H, W, C = 1, 8, 8, 8, 32
+HEADS, GROUPS = 4, 8
+CFG = dict(num_attention_heads=HEADS, norm_num_groups=GROUPS)
+
+
+@pytest.fixture(scope="module")
+def data():
+    r = np.random.default_rng(0)
+    x = r.standard_normal((B, F, H, W, C)).astype(np.float32)
+    jm = jmm.VanillaTemporalModule(cfg=jcfg.MotionModuleConfig(**CFG), attention_impl="xla")
+    params = random_flax_params(jm, x, seed=1)
+    tm = load_port(tmm.VanillaTemporalModule(C, tcfg.MotionModuleConfig(**CFG)), params)
+    return dict(x=x, params=params, tm=tm)
+
+
+def test_plain_matches_jax_kernel(data):
+    p = data["params"]["params"]["temporal_transformer"]
+    blk = p["transformer_blocks_0"]
+    xs = jnp.asarray(data["x"]).reshape(B, F, H * W, C)
+    gw, gb = jft.folded_groupnorm_affine(xs, GROUPS, 1e-6, p["norm"]["scale"],
+                                         p["norm"]["bias"])
+    attn = tuple(
+        jft.AttnWeights(
+            ln_scale=blk[f"norms_{i}"]["scale"], ln_bias=blk[f"norms_{i}"]["bias"],
+            wq=blk[f"attention_blocks_{i}"]["to_q"]["kernel"],
+            wk=blk[f"attention_blocks_{i}"]["to_k"]["kernel"],
+            wv=blk[f"attention_blocks_{i}"]["to_v"]["kernel"],
+            wo=blk[f"attention_blocks_{i}"]["to_out_0"]["kernel"],
+            bo=blk[f"attention_blocks_{i}"]["to_out_0"]["bias"],
+        )
+        for i in range(2)
+    )
+    w = jft.TemporalModuleWeights(
+        gn_w=gw, gn_b=gb, pe=temporal_positional_encoding(C, 24)[:F],
+        win=p["proj_in"]["kernel"], bin=p["proj_in"]["bias"], attn=attn,
+        ffln_scale=blk["ff_norm"]["scale"], ffln_bias=blk["ff_norm"]["bias"],
+        wff1=blk["ff"]["net_0"]["proj"]["kernel"], bff1=blk["ff"]["net_0"]["proj"]["bias"],
+        wff2=blk["ff"]["net_2"]["kernel"], bff2=blk["ff"]["net_2"]["bias"],
+        wout=p["proj_out"]["kernel"], bout=p["proj_out"]["bias"],
+    )
+    want = jft.fused_temporal_module(xs, w, heads=HEADS)
+    x = torch.from_numpy(data["x"])
+    tt = data["tm"].temporal_transformer
+    got = tft.fused_temporal_module_plain(
+        x.reshape(B, F, H * W, C), tt.fused_weights(x), heads=HEADS, groups=GROUPS)
+    close(got, want)
+
+
+@pytest.mark.parametrize("jax_impl", ["fused", "xla"])
+def test_module_fused_matches_jax(data, jax_impl, monkeypatch):
+    calls = []
+    plain = tft.fused_temporal_module_plain
+    monkeypatch.setattr(tft, "fused_temporal_module_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    want, _ = jmm.VanillaTemporalModule(
+        cfg=jcfg.MotionModuleConfig(**CFG), attention_impl=jax_impl).apply(
+        data["params"], data["x"])
+    with torch.no_grad():
+        got, probs = data["tm"](torch.from_numpy(data["x"]), impl="fused")
+    close(got, want)
+    assert calls == [1] and probs == ()
+
+
+def test_probs_keep_the_unfused_route(data, monkeypatch):
+    """A guidance block (probabilities requested) is never fused, as in JAX."""
+    monkeypatch.setattr(tft, "fused_temporal_module_plain", None)
+    with torch.no_grad():
+        got, probs = data["tm"](torch.from_numpy(data["x"]), return_probs=True, impl="fused")
+        want, _ = data["tm"](torch.from_numpy(data["x"]))
+    assert len(probs) == 2
+    close(got, want.numpy())
+
+
+@pytest.mark.parametrize("f,s,c,heads", [
+    # main path: 64x64 and 32x32 levels fuse, 16x16 and 8x8 (1280) do not
+    (16, 4096, 320, 8), (16, 1024, 640, 8), (16, 256, 1280, 8), (16, 64, 1280, 8),
+    # the JAX tests' edge cases
+    (16, 4095, 320, 8), (4, 4096, 320, 8), (8, 64, 32, 4), (8, 64, 30, 3),
+    (8, 64, 64, 2), (7, 64, 32, 4),
+])
+def test_predicate_matches_jax(f, s, c, heads):
+    assert tft.supported(f, s, c, heads) == jft.supported(f, s, c, heads)

@@ -6,7 +6,14 @@
   ``sample`` with 2 guided + 2 vanilla steps (tolerance 2e-3, as the torch
   oracle of tests/test_torch_oracle_unet.py) against
   ``make_sampling_fns(..., dtype=jnp.float32, attention_impl="xla")``, on
-  the same numpy noise, latents, embeddings and weights."""
+  the same numpy noise, latents, embeddings and weights;
+* the fused path: 1 guided + 1 vanilla step with ``attention_impl="fused"``
+  (the fused modules' plain versions) on a micro UNet widened so that every
+  resnet, spatial transformer and motion module routes to kernels 5, 7 and
+  8, against JAX's ``attention_impl="fused"`` (Pallas interpret mode) with
+  ``guided_attention_impl="xla"``, at 2e-3."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -22,10 +29,15 @@ from motionclone_tpu.pipeline.motionclone import make_sampling_fns as j_make_fns
 from motionclone_tpu_torch import config as tcfg
 from motionclone_tpu_torch.diffusion import ddim as tddim
 from motionclone_tpu_torch.diffusion import guidance as tguid
+from motionclone_tpu_torch.models.attention import Transformer3DModel
+from motionclone_tpu_torch.models.motion_module import TemporalTransformer3D
+from motionclone_tpu_torch.models.resnet import ResnetBlock3D
 from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel as TUNet
+from motionclone_tpu_torch.ops import fused_block, fused_resnet, fused_temporal
 from motionclone_tpu_torch.pipeline.motionclone import (
     MotionClonePipeline,
     make_sampling_fns as t_make_fns,
+    resolve_impl,
 )
 from test_torch_models import load_port, random_flax_params
 
@@ -256,3 +268,76 @@ def test_pipeline_text_and_vae_helpers_on_cpu():
     torch.testing.assert_close(pipe.encode_video(video, seed=0), latents)
     frames = pipe.decode_latents(latents)
     assert frames.shape == (F_, 32, 32, 3) and torch.isfinite(frames).all()
+
+
+# ---------------------------------------------------------------------------
+# the fused path: 1 guided + 1 vanilla step against JAX's fused routing
+# ---------------------------------------------------------------------------
+
+FUSED_F, FUSED_HW = 8, 16
+
+
+def _fused_cfg(mod):
+    """The micro UNet at channels (32, 64), 2 heads (head dims 16 / 32) and 8
+    groups: at 8 frames and 16x16 latents every resnet, spatial transformer
+    and motion module passes the fused routing predicates."""
+    cfg = mod.micro_unet_config()
+    return dataclasses.replace(
+        cfg, block_out_channels=(32, 64), norm_num_groups=8,
+        motion_module=dataclasses.replace(cfg.motion_module, norm_num_groups=8))
+
+
+def _fused_infer(mod):
+    return mod.InferenceConfig(
+        inference_steps=2, guidance_steps=1, guidance_fraction=0.3,
+        warm_up_steps=0, cool_up_steps=0, motion_guidance_weight=50.0,
+        motion_guidance_blocks=GUIDANCE, add_noise_step=400, cfg_scale=7.5,
+        width=FUSED_HW * 8, height=FUSED_HW * 8, video_length=FUSED_F,
+    )
+
+
+def test_auto_impl_is_unfused_on_cpu():
+    assert resolve_impl("auto", torch.device("cpu")) == "flash"
+    assert resolve_impl("auto", torch.device("cuda")) == "fused"
+    assert resolve_impl("fused", torch.device("cpu")) == "fused"
+    with pytest.raises(ValueError):
+        resolve_impl("xla", torch.device("cpu"))
+
+
+def test_fused_guided_and_vanilla_steps_match_jax(monkeypatch):
+    r = np.random.default_rng(30)
+    shape = (1, FUSED_F, FUSED_HW, FUSED_HW, 4)
+    video_latents, extract_noise, init_latents = (
+        r.standard_normal(shape).astype(np.float32) for _ in range(3)
+    )
+    uncond, cond = (r.standard_normal((1, 7, 16)).astype(np.float32) for _ in range(2))
+    jm = JUNet(cfg=_fused_cfg(jcfg), guidance_blocks=GUIDANCE, attention_impl="xla")
+    params = random_flax_params(jm, video_latents, jnp.zeros((1,), jnp.int32),
+                                uncond, seed=31)
+    unet_t = load_port(TUNet(_fused_cfg(tcfg)), params)
+    fns_j = j_make_fns(_fused_cfg(jcfg), jcfg.NoiseScheduleConfig(), _fused_infer(jcfg),
+                       dtype=jnp.float32, attention_impl="fused",
+                       guided_attention_impl="xla")
+    fns_t = t_make_fns(unet_t, tcfg.NoiseScheduleConfig(), _fused_infer(tcfg),
+                       attention_impl="fused")
+    rep_j = fns_j.extract(params, video_latents, extract_noise, uncond)
+    rep_t = fns_t.extract(_t(video_latents), _t(extract_noise), _t(uncond))
+    want = fns_j.sample(params, init_latents, uncond, cond, rep_j)
+
+    calls = {}
+    for mod, name in ((fused_resnet, "fused_resnet_block_plain"),
+                      (fused_block, "fused_spatial_transformer_plain"),
+                      (fused_temporal, "fused_temporal_module_plain")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=fn, **k:
+                            calls.__setitem__(_n, calls.get(_n, 0) + 1) or _f(*a, **k))
+    got = fns_t.sample(_t(init_latents), _t(uncond), _t(cond), rep_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3, rtol=2e-3)
+    # every module of the guided step's unconditional pass and of the
+    # vanilla pass took its fused route (no up block lies past the cut)
+    count = lambda cls: sum(isinstance(m, cls) for m in unet_t.modules())
+    assert calls == {
+        "fused_resnet_block_plain": 2 * count(ResnetBlock3D),
+        "fused_spatial_transformer_plain": 2 * count(Transformer3DModel),
+        "fused_temporal_module_plain": 2 * count(TemporalTransformer3D),
+    }
