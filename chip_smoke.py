@@ -1,16 +1,19 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded-only --shards 4 --backend nccl   # 4 cards
 
 Phase 0  device: exits non-zero without CUDA; prints the card's name and
          power limit (nvidia-smi).
 Phase 1  build: compiles motionclone_tpu_torch/csrc/*.cu with nvcc for
          sm_90a (one process per source) and prints the seconds it took.
-Phase 2  kernels: each of the eight kernels at every shape the main path
-         gives it, held against its plain PyTorch version on the same bf16
-         inputs over the whole batch, with times beside the bound
-         (989 TFLOP/s bf16, 3.35 TB/s).  The attention kernels (flash
-         fwd/bwd, temporal fwd/bwd) are also timed beside PyTorch's own
+Phase 2  kernels: each kernel at every shape the main path gives it (the
+         rectangular temporal kernels 3r and 4r at 8, 4 and 2 query frames
+         against 16, the local frames of 2, 4 and 8 shards), held against
+         its plain PyTorch version on the same bf16 inputs over the whole
+         batch, with times beside the bound (989 TFLOP/s bf16,
+         3.35 TB/s).  The attention kernels (flash fwd/bwd, temporal
+         fwd/bwd, square and rectangular) are also timed beside PyTorch's own
          attention as a yardstick that the port never calls:
          F.scaled_dot_product_attention for the forwards, the aten flash
          attention backward op (fed its own forward's out and LSE) for the
@@ -28,7 +31,10 @@ Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          kernel of the path must have launched in this phase (the fused
          transformer block is off the SD1.5 path; phase 4 drives it).  Then
          steady guided and vanilla steps of the fused and the unfused
-         ("flash") path, in turns, with their peak memory.
+         ("flash") path, in turns, with their peak memory; and the
+         unsharded results phase 6 compares with, beside a bf16 rounding
+         control (the same math with other rounding: extraction as half of
+         a batch of 2, sampling on the "flash" path).
 Phase 4  reference: the port on the card (bf16, kernels), on its default
          fused path and on its "flash" path, against the port on the CPU
          (f32, plain versions, unfused) at reduced depth and size; and one
@@ -38,6 +44,16 @@ Phase 5  only with ``--profile DIR``: one guided and one vanilla step of the
          main path's pipeline under torch.profiler: wall time, the device's
          busy and idle share, device time by category and the top kernels,
          and a chrome trace per step in DIR.
+Phase 6  frame sharding: the main path of phase 3 (VAE decode on rank 0)
+         over ``--shards`` frame shards (2), each rank a process of its own:
+         with ``--backend gloo`` (the default) all on card 0, every K/V
+         gather staged through host memory, so the step times say nothing
+         of multi-GPU speed; with ``nccl`` rank r on card r.  Every rank
+         must launch the predicted counts, 3r and 4r among them; rank 0's
+         gathered latents, motion representation and summed loss must agree
+         with phase 3's run within SHARD_TOLS, printed beside the rounding
+         control.  ``--sharded-only`` runs phases 0, 1 and 6 (with the
+         unsharded run it compares with) and prints no kernels line.
 
 The line before the last is the kernels JSON; the last line is the result
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -69,6 +85,8 @@ HEADS = 8
 RTOL = 2e-2
 ATOL = 2e-3
 FRAMES = 16
+# local query frames of the rectangular temporal kernels at 2, 4 and 8 shards
+RECT_QUERY_FRAMES = (8, 4, 2)
 # (H = W, C) of the fused spatial transformer and motion module at 512x512
 FUSED_SHAPES = ((64, 320), (32, 640))
 # (H = W, Cin, Cout) of every resnet the fused route takes at 512x512
@@ -82,7 +100,30 @@ PREDICTED_LAUNCHES = {
     "fused_resnet_block": (0, 17, 11), "flash_fwd": (10, 16, 6),
     "flash_bwd": (0, 10, 0), "temporal_fwd": (22, 42, 20), "temporal_bwd": (0, 22, 0),
     "fused_transformer_block": (0, 0, 0),
+    "temporal_fwd_rect": (0, 0, 0), "temporal_bwd_rect": (0, 0, 0),
 }
+# the same per rank of the frame-sharded path (phase 6), whatever the number
+# of shards: every temporal attention is rectangular, and the fused motion
+# module is off
+PREDICTED_SHARDED_LAUNCHES = {
+    "fused_spatial_transformer": (0, 16, 10), "fused_temporal_module": (0, 0, 0),
+    "fused_resnet_block": (0, 17, 11), "flash_fwd": (10, 16, 6),
+    "flash_bwd": (0, 10, 0), "temporal_fwd": (0, 0, 0), "temporal_bwd": (0, 0, 0),
+    "fused_transformer_block": (0, 0, 0),
+    "temporal_fwd_rect": (22, 74, 40), "temporal_bwd_rect": (0, 22, 0),
+}
+# kernels that no run of the main path launches: kernel 6 is the
+# linear-projection models' route (phase 4 drives it), the rectangular
+# kernels the frame-sharded path's (phase 6)
+OFF_MAIN_PATH = ("fused_transformer_block", "temporal_fwd_rect", "temporal_bwd_rect")
+# phase 6 holds the sharded run against the unsharded one on the card: the
+# fused motion module (unsharded) and the unfused rectangular attention
+# (sharded) round to bf16 at different points, and every product runs on the
+# rank's frames only, with other shapes and so other rounding, which the
+# random weights amplify over the depth (phase 3's rounding control deviates
+# as much); bf16 near-ties can flip an argmax
+SHARD_TOLS = {"latents_rel_l2": 5e-2, "rep_values_rel_l2": 3e-2,
+              "rep_indices_equal_share": 0.95, "loss_rel": 5e-2}
 
 
 def log(msg: str) -> None:
@@ -295,6 +336,51 @@ def check_kernels(dev) -> dict:
         record("temporal_bwd", (b, f, s, hd), err, tol, ms, plain_ms, b_ms, b_by,
                lib_ms, lib_dev)
         torch.cuda.empty_cache()
+
+        # the rectangular forms: FQ local query frames against the 16
+        # gathered key/value frames, batch 1 (a CFG half) and 2 (the pair)
+        for fq in RECT_QUERY_FRAMES:
+            for b in (1, 2):
+                q, dout = randn(b, fq, s, hd), randn(b, fq, s, hd)
+                k, v = randn(b, f, s, hd), randn(b, f, s, hd)
+                out, lse = ta.temporal_fwd_rect(q, k, v, HEADS, scale)
+                grads = ta.temporal_bwd_rect(q, k, v, lse, dout, HEADS, scale)
+                torch.cuda.synchronize()
+                ref_out, ref_lse = ta.temporal_attention_plain(q, k, v, HEADS, scale)
+                err, tol = max_err((out,), (ref_out,))
+                lse_err = (lse - ref_lse).abs().max().item()
+                if lse_err > 1e-2:
+                    raise AssertionError(f"temporal_fwd_rect lse error {lse_err} at "
+                                         f"{(b, fq, s, hd)}")
+                ms = time_ms(lambda: ta.temporal_fwd_rect(q, k, v, HEADS, scale), reps=20)
+                plain_ms = time_ms(lambda: ta.temporal_attention_plain(q, k, v, HEADS, scale))
+                q4, k4, v4 = (temporal_view(x, b, x.shape[1], s, d) for x in (q, k, v))
+                lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+                lib_ms = time_ms(lib, reps=20)
+                lib_dev = (lib().transpose(1, 2).reshape(b, fq, s, hd).float()
+                           - out.float()).abs().max().item()
+                # bytes: q, k, v, out and lse once each
+                b_ms, b_by = bound(4 * b * s * HEADS * fq * f * d,
+                                   (2 * fq + 2 * f) * b * s * hd * 2 + b * s * HEADS * fq * 4)
+                record("temporal_fwd_rect", (b, fq, s, hd), err, tol, ms, plain_ms, b_ms,
+                       b_by, lib_ms, lib_dev)
+
+                ref = ta.temporal_attention_bwd_plain(q, k, v, dout, HEADS, scale)
+                err, tol = max_err(grads, ref)
+                ms = time_ms(lambda: ta.temporal_bwd_rect(q, k, v, lse, dout, HEADS, scale),
+                             reps=20)
+                plain_ms = time_ms(
+                    lambda: ta.temporal_attention_bwd_plain(q, k, v, dout, HEADS, scale))
+                lib_ms, lib_grads = library_bwd(
+                    q4, k4, v4, temporal_view(dout, b, fq, s, d), scale)
+                lib_dev = max((lg.transpose(1, 2).reshape(g.shape).float() - g.float())
+                              .abs().max().item() for lg, g in zip(lib_grads, grads))
+                # bytes: q, k, v, dout and lse read, dq, dk, dv written
+                b_ms, b_by = bound(10 * b * s * HEADS * fq * f * d,
+                                   (3 * fq + 4 * f) * b * s * hd * 2 + b * s * HEADS * fq * 4)
+                record("temporal_bwd_rect", (b, fq, s, hd), err, tol, ms, plain_ms, b_ms,
+                       b_by, lib_ms, lib_dev)
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -480,10 +566,10 @@ def t2v_config(**overrides):
     return InferenceConfig(**kw)
 
 
-def main_path(dev, wrappers, profile_dir=None) -> dict:
-    """Text embeddings, VAE encode, extraction, 2 guided + 2 vanilla steps
-    and VAE decode at 512x512x16 frames, through the port's entry points;
-    then, with ``profile_dir``, phase 5 on the same pipeline."""
+def build_pipeline(dev, frame_group=None):
+    """The main path's pipeline at SD1.5 + AnimateDiff v3 width with seeded
+    random weights, its token ids and its reference video: the same tensors
+    in every process that builds it (phase 3, and each rank of phase 6)."""
     from motionclone_tpu_torch.config import NoiseScheduleConfig, UNet3DConfig
     from motionclone_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
     from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
@@ -492,28 +578,33 @@ def main_path(dev, wrappers, profile_dir=None) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     dtype = torch.bfloat16
-    t0 = time.perf_counter()
     unet_cfg = UNet3DConfig()  # SD1.5 + AnimateDiff v3: 320/640/1280/1280, 8 heads
-    infer = t2v_config()
     pipe = MotionClonePipeline(
-        unet_cfg, NoiseScheduleConfig(), infer,
+        unet_cfg, NoiseScheduleConfig(), t2v_config(),
         build_model(UNet3DConditionModel, unet_cfg, dev, gen, dtype),
         vae=build_model(AutoencoderKL, VAEConfig(), dev, gen, dtype),
         text_encoder=build_model(CLIPTextModel, CLIPTextConfig(), dev, gen, dtype),
-        device=dev, dtype=dtype,
+        device=dev, dtype=dtype, frame_group=frame_group,
     )
-    n_params = sum(p.numel() for p in pipe.unet.parameters())
     ids = torch.randint(0, 49408, (2, 77), generator=gen, device=dev)
     video = torch.rand(16, 512, 512, 3, generator=gen, device=dev) * 2 - 1
     torch.cuda.synchronize()
-    log(f"main path: UNet {n_params / 1e9:.3f} B params, schedule cut to "
-        f"{infer.inference_steps} steps ({infer.guidance_steps} guided), "
-        f"set-up {time.perf_counter() - t0:.1f} s")
+    return pipe, ids, video
 
+
+def drive(pipe, ids, video, wrappers, decode: bool = True) -> dict:
+    """Text embeddings, VAE encode, extraction, 2 guided + 2 vanilla steps,
+    the gathered latents and (with ``decode``) the VAE decode, through the
+    pipeline's entry points, with every launch count set to 0 just before
+    and read just after.  Raises unless every output is finite and of its
+    shape (the rank's frames where the pipeline is sharded)."""
+    cfg, ucfg, group = pipe.infer_cfg, pipe.unet_cfg, pipe.fns.frame_group
+    f, lh, lw = cfg.video_length, cfg.height // 8, cfg.width // 8
+    f_local = f // (1 if group is None else group.size)
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    phases = {}
+    phases, steps = {}, []
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -528,7 +619,6 @@ def main_path(dev, wrappers, profile_dir=None) -> dict:
     latents = timed("vae_encode", lambda: pipe.encode_video(video, seed=1))
     rep = timed("extract", lambda: pipe.extract_motion_representation(latents, uncond, seed=2))
     counts_after_extract = {n: w.launches for n, w in wrappers.items()}
-    steps = []
     last = [0.0]
 
     def on_step(i, guided):
@@ -543,37 +633,110 @@ def main_path(dev, wrappers, profile_dir=None) -> dict:
         return pipe.sample_latents(uncond, cond, rep, seed=3, on_step=on_step)
 
     out = timed("sample", run_sample)
-    frames = timed("vae_decode", lambda: pipe.decode_latents(out))
+    full = timed("gather", lambda: pipe.gather_latents(out))
+    frames = timed("vae_decode", lambda: pipe.decode_latents(full)) if decode else None
     launches = {n: w.launches for n, w in wrappers.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
+    lat_shape = (1, f, lh, lw, ucfg.in_channels)
     checks = {
-        "text": (emb, (2, 77, 768)), "latents": (latents, (1, 16, 64, 64, 4)),
-        "sample": (out, (1, 16, 64, 64, 4)), "frames": (frames, (16, 512, 512, 3)),
+        "text": (emb, (2, 77, ucfg.cross_attention_dim)), "latents": (latents, lat_shape),
+        "sample": (out, (1, f_local, lh, lw, ucfg.in_channels)), "gathered": (full, lat_shape),
     }
+    if decode:
+        checks["frames"] = (frames, (f, cfg.height, cfg.width, 3))
     for name, (x, shape) in checks.items():
         if tuple(x.shape) != shape or not torch.isfinite(x.float()).all():
             raise AssertionError(f"main path {name}: shape {tuple(x.shape)} "
                                  f"(want {shape}) or non-finite values")
-    if len(rep) != 6:  # up_blocks.1: 3 motion modules x 2 attention blocks
-        raise AssertionError(f"motion representation has {len(rep)} modules")
+    # up_blocks.1: layers_per_block + 1 motion modules (3 x 2 attention blocks on SD1.5)
+    n_rep = ((ucfg.layers_per_block + 1) * ucfg.motion_module.num_transformer_block
+             * len(ucfg.motion_module.attention_block_types))
+    if len(rep) != n_rep:
+        raise AssertionError(f"motion representation has {len(rep)} modules, not {n_rep}")
+    # up_blocks.1 works at a quarter of the latents' side: 16 x 16 at 512 x 512
+    rep_shape = (1, (lh // 4) * (lw // 4), ucfg.motion_module.num_attention_heads, f_local, 1)
     for name, (vals, idx) in rep.items():
-        if vals.shape != (1, 256, 8, 16, 1) or not torch.isfinite(vals).all() \
-                or int(idx.max()) >= 16:
+        if vals.shape != rep_shape or not torch.isfinite(vals).all() or int(idx.max()) >= f:
             raise AssertionError(f"motion representation {name} malformed")
+    return dict(uncond=uncond, cond=cond, rep=rep, out=out, full=full, phases=phases,
+                steps=steps, launches=launches, counts_after_extract=counts_after_extract,
+                peak_gb=peak_gb)
+
+
+def initial_latents(pipe, seed: int):
+    """The whole video's noise that ``sample_latents`` draws from ``seed``."""
+    cfg = pipe.infer_cfg
+    shape = (1, cfg.video_length, cfg.height // 8, cfg.width // 8, pipe.unet_cfg.in_channels)
+    gen = torch.Generator(device=pipe.device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=pipe.device).to(pipe.dtype)
+
+
+def first_guided_loss(pipe, run) -> float:
+    """The guidance loss of the first guided step from the sampling noise
+    (the ranks' partials summed where the pipeline is sharded)."""
+    group = pipe.fns.frame_group
+    lat = initial_latents(pipe, seed=3)
+    if group is not None:
+        lat = group.local_frames(lat)
+    t, tp = (int(x) for x in pipe.fns.timesteps[:2])
+    _, loss = pipe.fns.guided_step(lat, t, tp, 1.0, run["uncond"], run["cond"], run["rep"])
+    return float(loss)
+
+
+def rounding_control(pipe, ids, video, wrappers, run) -> dict:
+    """The unsharded run again with the same math but other bf16 rounding:
+    extraction as one half of a batch of 2 (other product shapes), sampling
+    on the unfused ("flash") path.  Phase 6 reads the sharded run's
+    deviations beside these."""
+    from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline
+
+    flash = MotionClonePipeline(pipe.unet_cfg, pipe.sched_cfg, pipe.infer_cfg, pipe.unet,
+                                vae=pipe.vae, text_encoder=pipe.text_encoder,
+                                device=pipe.device, dtype=pipe.dtype, attention_impl="flash")
+    ctrl = drive(flash, ids, video, wrappers, decode=False)
+    with torch.no_grad():
+        lat = pipe.encode_video(video, seed=1).to(pipe.dtype)
+    gen = torch.Generator(device=pipe.device).manual_seed(2)  # extraction's noise
+    noise = torch.randn(lat.shape, generator=gen, device=pipe.device).to(pipe.dtype)
+    two = lambda x: torch.cat([x, x])
+    rep2 = pipe.fns.extract(two(lat), two(noise), two(run["uncond"]))
+    return dict(latents=ctrl["full"].float().cpu(),
+                rep={k: (v[:1].cpu(), i[:1].cpu()) for k, (v, i) in rep2.items()})
+
+
+def unsharded_reference(pipe, ids, video, wrappers, run) -> dict:
+    """What phase 6 holds the sharded run against: the unsharded run's
+    launch counts, final latents, motion representation and first guided
+    loss, with its bf16 rounding control."""
+    return dict(launches=run["launches"], loss=first_guided_loss(pipe, run),
+                latents=run["out"].float().cpu(),
+                rep={k: (v.cpu(), i.cpu()) for k, (v, i) in run["rep"].items()},
+                control=rounding_control(pipe, ids, video, wrappers, run))
+
+
+def main_path(dev, wrappers, profile_dir=None) -> dict:
+    """Phase 3 (and 5 with ``profile_dir``) on the unsharded pipeline.
+    Returns the launch counts and the results phase 6 compares with."""
+    t0 = time.perf_counter()
+    pipe, ids, video = build_pipeline(dev)
+    infer = pipe.infer_cfg
+    n_params = sum(p.numel() for p in pipe.unet.parameters())
+    log(f"main path: UNet {n_params / 1e9:.3f} B params, schedule cut to "
+        f"{infer.inference_steps} steps ({infer.guidance_steps} guided), "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    run = drive(pipe, ids, video, wrappers)
+    launches, counts_after_extract = run["launches"], run["counts_after_extract"]
     for name, n in launches.items():
-        # the fused transformer block (kernel 6) is the linear-projection
-        # models' route; SD1.5's transformers take kernel 5 whole, so it
-        # launches in phases 2 and 4 only
-        if n <= 0 and name != "fused_transformer_block":
+        if n <= 0 and name not in OFF_MAIN_PATH:
             raise AssertionError(f"kernel {name} was never launched on the main path")
 
-    for name, sec in phases.items():
+    for name, sec in run["phases"].items():
         log(f"phase {name}: {sec:.3f} s")
     for kind, flag in (("guided", True), ("vanilla", False)):
-        ms = [m for g, m in steps if g == flag]
+        ms = [m for g, m in run["steps"] if g == flag]
         log(f"{kind} steps: {len(ms)}, ms per step: " + ", ".join(f"{m:.1f}" for m in ms))
-    log(f"peak device memory: {peak_gb:.2f} GB")
+    log(f"peak device memory: {run['peak_gb']:.2f} GB")
     log(f"launches in extraction: {counts_after_extract}")
     log(f"launches on the main path: {launches}")
     g, v = infer.guidance_steps, infer.inference_steps - infer.guidance_steps
@@ -582,15 +745,17 @@ def main_path(dev, wrappers, profile_dir=None) -> dict:
         log(f"launches {name:25s} measured {launches[name]:4d} predicted {want:4d} "
             f"(extraction {counts_after_extract[name]} / {ext})"
             f"{'' if launches[name] == want else '  DIFFERS'}")
-    steady_steps(pipe, rep, uncond, cond, out.to(dtype))
+    reference = unsharded_reference(pipe, ids, video, wrappers, run)
+    uncond, cond, rep = run["uncond"], run["cond"], run["rep"]
+    lat = run["out"].to(pipe.dtype)
+    steady_steps(pipe, rep, uncond, cond, lat)
     if profile_dir is not None:
         t, tp = (int(x) for x in pipe.fns.timesteps[:2])
-        lat = out.to(dtype)
         profile_steps(profile_dir, {
             "guided step": lambda: pipe.fns.guided_step(lat, t, tp, 1.0, uncond, cond, rep),
             "vanilla step": lambda: pipe.fns.vanilla_step(lat, t, tp, uncond, cond),
         })
-    return launches
+    return reference
 
 
 def steady_steps(pipe, rep, uncond, cond, lat) -> None:
@@ -782,6 +947,127 @@ def reference_check(dev, wrappers) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the frame-sharded main path, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def shard_rank(group, build=build_pipeline, device=None) -> dict:
+    """One rank of phase 6 on its device (the current CUDA device unless
+    given): the main path's pipeline sharded over the frame group, driven as
+    phase 3 drives it (the VAE decode on rank 0 only), then the first
+    guided step's loss.  Returns the counts, times and gathered results;
+    raises on a malformed output."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device) if device is not None else torch.device(
+        "cuda", torch.cuda.current_device())
+    wrappers = kernel_wrappers()
+    t0 = time.perf_counter()
+    pipe, ids, video = build(dev, group)
+    setup_s = time.perf_counter() - t0
+    run = drive(pipe, ids, video, wrappers, decode=group.rank == 0)
+    loss = first_guided_loss(pipe, run)
+    rep = {k: (group.gather_frames(v, dim=3).cpu(), group.gather_frames(i, dim=3).cpu())
+           for k, (v, i) in run["rep"].items()}
+    return dict(rank=group.rank, setup_s=setup_s, phases=run["phases"], steps=run["steps"],
+                peak_gb=run["peak_gb"], launches=run["launches"],
+                counts_after_extract=run["counts_after_extract"],
+                latents=run["full"].float().cpu(), rep=rep, loss=loss)
+
+
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def sharded_path(dev, reference, shards: int, backend: str,
+                 build=build_pipeline) -> dict:
+    """Phase 6: the main path sharded over ``shards`` frame shards, each
+    rank a process of its own: under gloo all on the one card, under nccl
+    one card each.  Held to the launch prediction and against the unsharded
+    run from the same seeds.  Returns rank 0's launch counts."""
+    from motionclone_tpu_torch.parallel.frames import launch
+
+    if backend == "gloo":
+        devices, where = [str(dev)] * shards, f"{shards} ranks sharing one card"
+        log(f"sharded path: {shards} frame shards, backend gloo: {where} "
+            f"({torch.cuda.get_device_name(dev)}), every gather staged through host memory")
+    else:
+        devices, where = [f"cuda:{r}" for r in range(shards)], "one card per rank"
+        log(f"sharded path: {shards} frame shards, backend {backend}: {where}")
+    t0 = time.perf_counter()
+    results = launch(shard_rank, shards, backend=backend, devices=devices, args=(build,),
+                     timeout=600.0)
+    log(f"sharded path: {shards} ranks done in {time.perf_counter() - t0:.1f} s")
+    check_ranks(results, where)
+    check_agreement(results[0], reference)
+    return results[0]["launches"]
+
+
+def check_ranks(results, where: str) -> None:
+    """Each rank's times (on ``where`` it ran) and memory; raises unless
+    every rank launched the predicted counts (3r and 4r at least once) and
+    gathered the same latents."""
+    infer = t2v_config()
+    g, v = infer.guidance_steps, infer.inference_steps - infer.guidance_steps
+    faults = []
+    for res in results:
+        r = res["rank"]
+        log(f"rank {r}: set-up {res['setup_s']:.1f} s; "
+            + ", ".join(f"{k} {sec:.3f} s" for k, sec in res["phases"].items()))
+        for kind, flag in (("guided", True), ("vanilla", False)):
+            ms = [m for gd, m in res["steps"] if gd == flag]
+            log(f"rank {r} {kind} steps ({where}): ms per step "
+                + ", ".join(f"{m:.1f}" for m in ms))
+        log(f"rank {r} peak device memory: {res['peak_gb']:.2f} GB")
+        for name, (ext, per_g, per_v) in PREDICTED_SHARDED_LAUNCHES.items():
+            want, got = ext + g * per_g + v * per_v, res["launches"][name]
+            log(f"rank {r} launches {name:25s} measured {got:4d} predicted {want:4d} "
+                f"(extraction {res['counts_after_extract'][name]} / {ext})"
+                f"{'' if got == want else '  DIFFERS'}")
+            if got != want:
+                faults.append(f"rank {r} {name}: {got} launches, predicted {want}")
+        for name in ("temporal_fwd_rect", "temporal_bwd_rect"):
+            if res["launches"][name] < 1:
+                faults.append(f"rank {r} never launched {name}")
+        if not torch.equal(res["latents"], results[0]["latents"]):
+            faults.append(f"rank {r} gathered other latents than rank 0")
+    if faults:
+        raise AssertionError("sharded path: " + "; ".join(faults))
+
+
+def deviations(got, reference) -> dict:
+    names = sorted(reference["rep"])
+    vals = lambda rep: torch.cat([rep[k][0].flatten() for k in names])
+    idx = lambda rep: torch.cat([rep[k][1].flatten() for k in names])
+    return {
+        "latents_rel_l2": rel_l2(got["latents"], reference["latents"]),
+        "rep_values_rel_l2": rel_l2(vals(got["rep"]), vals(reference["rep"])),
+        "rep_indices_equal_share":
+            (idx(got["rep"]) == idx(reference["rep"])).float().mean().item(),
+    }
+
+
+def check_agreement(got, reference) -> None:
+    """A rank's gathered latents, motion representation and summed loss
+    against the unsharded run's, within SHARD_TOLS; beside each, the same
+    deviation of the unsharded rounding control (no tolerance)."""
+    metrics = deviations(got, reference)
+    metrics["loss_rel"] = abs(got["loss"] - reference["loss"]) / abs(reference["loss"])
+    control = deviations(reference["control"], reference)
+    log(f"sharded vs unsharded loss of the first guided step: summed partials "
+        f"{got['loss']!r}, unsharded {reference['loss']!r}")
+    for key, val in metrics.items():
+        tol = SHARD_TOLS[key]
+        share = key == "rep_indices_equal_share"
+        ok = val >= tol if share else val <= tol
+        ctrl = f"; bf16 rounding control {control[key]:.4e}" if key in control else ""
+        log(f"sharded vs unsharded {key}: {val:.4e} ({'min' if share else 'tol'} "
+            f"{tol:g}) {'OK' if ok else 'FAIL'}{ctrl}")
+        if not ok:
+            raise AssertionError(f"sharded path {key}: {val} against {tol}")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -803,7 +1089,29 @@ KERNELS = {
                               "motionclone_tpu/ops/fused_temporal.py:171"),
     "fused_resnet_block": ("motionclone_tpu_torch/csrc/fused_resnet.cu",
                            "motionclone_tpu/ops/fused_resnet.py:200"),
+    "temporal_fwd_rect": ("motionclone_tpu_torch/csrc/temporal_attention.cu",
+                          "motionclone_tpu/ops/temporal_attention.py:147"),
+    "temporal_bwd_rect": ("motionclone_tpu_torch/csrc/temporal_attention.cu",
+                          "motionclone_tpu/ops/temporal_attention.py:172"),
 }
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from motionclone_tpu_torch.ops import flash_attention as fa
+    from motionclone_tpu_torch.ops import fused_block as fb
+    from motionclone_tpu_torch.ops import fused_resnet as fr
+    from motionclone_tpu_torch.ops import fused_temporal as ft
+    from motionclone_tpu_torch.ops import temporal_attention as ta
+
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
+            "temporal_fwd": ta.temporal_fwd, "temporal_bwd": ta.temporal_bwd,
+            "fused_spatial_transformer": fb.fused_spatial_transformer_kernel,
+            "fused_transformer_block": fb.fused_transformer_block_kernel,
+            "fused_temporal_module": ft.fused_temporal_kernel,
+            "fused_resnet_block": fr.fused_resnet_kernel,
+            "temporal_fwd_rect": ta.temporal_fwd_rect,
+            "temporal_bwd_rect": ta.temporal_bwd_rect}
 
 
 def main() -> int:
@@ -811,17 +1119,20 @@ def main() -> int:
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="also profile one guided and one vanilla step, "
                              "writing chrome traces to DIR (phase 5)")
+    parser.add_argument("--shards", type=int, default=2,
+                        help="frame shards of phase 6 (default 2)")
+    parser.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
+                        help="phase 6's backend: gloo puts every rank on card 0, "
+                             "nccl rank r on card r (default gloo)")
+    parser.add_argument("--sharded-only", action="store_true",
+                        help="run phases 0, 1 and 6 only, with the unsharded run "
+                             "phase 6 compares with")
     args = parser.parse_args()
     # phase 0: device
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from motionclone_tpu_torch.ops import build as kbuild
-    from motionclone_tpu_torch.ops import flash_attention as fa
-    from motionclone_tpu_torch.ops import fused_block as fb
-    from motionclone_tpu_torch.ops import fused_resnet as fr
-    from motionclone_tpu_torch.ops import fused_temporal as ft
-    from motionclone_tpu_torch.ops import temporal_attention as ta
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -841,34 +1152,52 @@ def main() -> int:
             if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 log("  ptxas " + line.strip())
 
+    wrappers = kernel_wrappers()
+    if args.sharded_only:
+        pipe, ids, video = build_pipeline(dev)
+        reference = unsharded_reference(pipe, ids, video, wrappers,
+                                        drive(pipe, ids, video, wrappers))
+        del pipe
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sharded_path(dev, reference, args.shards, args.backend)
+        log(f"phase sharded path: {time.perf_counter() - t0:.1f} s")
+        return finish(card)
+
     # phase 2: kernels against their plain versions
     t0 = time.perf_counter()
     rows = check_kernels(dev)
     rows.update(check_fused_kernels(dev))
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
-    wrappers = {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
-                "temporal_fwd": ta.temporal_fwd, "temporal_bwd": ta.temporal_bwd,
-                "fused_spatial_transformer": fb.fused_spatial_transformer_kernel,
-                "fused_transformer_block": fb.fused_transformer_block_kernel,
-                "fused_temporal_module": ft.fused_temporal_kernel,
-                "fused_resnet_block": fr.fused_resnet_kernel}
-    # phase 3: the main path (the only window the launch counts cover)
+    # phase 3: the main path (with phase 6, the only windows the launch
+    # counts cover)
     t0 = time.perf_counter()
-    launches = main_path(dev, wrappers, args.profile)
+    reference = main_path(dev, wrappers, args.profile)
     log(f"phase main path: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     # phase 4: the card against the CPU at a reduced depth
     t0 = time.perf_counter()
     reference_check(dev, wrappers)
     log(f"phase reference: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # phase 6: the frame-sharded main path, against phase 3's run
+    t0 = time.perf_counter()
+    sharded = sharded_path(dev, reference, args.shards, args.backend)
+    log(f"phase sharded path: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        # the rectangular kernels' launches are one rank's on the sharded path
+        launches = sharded if name.endswith("_rect") else reference["launches"]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches[name],
                             **rows[name]))
     log(json.dumps({"kernels": kernels}))
+    return finish(card)
+
+
+def finish(card: str) -> int:
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,8 +75,8 @@ extern "C" int mc_fused_temporal_module(void* const* p, const int* d, float eps,
     GemmArgs q = gemm_args(xn, a[2], nullptr, qkv, 0, M, 3 * C, C);
     split_output(q, C);
     MC_CHECK(gemm(q, st));
-    MC_CHECK(temporal_fwd(D, qkv, qkv + mc, qkv + 2 * mc, attn, (float*)p[23], B, S,
-                          H, 1.f / sqrtf((float)D), st));
+    MC_CHECK(temporal_fwd(D, kF, qkv, qkv + mc, qkv + 2 * mc, attn, (float*)p[23], B,
+                          S, H, 1.f / sqrtf((float)D), st));
     // out-proj + bo + h -> h (in place: each element is read, then written,
     // by the same thread)
     GemmArgs o = gemm_args(attn, a[3], a[4], h, 1, M, C, C);

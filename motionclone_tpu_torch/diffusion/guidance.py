@@ -30,18 +30,28 @@ def gather_sparse_probs(probs: torch.Tensor, indices: torch.Tensor) -> torch.Ten
 def motion_guidance_loss(
     current_probs: Mapping[str, torch.Tensor],
     motion_representation: Mapping[str, Tuple[torch.Tensor, torch.Tensor]],
+    group=None,
 ) -> torch.Tensor:
     """Sum over modules (sorted by name) of the MSE between the gathered
     current probabilities and the saved max values, in float32.  The MSE is
     a per-example mean summed over the leading batch axis: for batch 1 it is
-    the reference's plain mean."""
+    the reference's plain mean.
+
+    ``group`` (a ``parallel.frames.FrameGroup``): the probabilities and the
+    representation hold the rank's query frames only, and the rank returns
+    its *partial*: its local sum over the global element count, so that the
+    ranks' partials sum to the loss.  Nothing is summed over the ranks here:
+    differentiating the partial is right, because the terms that cross ranks
+    arrive through the key/value gathers' backward.  A caller who wants the
+    loss's value sums the partials outside the differentiated function."""
     losses = []
     for name in sorted(current_probs.keys()):
         values, indices = motion_representation[name]
         picked = gather_sparse_probs(current_probs[name].float(), indices)
         sq = (picked - values.float()) ** 2
         per_example = sq.reshape(sq.shape[0], -1).sum(dim=1)
-        losses.append((per_example / int(np.prod(sq.shape[1:]))).sum())
+        numel = int(np.prod(sq.shape[1:])) * (1 if group is None else group.size)
+        losses.append((per_example / numel).sum())
     return torch.stack(losses).sum()
 
 

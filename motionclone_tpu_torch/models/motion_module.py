@@ -1,7 +1,7 @@
 """Temporal motion module (AnimateDiff) with explicit probability output.
 
-Port of ``motionclone_tpu/models/motion_module.py`` (the unfused path, no
-frame sharding).  Submodule names follow the motion-module checkpoint keys
+Port of ``motionclone_tpu/models/motion_module.py``.  Submodule names
+follow the motion-module checkpoint keys
 (``temporal_transformer.transformer_blocks.0.attention_blocks.0.to_q`` ...).
 
 Temporal attention outside the guidance blocks goes through kernels 3 and 4
@@ -13,6 +13,12 @@ With ``impl="fused"``, under the JAX package's conditions and predicate
 (``ops/fused_temporal.supported``), a module whose probabilities are not
 requested runs as kernel 7, forward only, on its weights repacked once into
 the kernel's layout and cached on the module.
+
+With a ``frame_group`` (the JAX package's ``frames_axis``: frame-sharded
+sampling, ``parallel/frames.py``) x holds the rank's f local frames of F.
+The rank adds rows [rank * f, (rank + 1) * f) of the positional encoding,
+gathers k and v over the group, and attends with its local queries: kernels
+3r and 4r, or probabilities of shape (B, S, heads, f, F).  Kernel 7 is off.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from motionclone_tpu_torch.ops import fused_temporal
 from motionclone_tpu_torch.ops.attention import attention_probs
 from motionclone_tpu_torch.ops.fused_common import cached_pack, geglu_weights
 from motionclone_tpu_torch.ops.temporal_attention import temporal_attention
+from motionclone_tpu_torch.parallel.frames import FrameGroup
 
 
 def _to_pixel_major(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -46,7 +53,8 @@ class VersatileAttention(nn.Module):
     """Temporal self-attention over the F frames at each pixel.  The
     sinusoidal positional encoding is added to the (LayerNormed) input
     before the q/k/v projections.  Returns ``(out, probs)``, probs
-    (B, S, heads, F, F) float32 when requested, else None."""
+    (B, S, heads, f, F) float32 when requested, else None: f local query
+    frames (F without a frame group) against F key frames."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  use_pos_encoding: bool = True, pos_encoding_max_len: int = 24):
@@ -70,27 +78,33 @@ class VersatileAttention(nn.Module):
         return self._pe[key]
 
     def forward(
-        self, x: torch.Tensor, return_probs: bool = False
+        self, x: torch.Tensor, return_probs: bool = False,
+        frame_group: Optional[FrameGroup] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         b, f, s, _ = x.shape
+        fk = f * frame_group.size if frame_group is not None else f
         h = x
         if self.use_pos_encoding:
             pe = self._pos_encoding(x)
-            if f > pe.shape[0]:
+            if fk > pe.shape[0]:
                 raise ValueError(
-                    f"video_length {f} exceeds the positional-encoding table "
+                    f"video_length {fk} exceeds the positional-encoding table "
                     f"({pe.shape[0]} rows)"
                 )
-            h = h + pe[:f][None, :, None, :]
+            start = frame_group.rank * f if frame_group is not None else 0
+            h = h + pe[start:start + f][None, :, None, :]
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
+        if frame_group is not None:
+            # local queries against the keys and values of every frame
+            k, v = frame_group.all_gather(k), frame_group.all_gather(v)
         scale = self.dim_head**-0.5
         probs = None
         if return_probs:
-            # the F x F probability block is the motion feature
+            # the f x F probability block is the motion feature
             p = attention_probs(
                 _to_pixel_major(q, self.heads), _to_pixel_major(k, self.heads), scale
-            )  # (B*S, heads, F, F)
-            probs = p.reshape(b, s, self.heads, f, f)
+            )  # (B*S, heads, f, F)
+            probs = p.reshape(b, s, self.heads, f, fk)
             vp = _to_pixel_major(v, self.heads)
             out = torch.einsum("bhqk,bkhd->bqhd", p.to(vp.dtype), vp)
             out = out.reshape(b, s, f, -1).transpose(1, 2)
@@ -119,11 +133,13 @@ class TemporalTransformerBlock(nn.Module):
         self.ff_norm = LayerNorm(dim)
 
     def forward(
-        self, x: torch.Tensor, return_probs: bool = False
+        self, x: torch.Tensor, return_probs: bool = False,
+        frame_group: Optional[FrameGroup] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         probs_out = []
         for norm, attn in zip(self.norms, self.attention_blocks):
-            out, probs = attn(norm(x), return_probs=return_probs)
+            out, probs = attn(norm(x), return_probs=return_probs,
+                              frame_group=frame_group)
             x = x + out
             if return_probs:
                 probs_out.append(probs)
@@ -183,10 +199,12 @@ class TemporalTransformer3D(nn.Module):
         return cached_pack(self, dtype, build)
 
     def forward(
-        self, x: torch.Tensor, return_probs: bool = False, impl: str = "flash"
+        self, x: torch.Tensor, return_probs: bool = False, impl: str = "flash",
+        frame_group: Optional[FrameGroup] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         b, f, hh, ww, c = x.shape
-        if (impl == "fused" and not return_probs and self.inner == c
+        if (impl == "fused" and frame_group is None and not return_probs
+                and self.inner == c
                 and self.cfg.num_transformer_block == 1
                 and fused_temporal.supported(f, hh * ww, c, self.heads)):
             out = fused_temporal.fused_temporal_module(
@@ -198,7 +216,7 @@ class TemporalTransformer3D(nn.Module):
         h = self.proj_in(h)
         all_probs = []
         for block in self.transformer_blocks:
-            h, probs = block(h, return_probs=return_probs)
+            h, probs = block(h, return_probs=return_probs, frame_group=frame_group)
             all_probs.extend(probs)
         h = self.proj_out(h).reshape(b, f, hh, ww, c)
         return h + x, tuple(all_probs)
@@ -215,6 +233,8 @@ class VanillaTemporalModule(nn.Module):
         )
 
     def forward(
-        self, x: torch.Tensor, return_probs: bool = False, impl: str = "flash"
+        self, x: torch.Tensor, return_probs: bool = False, impl: str = "flash",
+        frame_group: Optional[FrameGroup] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        return self.temporal_transformer(x, return_probs=return_probs, impl=impl)
+        return self.temporal_transformer(x, return_probs=return_probs, impl=impl,
+                                         frame_group=frame_group)

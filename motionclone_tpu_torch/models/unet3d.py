@@ -15,6 +15,9 @@ at 512x512.
   probabilities emitted at or before the cut, so this changes no value and
   no gradient; it keeps autograd from storing the tail's activations (the
   reference's no-grad split after the last guidance block).
+* ``frame_group``: frame-sharded sampling (``parallel/frames.py``): the
+  sample holds the rank's frames and every motion module gathers its keys
+  and values over the group; everything else works per frame.
 * ``attention_impl``: "flash" (the unfused path: flash and temporal
   attention kernels) or "fused" (resnets, spatial transformers and motion
   modules that the JAX package fuses run as kernels 5-8, forward only);
@@ -41,6 +44,7 @@ from motionclone_tpu_torch.models.unet_blocks import (
     UNetMidBlock3DCrossAttn,
     UpBlock3D,
 )
+from motionclone_tpu_torch.parallel.frames import FrameGroup
 
 ProbsDict = Dict[str, torch.Tensor]
 
@@ -142,6 +146,7 @@ class UNet3DConditionModel(nn.Module):
         post_guidance_cut: Optional[int] = None,
         attention_impl: str = "flash",
         post_guidance_impl: Optional[str] = None,
+        frame_group: Optional[FrameGroup] = None,
     ) -> Tuple[Optional[torch.Tensor], ProbsDict]:
         """Returns ``(noise_pred, probs)``; noise_pred is None when
         ``max_up_block`` cuts the forward short."""
@@ -166,13 +171,14 @@ class UNet3DConditionModel(nn.Module):
         skips = [x]
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlock3D):
-                x, block_skips, p = block(x, temb, context, guidance_blocks, impl)
+                x, block_skips, p = block(x, temb, context, guidance_blocks, impl,
+                                          frame_group)
             else:
-                x, block_skips, p = block(x, temb, guidance_blocks, impl)
+                x, block_skips, p = block(x, temb, guidance_blocks, impl, frame_group)
             skips.extend(block_skips)
             probs.update(p)
 
-        x, p = self.mid_block(x, temb, context, guidance_blocks, impl)
+        x, p = self.mid_block(x, temb, context, guidance_blocks, impl, frame_group)
         probs.update(p)
 
         for i, block in enumerate(self.up_blocks):
@@ -188,9 +194,11 @@ class UNet3DConditionModel(nn.Module):
                     x = x.detach()
                     block_skips = tuple(s.detach() for s in block_skips)
                 if isinstance(block, CrossAttnUpBlock3D):
-                    x, p = block(x, block_skips, temb, context, guidance_blocks, up_impl)
+                    x, p = block(x, block_skips, temb, context, guidance_blocks, up_impl,
+                                 frame_group)
                 else:
-                    x, p = block(x, block_skips, temb, guidance_blocks, up_impl)
+                    x, p = block(x, block_skips, temb, guidance_blocks, up_impl,
+                                 frame_group)
             probs.update(p)
 
         with (

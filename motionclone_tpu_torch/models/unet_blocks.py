@@ -12,7 +12,8 @@ layer:
 Each block returns a dict of temporal-attention probability maps of the
 motion modules whose dotted path contains a ``guidance_blocks`` substring.
 ``impl`` ("flash" or "fused") is handed to every resnet, spatial
-transformer and motion module of the block.
+transformer and motion module of the block, and ``frame_group`` (frame
+sharding, ``parallel/frames.py``) to every motion module.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from motionclone_tpu_torch.models.attention import Transformer3DModel
 from motionclone_tpu_torch.models.layers import Downsample, Upsample
 from motionclone_tpu_torch.models.motion_module import VanillaTemporalModule
 from motionclone_tpu_torch.models.resnet import ResnetBlock3D
+from motionclone_tpu_torch.parallel.frames import FrameGroup
 
 ProbsDict = Dict[str, torch.Tensor]
 
@@ -55,12 +57,14 @@ class _Block(nn.Module):
         self.mm_cfg = mm_cfg
 
     def _motion(self, x: torch.Tensor, idx: int, guidance_blocks: Tuple[str, ...],
-                probs: ProbsDict, impl: str) -> torch.Tensor:
+                probs: ProbsDict, impl: str,
+                frame_group: Optional[FrameGroup]) -> torch.Tensor:
         if self.motion_modules is None:
             return x
         mm_path = f"{self.path}.motion_modules.{idx}"
         collect = match_guidance(mm_path, guidance_blocks)
-        x, p = self.motion_modules[idx](x, return_probs=collect, impl=impl)
+        x, p = self.motion_modules[idx](x, return_probs=collect, impl=impl,
+                                        frame_group=frame_group)
         if collect:
             probs.update(zip(probs_keys(mm_path, self.mm_cfg), p))
         return x
@@ -109,12 +113,13 @@ class CrossAttnDownBlock3D(_Block):
             if add_downsample else None
         )
 
-    def forward(self, x, temb, context, guidance_blocks=(), impl="flash"):
+    def forward(self, x, temb, context, guidance_blocks=(), impl="flash",
+                frame_group=None):
         skips: List[torch.Tensor] = []
         probs: ProbsDict = {}
         for i, (resnet, attn) in enumerate(zip(self.resnets, self.attentions)):
             x = attn(resnet(x, temb, impl), context, impl)
-            x = self._motion(x, i, guidance_blocks, probs, impl)
+            x = self._motion(x, i, guidance_blocks, probs, impl, frame_group)
             skips.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
@@ -141,11 +146,12 @@ class DownBlock3D(_Block):
             if add_downsample else None
         )
 
-    def forward(self, x, temb, guidance_blocks=(), impl="flash"):
+    def forward(self, x, temb, guidance_blocks=(), impl="flash", frame_group=None):
         skips: List[torch.Tensor] = []
         probs: ProbsDict = {}
         for i, resnet in enumerate(self.resnets):
-            x = self._motion(resnet(x, temb, impl), i, guidance_blocks, probs, impl)
+            x = self._motion(resnet(x, temb, impl), i, guidance_blocks, probs, impl,
+                             frame_group)
             skips.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
@@ -174,11 +180,13 @@ class UNetMidBlock3DCrossAttn(_Block):
         self.motion_modules = _motion_modules(
             channels, num_layers, use_motion_module, motion_module_cfg)
 
-    def forward(self, x, temb, context, guidance_blocks=(), impl="flash"):
+    def forward(self, x, temb, context, guidance_blocks=(), impl="flash",
+                frame_group=None):
         probs: ProbsDict = {}
         x = self.resnets[0](x, temb, impl)
         for i, attn in enumerate(self.attentions):
-            x = self._motion(attn(x, context, impl), i, guidance_blocks, probs, impl)
+            x = self._motion(attn(x, context, impl), i, guidance_blocks, probs, impl,
+                             frame_group)
             x = self.resnets[i + 1](x, temb, impl)
         return x, probs
 
@@ -210,12 +218,14 @@ class CrossAttnUpBlock3D(_Block):
             if add_upsample else None
         )
 
-    def forward(self, x, skips, temb, context, guidance_blocks=(), impl="flash"):
+    def forward(self, x, skips, temb, context, guidance_blocks=(), impl="flash",
+                frame_group=None):
         probs: ProbsDict = {}
         skips = list(skips)
         for i, (resnet, attn) in enumerate(zip(self.resnets, self.attentions)):
             x = resnet(torch.cat([x, skips.pop()], dim=-1), temb, impl)
-            x = self._motion(attn(x, context, impl), i, guidance_blocks, probs, impl)
+            x = self._motion(attn(x, context, impl), i, guidance_blocks, probs, impl,
+                             frame_group)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x, probs
@@ -241,12 +251,13 @@ class UpBlock3D(_Block):
             if add_upsample else None
         )
 
-    def forward(self, x, skips, temb, guidance_blocks=(), impl="flash"):
+    def forward(self, x, skips, temb, guidance_blocks=(), impl="flash",
+                frame_group=None):
         probs: ProbsDict = {}
         skips = list(skips)
         for i, resnet in enumerate(self.resnets):
             x = self._motion(resnet(torch.cat([x, skips.pop()], dim=-1), temb, impl),
-                             i, guidance_blocks, probs, impl)
+                             i, guidance_blocks, probs, impl, frame_group)
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x, probs

@@ -1,38 +1,45 @@
 """Per-pixel temporal self-attention on the natural (B, F, S, heads*D) layout.
 
-Kernels 3 and 4 of the port: ``csrc/temporal_attention.cu`` forward and
-backward, joined by a ``torch.autograd.Function``, with their plain PyTorch
-version beside them.
+Kernels 3 and 4 (the square form: q, k and v carry the same 16 frames) and
+3r and 4r (the rectangular form: q carries 8, 4, 2 or 1 frames, k and v
+16) of the port: ``csrc/temporal_attention.cu`` forward and backward,
+joined by a ``torch.autograd.Function``, with their plain PyTorch version
+beside them.  The rectangular form is frame-sharded sampling's: each shard
+attends with its local query frames to the keys and values gathered over
+all shards (``models/motion_module.py``, ``parallel/frames.py``).
 
 Replaces the Pallas TPU kernels of
 ``motionclone_tpu/ops/temporal_attention.py``: the forward ``_temporal_fwd``
 (``_fwd_kernel``) and the VJP ``_temporal_bwd`` (``_bwd_kernel``), reached
-from ``temporal_attention`` there.
+from ``temporal_attention`` there, whose k/v may carry more frames than q.
 
-The motion module runs thousands of tiny F x F attentions, one per pixel and
-head.  On the H100 that is bound by memory (8 flops per byte at F=16), so the
-kernels read q/k/v (and dO) once in their natural layout through shared
-memory and write each output once; the 16x16 products run on the CUDA
-cores in f32.  The TPU kernel's block-diagonal packing with a cross-pixel
-mask exists only to fill a 128-wide MXU and is not carried over.  The saved
-log-sum-exp has the port's layout (B, S, heads, F): one contiguous F-vector
-per (pixel, head).  The backward recomputes P from it and forms
-delta = sum_j P_ij dP_ij without re-reading the forward's output.
+The motion module runs thousands of tiny FQ x FK attentions, one per pixel
+and head.  On the H100 that is bound by memory (8 flops per byte at
+FQ = FK = 16), so the kernels read q/k/v (and dO) once in their natural
+layout through shared memory and write each output once; the small
+products run on the CUDA cores in f32.  The TPU kernel's block-diagonal
+packing with a cross-pixel mask exists only to fill a 128-wide MXU and is
+not carried over.  The saved log-sum-exp has the port's layout
+(B, S, heads, FQ): one contiguous FQ-vector per (pixel, head).  The backward
+recomputes P from it and forms delta = sum_j P_ij dP_ij without re-reading
+the forward's output.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
-kernel or raise.  There is no fallback from one to the other.
+kernel or raise.  There is no fallback from one to the other.  The square
+and rectangular wrappers count their launches apart.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from motionclone_tpu_torch.ops.build import check, load_library
 
 KERNEL_HEAD_DIMS = (40, 80, 160)
-KERNEL_FRAMES = 16
+KERNEL_FRAMES = 16  # k/v frames of both forms, q frames of the square form
+RECT_QUERY_FRAMES = (8, 4, 2, 1)  # q frames of the rectangular form
 
 
 # ---------------------------------------------------------------------------
@@ -43,13 +50,15 @@ KERNEL_FRAMES = 16
 def temporal_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (B, F, S, heads*D) in q's dtype, lse (B, S, heads, F) f32);
-    f32 math, differentiable by autograd."""
+    """q (B, FQ, S, heads*D), k and v (B, FK, S, heads*D) -> (out
+    (B, FQ, S, heads*D) in q's dtype, lse (B, S, heads, FQ) f32); f32 math,
+    differentiable by autograd."""
     b, f, s, hd = q.shape
+    fk = k.shape[1]
     d = hd // heads
     qs = q.reshape(b, f, s, heads, d).float()
-    ks = k.reshape(b, f, s, heads, d).float()
-    vs = v.reshape(b, f, s, heads, d).float()
+    ks = k.reshape(b, fk, s, heads, d).float()
+    vs = v.reshape(b, fk, s, heads, d).float()
     logits = torch.einsum("bfshd,bgshd->bshfg", qs, ks) * scale
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
@@ -61,7 +70,8 @@ def temporal_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     heads: int, scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of the plain version for the cotangent ``dout``."""
+    """(dq, dk, dv) of the plain version for the cotangent ``dout``, each of
+    its input's shape."""
     with torch.enable_grad():
         qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
         out, _ = temporal_attention_plain(qq, kk, vv, heads, scale)
@@ -73,36 +83,40 @@ def temporal_attention_bwd_plain(
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(name: str, heads: int, *tensors: torch.Tensor) -> int:
-    shape = tensors[0].shape
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
-        if t.shape != shape or t.dim() != 4:
-            raise ValueError(
-                f"{name}: expected equal (B, F, S, heads*D) shapes, got "
-                f"{[tuple(x.shape) for x in tensors]}"
-            )
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensors must be contiguous and 16-byte aligned")
+def _check_inputs(name: str, heads: int, rect: bool,
+                  qs: Sequence[torch.Tensor], kvs: Sequence[torch.Tensor]) -> int:
+    """Validate tensors of q's shape (q, dout) and of k's (k, v) for the
+    square or the rectangular kernel; returns the head dim."""
+    shape = qs[0].shape
+    if len(shape) != 4 or any(t.shape != shape for t in qs) or any(
+        t.shape != (shape[0], KERNEL_FRAMES, *shape[2:]) for t in kvs
+    ):
+        raise ValueError(
+            f"{name}: expected q-like (B, FQ, S, heads*D) and k/v "
+            f"(B, {KERNEL_FRAMES}, S, heads*D) shapes, got "
+            f"{[tuple(x.shape) for x in (*qs, *kvs)]}"
+        )
     _, f, _, hd = shape
-    if f != KERNEL_FRAMES:
-        raise ValueError(f"{name}: the kernel takes {KERNEL_FRAMES} frames, got {f}")
+    frames = RECT_QUERY_FRAMES if rect else (KERNEL_FRAMES,)
+    if f not in frames:
+        raise ValueError(f"{name}: the kernel takes {frames} query frames, got {f}")
     if hd % heads or hd // heads not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"{name}: head dim {hd}/{heads} has no kernel "
             f"(compiled: {KERNEL_HEAD_DIMS})"
         )
+    for t in (*qs, *kvs):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be contiguous and 16-byte aligned")
     return hd // heads
 
 
-def temporal_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 3: (out bf16 (B, F, S, heads*D), lse f32 (B, S, heads, F))."""
-    d = _check_inputs("temporal_fwd", heads, q, k, v)
+def _fwd(name: str, rect: bool, q, k, v, heads: int, scale: float):
+    d = _check_inputs(name, heads, rect, (q,), (k, v))
     b, f, s, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, s, heads, f), device=q.device, dtype=torch.float32)
@@ -111,24 +125,16 @@ def temporal_fwd(
         stream = torch.cuda.current_stream().cuda_stream
         check(lib.mc_temporal_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, f, s, heads, d, float(scale), stream,
-        ), "temporal_fwd")
-    temporal_fwd.launches += 1
+            lse.data_ptr(), b, f, k.shape[1], s, heads, d, float(scale), stream,
+        ), name)
     return out, lse
 
 
-temporal_fwd.launches = 0
-
-
-def temporal_bwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
-    dout: torch.Tensor, heads: int, scale: float,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel 4: (dq, dk, dv) bf16 from the forward's lse."""
-    d = _check_inputs("temporal_bwd", heads, q, k, v, dout)
+def _bwd(name: str, rect: bool, q, k, v, lse, dout, heads: int, scale: float):
+    d = _check_inputs(name, heads, rect, (q, dout), (k, v))
     b, f, s, _ = q.shape
     if lse.shape != (b, s, heads, f) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError(f"temporal_bwd: bad lse {tuple(lse.shape)} {lse.dtype}")
+        raise ValueError(f"{name}: bad lse {tuple(lse.shape)} {lse.dtype}")
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -138,21 +144,64 @@ def temporal_bwd(
         check(lib.mc_temporal_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, f, s, heads, d, float(scale), stream,
-        ), "temporal_bwd")
-    temporal_bwd.launches += 1
+            b, f, k.shape[1], s, heads, d, float(scale), stream,
+        ), name)
     return dq, dk, dv
 
 
-temporal_bwd.launches = 0
+def temporal_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 3: (out bf16 (B, 16, S, heads*D), lse f32 (B, S, heads, 16))
+    for q, k, v of 16 frames."""
+    out = _fwd("temporal_fwd", False, q, k, v, heads, scale)
+    temporal_fwd.launches += 1
+    return out
+
+
+def temporal_fwd_rect(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 3r: (out bf16 (B, FQ, S, heads*D), lse f32 (B, S, heads, FQ))
+    for q of FQ in {8, 4, 2, 1} frames and k, v of 16."""
+    out = _fwd("temporal_fwd_rect", True, q, k, v, heads, scale)
+    temporal_fwd_rect.launches += 1
+    return out
+
+
+def temporal_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, heads: int, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 4: (dq, dk, dv) bf16 from kernel 3's lse."""
+    grads = _bwd("temporal_bwd", False, q, k, v, lse, dout, heads, scale)
+    temporal_bwd.launches += 1
+    return grads
+
+
+def temporal_bwd_rect(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, heads: int, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 4r: dq of q's shape, dk and dv of k's, bf16, from kernel 3r's
+    lse."""
+    grads = _bwd("temporal_bwd_rect", True, q, k, v, lse, dout, heads, scale)
+    temporal_bwd_rect.launches += 1
+    return grads
+
+
+for _wrapper in (temporal_fwd, temporal_fwd_rect, temporal_bwd, temporal_bwd_rect):
+    _wrapper.launches = 0
 
 
 class TemporalAttention(torch.autograd.Function):
-    """Kernel 3 forward, kernel 4 backward; saves (q, k, v, lse)."""
+    """Kernel 3 (3r) forward, kernel 4 (4r) backward, by the frame counts;
+    saves (q, k, v, lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads: int, scale: float):
-        out, lse = temporal_fwd(q, k, v, heads, scale)
+        ctx.rect = q.shape[1] != k.shape[1]
+        out, lse = (temporal_fwd_rect if ctx.rect else temporal_fwd)(q, k, v, heads, scale)
         ctx.save_for_backward(q, k, v, lse)
         ctx.heads, ctx.scale = heads, scale
         return out
@@ -160,9 +209,8 @@ class TemporalAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = temporal_bwd(
-            q, k, v, lse, dout.contiguous(), ctx.heads, ctx.scale
-        )
+        bwd = temporal_bwd_rect if ctx.rect else temporal_bwd
+        dq, dk, dv = bwd(q, k, v, lse, dout.contiguous(), ctx.heads, ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -170,9 +218,11 @@ def temporal_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, heads: int,
     scale: float,
 ) -> torch.Tensor:
-    """Differentiable per-pixel temporal attention over (B, F, S, heads*D)
-    tensors: the kernels for CUDA tensors, the plain version for CPU
-    tensors."""
+    """Differentiable per-pixel temporal attention of q (B, FQ, S, heads*D)
+    over k, v (B, FK, S, heads*D): the kernels for CUDA tensors, the plain
+    version for CPU tensors."""
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"k/v shape {tuple(k.shape)} incompatible with q {tuple(q.shape)}")
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, heads, scale)[0]
     return TemporalAttention.apply(q, k, v, heads, scale)

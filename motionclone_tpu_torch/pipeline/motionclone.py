@@ -1,8 +1,8 @@
 """The MotionClone algorithm: extraction, guided and vanilla DDIM steps.
 
-Port of the exact, unsharded, no-controlnet subset of
+Port of the exact, no-controlnet subset of
 ``motionclone_tpu/pipeline/motionclone.py`` (``make_sampling_fns`` and
-``MotionClonePipeline``):
+``MotionClonePipeline``), unsharded or frame-sharded:
 
 * extraction is one truncated UNet forward (up to the last guidance block)
   on the reference latents noised to ``add_noise_step``, then top-1
@@ -24,6 +24,18 @@ fused kernels 5-8) and "flash" on the CPU; "flash" keeps every pass on the
 unfused path; "fused" on the CPU runs the fused kernels' plain versions.
 Extraction and the conditional pass up to the cut stay unfused: they need
 the probabilities and the gradient.
+
+``frame_group`` (``parallel/frames.py``) is the JAX package's
+``frame_shard_map`` over its ``frames`` axis: each rank holds video frames
+[rank * f, (rank + 1) * f), runs everything per frame on them, and gathers
+the motion modules' keys and values over the group.  ``extract`` takes the
+full latents and noise and returns the rank's share of the motion
+representation (its query frames, axis 3); ``guided_step``, ``vanilla_step``
+and ``sample`` take and return the rank's latents.  Each rank differentiates
+its partial guidance loss; ``guided_step`` returns the loss summed over the
+ranks, outside autograd.  Sharding needs ``use_inflated_groupnorm`` and a
+``video_length`` that the group's size divides; a group of size 1 runs
+unsharded.
 
 The lower-level functions take explicit noise and latents, so tests can
 feed numpy inputs.  Entry points run on CUDA unless ``device="cpu"`` is
@@ -52,6 +64,7 @@ from motionclone_tpu_torch.diffusion.guidance import (
     sparsify_top1,
 )
 from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
+from motionclone_tpu_torch.parallel.frames import FrameGroup
 
 MotionRep = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -80,6 +93,7 @@ class SamplingFns:
     vanilla_step: Callable[..., torch.Tensor]
     sample: Callable[..., torch.Tensor]
     timesteps: np.ndarray
+    frame_group: Optional[FrameGroup] = None  # None: unsharded
 
 
 def resolve_impl(attention_impl: str, device: torch.device) -> str:
@@ -91,14 +105,38 @@ def resolve_impl(attention_impl: str, device: torch.device) -> str:
     return attention_impl
 
 
+def check_frame_group(
+    frame_group: Optional[FrameGroup], unet_cfg: UNet3DConfig,
+    infer_cfg: InferenceConfig,
+) -> Optional[FrameGroup]:
+    """The group to shard over, or None to run unsharded (no group, or one
+    of size 1); raises where the JAX package's ``frame_shard_map`` does."""
+    if frame_group is None or frame_group.size == 1:
+        return None
+    if not unet_cfg.use_inflated_groupnorm:
+        raise ValueError(
+            "frame sharding requires use_inflated_groupnorm (GroupNorm "
+            "statistics over all frames would be computed per rank)"
+        )
+    if infer_cfg.video_length % frame_group.size:
+        raise ValueError(
+            f"video_length {infer_cfg.video_length} does not split over "
+            f"{frame_group.size} frame shards"
+        )
+    return frame_group
+
+
 def make_sampling_fns(
     unet: UNet3DConditionModel,
     sched_cfg: NoiseScheduleConfig,
     infer_cfg: InferenceConfig,
     attention_impl: str = "auto",
+    frame_group: Optional[FrameGroup] = None,
 ) -> SamplingFns:
     """Build extract / guided_step / vanilla_step / sample around ``unet``
-    (its parameters' device and dtype set where the work runs)."""
+    (its parameters' device and dtype set where the work runs), sharded
+    over ``frame_group``'s ranks when it has more than one."""
+    group = check_frame_group(frame_group, unet.cfg, infer_cfg)
     device = unet.conv_in.weight.device
     plain_impl = resolve_impl(attention_impl, device)
     ddim = make_ddim_params(sched_cfg, device)
@@ -120,24 +158,33 @@ def make_sampling_fns(
     g = infer_cfg.guidance_steps
 
     def extract(video_latents, noise, uncond_emb) -> MotionRep:
+        if group is not None:
+            if video_latents.shape[1] != infer_cfg.video_length:
+                raise ValueError(
+                    f"extract takes the full {infer_cfg.video_length} frames, "
+                    f"got {video_latents.shape[1]}"
+                )
+            video_latents, noise = group.local_frames(video_latents), group.local_frames(noise)
         with torch.no_grad():
             noisy = add_noise(ddim, infer_cfg.add_noise_step, video_latents, noise)
             _, probs = unet(noisy, infer_cfg.add_noise_step, uncond_emb,
-                            guidance_blocks=guidance, max_up_block=cut)
+                            guidance_blocks=guidance, max_up_block=cut,
+                            frame_group=group)
         return {k: sparsify_top1(p) for k, p in probs.items()}
 
     def guided_step(latents, t: int, tp: int, ramp: float, uncond_emb, cond_emb,
                     motion_rep: MotionRep):
         """Returns (new latents, guidance loss)."""
         with torch.no_grad():
-            uncond_pred, _ = unet(latents, t, uncond_emb, attention_impl=plain_impl)
+            uncond_pred, _ = unet(latents, t, uncond_emb, attention_impl=plain_impl,
+                                  frame_group=group)
         with torch.enable_grad():
             leaf = latents.detach().requires_grad_(True)
             cond_pred, probs = unet(leaf, t, cond_emb, guidance_blocks=guidance,
                                     post_guidance_cut=cut,
-                                    post_guidance_impl=plain_impl)
+                                    post_guidance_impl=plain_impl, frame_group=group)
             loss = infer_cfg.motion_guidance_weight * motion_guidance_loss(
-                probs, motion_rep
+                probs, motion_rep, group
             )
             (grad,) = torch.autograd.grad(loss, leaf)
         grad = grad * ramp  # the loss ramp scales the score linearly
@@ -145,14 +192,17 @@ def make_sampling_fns(
         noise_pred = cond_pred + cfg_scale * (cond_pred - uncond_pred)
         new = ddim_step(ddim, noise_pred, t, tp, latents, score=grad,
                         guidance_scale=1.0)
-        return new, loss.detach()
+        loss = loss.detach()
+        if group is not None:  # the value: the ranks' partials summed
+            loss = group.all_reduce_sum(loss)
+        return new, loss
 
     def vanilla_step(latents, t: int, tp: int, uncond_emb, cond_emb):
         b = latents.shape[0]
         with torch.no_grad():
             pred2, _ = unet(torch.cat([latents, latents]), t,
                             torch.cat([uncond_emb, cond_emb]),
-                            attention_impl=plain_impl)
+                            attention_impl=plain_impl, frame_group=group)
         uncond_pred, cond_pred = pred2[:b], pred2[b:]
         noise_pred = cond_pred + cfg_scale * (cond_pred - uncond_pred)
         return ddim_step(ddim, noise_pred, t, tp, latents)
@@ -174,7 +224,7 @@ def make_sampling_fns(
 
     return SamplingFns(extract=extract, guided_step=guided_step,
                        vanilla_step=vanilla_step, sample=sample,
-                       timesteps=timesteps)
+                       timesteps=timesteps, frame_group=group)
 
 
 class MotionClonePipeline:
@@ -182,7 +232,11 @@ class MotionClonePipeline:
 
     ``unet`` (and the optional ``vae`` / ``text_encoder``) are moved to
     ``device`` and ``dtype``; the default is CUDA in bfloat16.
-    ``attention_impl`` is that of :func:`make_sampling_fns`.
+    ``attention_impl`` and ``frame_group`` are those of
+    :func:`make_sampling_fns`.  Under a frame group every rank draws the
+    global noise from the seed and takes its frames, so sharded and
+    unsharded runs start from the same tensors; the text encoder and the
+    VAE run unsharded (:meth:`gather_latents` before the decode).
     """
 
     def __init__(
@@ -197,6 +251,7 @@ class MotionClonePipeline:
         device="cuda",
         dtype: torch.dtype = torch.bfloat16,
         attention_impl: str = "auto",
+        frame_group: Optional[FrameGroup] = None,
     ):
         infer_cfg.validate()
         self.device = resolve_device(device)
@@ -208,7 +263,8 @@ class MotionClonePipeline:
             None if text_encoder is None
             else text_encoder.to(device=self.device, dtype=dtype).eval()
         )
-        self.fns = make_sampling_fns(self.unet, sched_cfg, infer_cfg, attention_impl)
+        self.fns = make_sampling_fns(self.unet, sched_cfg, infer_cfg, attention_impl,
+                                     frame_group)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -235,10 +291,17 @@ class MotionClonePipeline:
         z = latents.to(self.dtype) / self.vae.cfg.scaling_factor
         return self.vae.decode(z)[0]
 
+    def gather_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """The full video's latents from each rank's frames (the latents
+        themselves when unsharded)."""
+        group = self.fns.frame_group
+        return latents if group is None else group.gather_frames(latents)
+
     def extract_motion_representation(
         self, video_latents: torch.Tensor, uncond_emb: torch.Tensor, seed: int
     ) -> MotionRep:
-        """One truncated forward -> the sparse motion representation."""
+        """One truncated forward on the full video's latents -> the sparse
+        motion representation (the rank's query frames when sharded)."""
         noise = torch.randn(video_latents.shape, generator=self._generator(seed),
                             device=self.device)
         return self.fns.extract(video_latents.to(self.dtype), noise.to(self.dtype),
@@ -249,11 +312,14 @@ class MotionClonePipeline:
         motion_rep: MotionRep, seed: int,
         on_step: Optional[Callable[[int, bool], None]] = None,
     ) -> torch.Tensor:
-        """Guided DDIM sampling from seeded noise -> final latents."""
+        """Guided DDIM sampling from seeded noise -> final latents (the
+        rank's frames when sharded)."""
         cfg = self.infer_cfg
         shape = (1, cfg.video_length, cfg.height // 8, cfg.width // 8,
                  self.unet_cfg.in_channels)
         latents = torch.randn(shape, generator=self._generator(seed),
                               device=self.device).to(self.dtype)
+        if self.fns.frame_group is not None:
+            latents = self.fns.frame_group.local_frames(latents)
         return self.fns.sample(latents, uncond_emb.to(self.dtype),
                                cond_emb.to(self.dtype), motion_rep, on_step=on_step)

@@ -1,0 +1,66 @@
+"""Rank bodies of tests/test_torch_frame_shard.py.
+
+Each runs in a process of its own that ``parallel.frames.launch`` spawns,
+as one rank of a gloo group on the CPU.  This module imports no JAX, so that
+the ranks start fast, and it holds no tests."""
+
+import torch
+
+from motionclone_tpu_torch.diffusion.guidance import motion_guidance_loss
+from motionclone_tpu_torch.models.motion_module import VanillaTemporalModule
+from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
+from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns
+
+
+def frame_shard_rank(group, module_case, pipeline_case):
+    """Both cases on this rank; returns {"module": ..., "pipeline": ...}."""
+    torch.set_num_threads(1)  # several ranks share the test worker's cores
+    return {"module": sharded_module(group, **module_case),
+            "pipeline": sharded_pipeline(group, **pipeline_case)}
+
+
+def sharded_module(group, state_dict, cfg, x, w):
+    """A VanillaTemporalModule on the rank's frames of ``x``: its output and
+    the gradient of the rank's partial objective sum(w * out) with respect
+    to its input, each gathered over the ranks."""
+    m = VanillaTemporalModule(x.shape[-1], cfg)
+    m.load_state_dict(state_dict, strict=True)
+    xl = group.local_frames(x).clone().requires_grad_(True)
+    out, _ = m.eval()(xl, frame_group=group)
+    (grad,) = torch.autograd.grad((group.local_frames(w) * out).sum(), xl)
+    return {"out": group.gather_frames(out.detach()), "grad": group.gather_frames(grad)}
+
+
+def sharded_pipeline(group, state_dict, unet_cfg, sched_cfg, infer_cfg,
+                     video_latents, noise, init, uncond, cond):
+    """Extraction from the full latents and noise, ``sample`` from the
+    rank's frames of ``init``, and the first guided step's loss: the rank's
+    partial and the sum that ``guided_step`` returns.  The representation
+    and the latents come back gathered over the ranks."""
+    unet = UNet3DConditionModel(unet_cfg)
+    unet.load_state_dict(state_dict, strict=True)
+    unet.eval()
+    fns = make_sampling_fns(unet, sched_cfg, infer_cfg, frame_group=group)
+    rep = fns.extract(video_latents, noise, uncond)
+    latents = fns.sample(group.local_frames(init), uncond, cond, rep)
+    t, tp = (int(x) for x in fns.timesteps[:2])
+    local = group.local_frames(init)
+    with torch.no_grad():
+        _, probs = unet(local, t, cond, guidance_blocks=tuple(infer_cfg.motion_guidance_blocks),
+                        frame_group=group)
+        partial = infer_cfg.motion_guidance_weight * motion_guidance_loss(probs, rep, group)
+    _, loss = fns.guided_step(local, t, tp, 1.0, uncond, cond, rep)
+    return {
+        "rep": {k: (group.gather_frames(v, dim=3), group.gather_frames(i, dim=3))
+                for k, (v, i) in rep.items()},
+        "latents": group.gather_frames(latents),
+        "partial_loss": float(partial),
+        "loss": float(loss),
+    }
+
+
+def failing_rank(group):
+    """Rank 1 raises; rank 0 waits in a collective that never completes."""
+    if group.rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    group.gather_frames(torch.zeros(1, 1))

@@ -32,11 +32,20 @@ def _imported_roots(tree: ast.AST):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+# the rank bodies of the frame-sharding tests start in processes of their
+# own, which must not pay for importing JAX
+@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py",
+                                               ROOT / "tests" / "test_torch_frame_shard_ranks.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
     assert not roots & FORBIDDEN, f"{path} imports {sorted(roots & FORBIDDEN)}"
+
+
+def test_scan_covers_every_subpackage():
+    found = {p.relative_to(PORT).parts[0] for p in PORT_FILES if p.parent != PORT}
+    assert found == {"diffusion", "models", "ops", "parallel", "pipeline", "weights"}
+    assert PORT / "parallel" / "frames.py" in PORT_FILES
 
 
 def test_scan_sees_forbidden_imports():

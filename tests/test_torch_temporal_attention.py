@@ -80,3 +80,28 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(kind):
         ta.temporal_fwd(x, x, x, H, d**-0.5)
     with pytest.raises(ValueError):
         ta.temporal_bwd(x, x, x, torch.zeros(1, 16, H, f), x, H, d**-0.5)
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("square_query", "query frames"), ("odd_query", "query frames"),
+    ("kv_frames", "shapes"), ("batch", "shapes"), ("head_dim", "head dim"),
+    ("cpu_tensor", "CUDA"),
+])
+def test_rect_wrappers_reject_what_they_cannot_take(kind, match):
+    """Kernels 3r and 4r take q of 8, 4, 2 or 1 frames against k/v of 16
+    with the same B, S and width; the square wrappers refuse a rectangular
+    pair.  Shapes are checked before the device, so each case names its
+    fault here on the CPU."""
+    fq = {"square_query": 16, "odd_query": 3}.get(kind, 8)
+    fk = 8 if kind == "kv_frames" else 16
+    d = 48 if kind == "head_dim" else 40
+    q = torch.zeros(1, fq, 16, H * d, dtype=torch.bfloat16)
+    kv = torch.zeros(2 if kind == "batch" else 1, fk, 16, H * d, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 16, H, fq)
+    with pytest.raises(ValueError, match=match):
+        ta.temporal_fwd_rect(q, kv, kv, H, d**-0.5)
+    with pytest.raises(ValueError, match=match):
+        ta.temporal_bwd_rect(q, kv, kv, lse, q, H, d**-0.5)
+    if kind == "cpu_tensor":
+        with pytest.raises(ValueError, match="query frames"):
+            ta.temporal_fwd(q, kv, kv, H, d**-0.5)  # the square kernel: 16 q frames
