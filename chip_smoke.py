@@ -74,6 +74,10 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+# H100 SXM special-function unit: exponentials per second (FlashAttention-3,
+# Shah et al. 2024: "3.9 TFLOPS of special functions")
+PEAK_EXP = 3.9e12
+TEXT_TOKENS = 77          # CLIP's sequence: the cross-attention's keys
 
 # (S, head dim) of the spatial and temporal attentions at 512x512 latents
 # (64x64, 32x32, 16x16, 8x8 with 320/640/1280/1280 channels over 8 heads)
@@ -218,12 +222,14 @@ def check_kernels(dev) -> dict:
 
     rows = {}
 
-    def record(name, shape, err, tol, ms, plain_ms, b_ms, b_by, lib_ms, lib_dev):
+    def record(name, shape, err, tol, ms, plain_ms, b_ms, b_by, lib_ms, lib_dev,
+               exp_ms=None):
         ok = err <= tol
+        floor = "" if exp_ms is None else f" exp_floor_ms={exp_ms:.4f}"
         log(
             f"kernel {name:13s} shape={shape} max_abs_err={err:.3e} tol={tol:.3e} "
             f"{'OK' if ok else 'FAIL'} kernel_ms={ms:.4f} plain_ms={fmt(plain_ms)} "
-            f"bound_ms={b_ms:.4f} ({b_by}) library_ms={fmt(lib_ms)} "
+            f"bound_ms={b_ms:.4f} ({b_by}){floor} library_ms={fmt(lib_ms)} "
             f"library_vs_kernel={lib_dev:.3e}"
         )
         if not ok:
@@ -234,14 +240,23 @@ def check_kernels(dev) -> dict:
                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               library_ms=lib_ms)
 
+    def exp_floor(b, sq, sk):  # one exponential per score, the least any algorithm needs
+        return b * HEADS * sq * sk / PEAK_EXP * 1e3
+
     for s, d in ATTN_SHAPES:
         hd = HEADS * d
         scale = d ** -0.5
-        # flash forward, B*F = 16 (one CFG half) and 32 (the vanilla pair)
-        for b in (16, 32):
-            q, k, v = randn(b, s, hd), randn(b, s, hd), randn(b, s, hd)
+        # flash forward, B*F = 16 (one CFG half) and 32 (the vanilla pair):
+        # the self-attention (Sk = S), then the cross-attention against the
+        # 77 text tokens (the ragged last key tile)
+        for sk, b in ((s, 16), (s, 32), (TEXT_TOKENS, 16), (TEXT_TOKENS, 32)):
+            q, k, v = randn(b, s, hd), randn(b, sk, hd), randn(b, sk, hd)
             out, lse = fa.flash_fwd(q, k, v, HEADS, scale)
+            again = fa.flash_fwd(q, k, v, HEADS, scale)
             torch.cuda.synchronize()
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                raise AssertionError(f"flash_fwd: two launches differ at {(b, s, sk, hd)}")
+            del again
             got, ref, lse_err = [], [], 0.0
             for sl in batch_slices(b, 4 if s == 4096 else b):
                 ref_out, ref_lse = fa.flash_attention_plain(q[sl], k[sl], v[sl], HEADS, scale)
@@ -250,20 +265,23 @@ def check_kernels(dev) -> dict:
                 lse_err = max(lse_err, (lse[sl] - ref_lse).abs().max().item())
             err, tol = max_err(got, ref)
             if lse_err > 1e-2:
-                raise AssertionError(f"flash_fwd lse error {lse_err} at {(b, s, hd)}")
+                raise AssertionError(f"flash_fwd lse error {lse_err} at {(b, s, sk, hd)}")
             del got, ref, ref_out, ref_lse
             ms = time_ms(lambda: fa.flash_fwd(q, k, v, HEADS, scale))
             plain_ms = None  # the plain (B, heads, S, S) f32 logits would pass 40 GB
-            if b * s * s <= 16 * 4096 * 4096:
+            if b * s * sk <= 16 * 4096 * 4096:
                 plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, HEADS, scale),
                                    reps=3, warmup=1)
-            q4, k4, v4 = (flash_view(x, b, s, d) for x in (q, k, v))
+            q4 = flash_view(q, b, s, d)
+            k4, v4 = (flash_view(x, b, sk, d) for x in (k, v))
             lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
             lib_ms = time_ms(lib)
             lib_dev = (lib().transpose(1, 2).reshape(b, s, hd).float() - out.float()).abs().max().item()
-            b_ms, b_by = bound(4 * b * s * s * hd, (4 * b * s * hd) * 2 + b * HEADS * s * 4)
-            record("flash_fwd", (b, s, HEADS, d), err, tol, ms, plain_ms, b_ms, b_by,
-                   lib_ms, lib_dev)
+            b_ms, b_by = bound(4 * b * s * sk * hd,
+                               (2 * b * s * hd + 2 * b * sk * hd) * 2 + b * HEADS * s * 4)
+            shape = (b, s, HEADS, d) if sk == s else (b, s, sk, HEADS, d)
+            record("flash_fwd", shape, err, tol, ms, plain_ms, b_ms, b_by, lib_ms, lib_dev,
+                   exp_floor(b, s, sk))
             torch.cuda.empty_cache()
 
         # flash backward, B*F = 16 (the cond pass)
@@ -271,7 +289,11 @@ def check_kernels(dev) -> dict:
         q, k, v, dout = (randn(b, s, hd) for _ in range(4))
         out, lse = fa.flash_fwd(q, k, v, HEADS, scale)
         grads = fa.flash_bwd(q, k, v, out, lse, dout, HEADS, scale)
+        again = fa.flash_bwd(q, k, v, out, lse, dout, HEADS, scale)
         torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(grads, again)):
+            raise AssertionError(f"flash_bwd: two launches differ at {(b, s, hd)}")
+        del again
         got, ref = [], []
         for sl in batch_slices(b, 2 if s == 4096 else b):
             got.extend(g[sl] for g in grads)
@@ -291,7 +313,7 @@ def check_kernels(dev) -> dict:
         b_ms, b_by = bound(10 * b * s * s * hd,
                            (8 * b * s * hd) * 2 + b * HEADS * s * 4)
         record("flash_bwd", (b, s, HEADS, d), err, tol, ms, plain_ms, b_ms, b_by,
-               lib_ms, lib_dev)
+               lib_ms, lib_dev, exp_floor(b, s, s))
         torch.cuda.empty_cache()
 
         # temporal forward, batch 1 (one CFG half) and 2 (the vanilla pair)
@@ -1096,6 +1118,27 @@ KERNELS = {
 }
 
 
+def log_flash_resources(build_log: str, lib) -> None:
+    """Registers per thread (ptxas) and dynamic shared memory per block of
+    the flash kernels (kernels 1 and 2) at each head dim."""
+    import re
+
+    smem_of = {"flash_fwd_kernel": 0, "flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 2}
+    section, name = "", None
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            section = line[3:].strip()
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)ELi(\d+)E", line)
+        if m and "Compiling entry function" in line:
+            name = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and section == "flash_attention.cu":
+            kernel, d, tile = name
+            log(f"  flash resources {kernel}<D={d}, tile={tile}>: {m.group(1)} registers, "
+                f"{lib.mc_flash_smem(int(d), smem_of[kernel])} bytes shared memory")
+            name = None
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from motionclone_tpu_torch.ops import flash_attention as fa
@@ -1151,6 +1194,7 @@ def main() -> int:
         for line in kbuild.build_info["log"].splitlines():
             if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 log("  ptxas " + line.strip())
+        log_flash_resources(kbuild.build_info["log"], kbuild.load_library())
 
     wrappers = kernel_wrappers()
     if args.sharded_only:

@@ -10,22 +10,52 @@
 // is ever materialised.  Heads are split inside the kernel by offsetting the
 // row pointer by h*D.  The forward writes bf16 out and the f32 row
 // log-sum-exp (B, H, Sq) in natural-log units; the backward recomputes the
-// probabilities from it.
+// probabilities from it.  The softmax keeps an exact running row maximum:
+// no +-75 logit clamp as on the TPU.  Keys past Sk are masked by index (the
+// fused transformer's 77 text tokens: the rows after them belong to the
+// next video).
 //
-// What bounds it on the H100: the spatial self-attention of SD1.5 at 64x64
-// latents (S=4096, D=40) does 4*S*S*D flops per (batch, head) against
-// 4*S*D*2 bytes of q/k/v/out, ~2000 flops per byte, so it is bound by the
-// tensor cores, not by memory.  The design keeps every S x S tile on chip
-// (the online softmax of the flash scheme) and runs both products on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).  Head dims
-// 40/80/160 are not powers of two; the tile is zero-padded to a multiple of
-// 16 in shared memory (40 -> 48), which costs 20% of the tensor work at
-// D=40 and nothing at 80/160.  Unlike the TPU kernel there is no +-75 logit
-// clamp: the softmax keeps an exact running row maximum.
+// What bounds it on the H100.  A (batch, head) does 4*Sq*Sk*D flops of
+// products against ~8*S*D bytes, ~2000 flops per byte at S = 4096, so
+// memory never bounds it.  Two units do: the tensor cores (989 TFLOP/s)
+// and the special-function unit's exponentials (one per score, ~3.9e12/s).
+// At D = 40 the exponentials are the floor: (16, 4096, 8, 40) needs 2.15e9
+// of them, ~0.55 ms, against 0.35 ms of products; at D = 80 the two are
+// level, at D = 160 the products dominate.
 //
-// Block shape: 4 warps, 16 rows each, 64 rows per block; the other side of
-// the product streams through shared memory in tiles.  No wgmma, no TMA,
-// no cp.async pipelining yet: this is the simple, correct first version.
+// The design (after FlashAttention-3, hand-written in PTX; wgmma.cuh):
+// - Both products on wgmma.  S = Q K^T from shared memory (Q and K tiles
+//   K-major); O += P V with P converted in registers from S's accumulator
+//   (the C layout is the A layout) and V read MN-major through the
+//   transpose bit, so V is never transposed.  f32 accumulation.
+// - Tiles are 8x8 core matrices without swizzle, filled by cp.async, so
+//   D = 40 needs no 128-byte rows: the reduction over d is padded to 48
+//   with zero columns written once, and P V has width N = D (a valid wgmma
+//   width).
+// - A forward block has four warpgroups of 64 query rows (two at D = 160),
+//   which share each 64-key K/V tile: four halve the tiles' traffic from L2
+//   against two.  The tiles stream through a ring of four stages, two tiles
+//   ahead; each stage's full/empty mbarriers let the warpgroups run out of
+//   step, so one's softmax overlaps another's products.  Within a
+//   warpgroup, step j issues S_j and P_{j-1} V_{j-1} together and runs the
+//   softmax of S_j under both.  A thread stays under 128 registers.
+// - The exponentials are not what holds the forward back on this card: a
+//   variant without them runs as fast (scripts/torch_flash_variants.py);
+//   the warpgroups' waits are, and more of them per SM is what helped.
+// - Backward: two kernels, so that no floating-point atomic makes the
+//   result depend on the order blocks run in (two launches give the same
+//   bits).  The dq kernel (a block of queries, looping over K/V tiles)
+//   first forms delta = rowsum(dO * O) of its rows for the dk/dv kernel,
+//   then S, dP = dO V^T and dQ += dS K.  The dk/dv kernel (a block of keys,
+//   Q, dO, LSE and delta streamed through the ring) forms S^T = K Q^T and
+//   dP^T = V dO^T and accumulates dV += P^T dO and dK += dS^T Q.  That is 7
+//   products and 2 exponentials per score where one kernel with dq summed
+//   across key blocks would do 5 and 1; the ordered sum that keeps such a
+//   kernel deterministic serialises its key blocks per query block.  At
+//   D = 40 the backward's floor is its 2 * 2.15e9 exponentials (~1.1 ms).
+//   Both kernels stream through a ring of three stages, two tiles ahead.
+// - Tile widths (Tiles<D>) keep the accumulators in registers at D = 160:
+//   two warpgroups in the forward there, 32-query tiles in dk/dv.
 
 #include "flash_attention.cuh"
 
@@ -36,40 +66,48 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
         const void* lse, const void* dout, void* dq, void* dk, void* dv,
         void* delta, int B, int H, int Sq, int Sk, float scale,
         cudaStream_t st) {
-  constexpr int LD = Geo<D>::LD;
-  constexpr int BQ = D > 80 ? 32 : 64;
-  const long rows = (long)B * Sq * H;
-  flash_delta_kernel<D><<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
-      (const bf16*)o, (const bf16*)dout, (float*)delta, B, H, Sq);
+  constexpr int BN = fa::Tiles<D>::DQ_BN, BQ = fa::Tiles<D>::DKV_BQ;
+  constexpr size_t smem_dq = fa::dq_smem<D>(), smem_kv = fa::dkv_smem<D>();
+  cudaFuncSetAttribute(fa::flash_bwd_dq_kernel<D, BN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  dim3 gq((Sq + fa::kRows - 1) / fa::kRows, H, B);
+  fa::flash_bwd_dq_kernel<D, BN><<<gq, fa::kThreads, smem_dq, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout,
+      (const float*)lse, (float*)delta, (bf16*)dq, H, Sq, Sk, scale);
   int err = (int)cudaGetLastError();
   if (err) return err;
 
-  const size_t smem_dq = (size_t)(2 * kRows + 2 * 64) * LD * sizeof(bf16);
-  cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
-  dim3 gq((Sq + kRows - 1) / kRows, H, B);
-  flash_bwd_dq_kernel<D><<<gq, kThreads, smem_dq, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, H, Sq, Sk, scale);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-
-  const size_t smem_kv =
-      (size_t)(2 * kRows + 2 * BQ) * LD * sizeof(bf16) + 2 * BQ * sizeof(float);
-  cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, BQ>,
+  cudaFuncSetAttribute(fa::flash_bwd_dkv_kernel<D, BQ>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
-  dim3 gk((Sk + kRows - 1) / kRows, H, B);
-  flash_bwd_dkv_kernel<D, BQ><<<gk, kThreads, smem_kv, st>>>(
+  dim3 gk((Sk + fa::kRows - 1) / fa::kRows, H, B);
+  fa::flash_bwd_dkv_kernel<D, BQ><<<gk, fa::kThreads, smem_kv, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, Sq, Sk,
-      scale);
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, H, Sq, Sk, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface, bound with ctypes.  Every function returns cudaGetLastError()
-// after its launches (0 on success), or -1 for a head dim with no kernel.
+// C interface, bound with ctypes.  Every launching function returns
+// cudaGetLastError() after its launches (0 on success), or -1 for a head dim
+// with no kernel.
+
+// Dynamic shared memory in bytes of the forward (kernel 0), the dq kernel
+// (1) or the dk/dv kernel (2) at head dim D; -1 for none.
+extern "C" int mc_flash_smem(int D, int kernel) {
+  switch (D * 4 + kernel) {
+    case 160: return (int)fa::fwd_smem<40>();
+    case 161: return (int)fa::dq_smem<40>();
+    case 162: return (int)fa::dkv_smem<40>();
+    case 320: return (int)fa::fwd_smem<80>();
+    case 321: return (int)fa::dq_smem<80>();
+    case 322: return (int)fa::dkv_smem<80>();
+    case 640: return (int)fa::fwd_smem<160>();
+    case 641: return (int)fa::dq_smem<160>();
+    case 642: return (int)fa::dkv_smem<160>();
+    default: return -1;
+  }
+}
 
 extern "C" int mc_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int H, int Sq, int Sk,

@@ -1,9 +1,11 @@
 // Device code of the exact multi-head attention kernels (see
-// flash_attention.cu for the design note): shared-memory tile helpers, the
-// mma.sync m16n8k16 bf16 product, and the forward and backward kernels.
-// Included by flash_attention.cu (the C entry points of kernels 1 and 2) and
-// by fused_block.cu, whose spatial transformer runs the same forward kernel
-// for its self- and cross-attention.  Everything has internal linkage.
+// flash_attention.cu for the design note): the forward, the backward's dq
+// kernel (which also forms delta = rowsum(dO * O)) and its dk/dv kernel, all
+// on wgmma with cp.async rings (wgmma.cuh).  Included by flash_attention.cu
+// (the C entry points of kernels 1 and 2) and by fused_block.cu, whose
+// spatial transformer runs the same forward for its self- and
+// cross-attention through flash_fwd(D, ...).  Everything has internal
+// linkage.
 
 #pragma once
 
@@ -12,13 +14,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 16 * kWarps;  // rows of the block's own side
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -27,222 +28,260 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
+namespace fa {
 
-// c += a @ b for one m16n8k16 tile (a row-major 16x16, b "col" 16x8).
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int kWG = 2;              // warpgroups per block of the backward
+constexpr int kThreads = 128 * kWG;
+constexpr int kRows = 64 * kWG;     // the block's own rows: queries (dq), keys (dk/dv)
+constexpr int kStages = 3;          // ring of the streamed side's tiles (backward)
+constexpr int kFwdStages = 4;       // the forward's: tiles j-1 (V), j (K), j+1, j+2
 
-// Shared-memory tile geometry for head dim D: rows padded to DP (a multiple
-// of 16) and strided by LD = DP + 8 elements, which keeps rows 16-byte
-// aligned and staggers them across banks.
+// Head dim D padded to the product's depth of 16 in shared memory (40 ->
+// 48; the pad columns are zero).  An output of D columns is a valid wgmma
+// width (a multiple of 8), so only the reduction over d is padded.
 template <int D>
 struct Geo {
   static constexpr int DP = (D + 15) / 16 * 16;
-  static constexpr int LD = DP + 8;
-  static constexpr int NT = DP / 8;   // n-tiles over d
-  static constexpr int KS = DP / 16;  // k-steps over d
+  static constexpr int KS = DP / 16;           // k-steps over d
+  static constexpr int KSTEP = 2 * DP * 16 / 16;  // descriptor units per 16 tile rows
+  static constexpr int TILE = DP * 2;           // bytes per tile row
 };
 
-// Copy `rows` rows of D bf16 from global (row stride gstride elements) into
-// a shared tile; rows >= nvalid and the pad columns D..DP are zero.
+// Keys per step of the forward and of dq, queries per step of dk/dv, and
+// the forward's warpgroups per block (four share each K/V tile at D <= 80,
+// which halves the tiles' traffic from L2; at D = 160 a thread's
+// accumulators leave room for two).  The widths keep each kernel's
+// accumulators in registers at D = 160.
 template <int D>
-__device__ __forceinline__ void load_rows(bf16* sm, const bf16* g, long gstride,
-                                          int rows, int nvalid) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += kThreads) {
-    int r = i / CH, c = i - r * CH;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nvalid) v = *reinterpret_cast<const uint4*>(g + (long)r * gstride + c * 8);
-    *reinterpret_cast<uint4*>(sm + r * Geo<D>::LD + c * 8) = v;
+struct Tiles {
+  static constexpr int FWD_BN = 64;
+  static constexpr int FWD_WG = D > 80 ? 2 : 4;  // warpgroups of the forward's block
+  static constexpr int DQ_BN = 64;
+  static constexpr int DKV_BQ = D > 80 ? 32 : 64;
+};
+
+// 2^x on the special-function unit (ex2.approx: 2 ulp; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int R>
+__device__ __forceinline__ void keep_u32(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// The accumulator of an m64nN product, columns 16kk..16kk+15 of each
+// warp's 16 rows, rounded to bf16 as the A fragment of the next product:
+// the C layout of one product is the A layout of the next.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[R / 8][4], const float (&c)[R]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) {
+    a[kk][0] = pack_f32(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_f32(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_f32(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_f32(c[8 * kk + 6], c[8 * kk + 7]);
   }
-  constexpr int PC = (Geo<D>::DP - D) / 8;
-  if constexpr (PC > 0) {
-    for (int i = threadIdx.x; i < rows * PC; i += kThreads) {
-      int r = i / PC, c = i - r * PC;
-      *reinterpret_cast<uint4*>(sm + r * Geo<D>::LD + D + c * 8) =
-          make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
 }
 
-// A fragment (16x16, row-major) of a shared tile at (row0, col0).
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* sm, int row0,
-                                       int col0, int lane) {
-  const bf16* p = sm + (row0 + (lane >> 2)) * LD + col0 + (lane & 3) * 2;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-}
-
-// B fragment with B[k][n] = M[n0 + n][k0 + k] (M's rows are B's columns):
-// the "x @ M^T" operand, two contiguous bf16 per register.
-template <int LD>
-__device__ __forceinline__ void frag_b_t(uint32_t b[2], const bf16* sm, int n0,
-                                         int k0, int lane) {
-  const bf16* p = sm + (n0 + (lane >> 2)) * LD + k0 + (lane & 3) * 2;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment with B[k][n] = M[k0 + k][n0 + n]: the "x @ M" operand.
-template <int LD>
-__device__ __forceinline__ void frag_b(uint32_t b[2], const bf16* sm, int k0,
-                                       int n0, int lane) {
-  const bf16* p = sm + (k0 + (lane & 3) * 2) * LD + n0 + (lane >> 2);
-  b[0] = pack_raw(p[0], p[LD]);
-  b[1] = pack_raw(p[8 * LD], p[9 * LD]);
-}
-
-// A fragments of a 16 x (2*8) slab of f32 accumulators (two adjacent n-tiles
-// of an m16n8 result) repacked as bf16: the C layout of a product is the A
-// layout of the next one.
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
-                                         const float c1[4]) {
-  a[0] = pack_f32(c0[0], c0[1]);
-  a[1] = pack_f32(c0[2], c0[3]);
-  a[2] = pack_f32(c1[0], c1[1]);
-  a[3] = pack_f32(c1[2], c1[3]);
-}
-
-// Write a warp's 16 x DP accumulator block (rows row0.., only d < D) as bf16.
+// Write a thread's share of an m64nD accumulator as bf16: rows row0 and
+// row0 + 8 (global), columns 8j + 2t, 8j + 2t + 1; rows >= nrows skipped.
 template <int D>
-__device__ __forceinline__ void store_acc(bf16* g, long gstride, int row0,
-                                          int nrows, float acc[][4],
-                                          const float scale[2], int lane) {
-  const int gi = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void store_rows(bf16* g, long gstride, int row0, int nrows,
+                                           const float (&acc)[D / 2], const float scale[2],
+                                           int t) {
 #pragma unroll
-  for (int nt = 0; nt < Geo<D>::NT; ++nt) {
-    const int col = nt * 8 + t * 2;
-    if (col >= D) continue;
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + half * 8;
+    if (row >= nrows) continue;
+    bf16* p = g + (long)row * gstride + 2 * t;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + gi + half * 8;
-      if (row < nrows)
-        *reinterpret_cast<__nv_bfloat162*>(g + (long)row * gstride + col) =
-            __floats2bfloat162_rn(acc[nt][2 * half] * scale[half],
-                                  acc[nt][2 * half + 1] * scale[half]);
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * half] * scale[half], acc[4 * j + 2 * half + 1] * scale[half]);
   }
+}
+
+template <int D>
+constexpr size_t fwd_smem() {  // Q, the ring, its full and empty mbarriers
+  return (size_t)(64 * Tiles<D>::FWD_WG + kFwdStages * 2 * Tiles<D>::FWD_BN) * Geo<D>::TILE +
+         2 * kFwdStages * 8;
+}
+template <int D>
+constexpr size_t dq_smem() {
+  return (size_t)(2 * kRows + kStages * 2 * Tiles<D>::DQ_BN) * Geo<D>::TILE + kRows * 4;
+}
+template <int D>
+constexpr size_t dkv_smem() {
+  return (size_t)(2 * kRows + kStages * 2 * Tiles<D>::DKV_BQ) * Geo<D>::TILE +
+         kStages * 2 * Tiles<D>::DKV_BQ * 4;
 }
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// One block: 64 * NWG query rows of one (batch, head), 64 per warpgroup,
+// sharing K/V tiles of BN keys that stream through a ring of kFwdStages
+// stages, two tiles ahead of the products.  Every thread copies its share
+// of a tile with cp.async; a stage's "full" mbarrier completes when all of
+// them have landed, its "empty" one when every thread is done with the
+// tile.  So the warpgroups wait for each other only through the ring, and
+// run out of step: one's softmax overlaps another's products.  Within a
+// warpgroup, step j issues S_j = Q K_j^T and O += P_{j-1} V_{j-1} together,
+// then runs the softmax of S_j while the tensor cores work on both.
+template <int D, int BN, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int H, int Sq, int Sk,
-                     float scale, int kv_div) {
+                     float* __restrict__ lse, int H, int Sq, int Sk, float scale,
+                     int kv_div) {
   using G = Geo<D>;
-  constexpr int LD = G::LD;
-  constexpr int BN = 64;  // keys per tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kRows * LD;
-  bf16* sV = sK + BN * LD;
+  constexpr int NT = 128 * NWG, ROWS = 64 * NWG;
+  constexpr int DP = G::DP, TB = BN * G::TILE, ST = kFwdStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* sQ = smem;
+  unsigned char* sKV = smem + ROWS * G::TILE;  // stage s: K at s * 2TB, V at + TB
+  uint64_t* full = reinterpret_cast<uint64_t*>(sKV + ST * 2 * TB);
+  uint64_t* empty = full + ST;
 
-  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, t = lane & 3;
+  const int row0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // and row0 + 8
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS;
   const long HD = (long)H * D;
   const float sl2 = scale * kLog2e;
-
-  load_rows<D>(sQ, q + ((long)b * Sq + m0) * HD + h * D, HD, kRows,
-               min(kRows, Sq - m0));
   // k/v batch b / kv_div: the fused transformer's cross-attention shares
   // one video's text keys among its frames (kv_div = frames; else 1)
   const bf16* kb = k + (long)(b / kv_div) * Sk * HD + h * D;
   const bf16* vb = v + (long)(b / kv_div) * Sk * HD + h * D;
+  const int ntiles = (Sk + BN - 1) / BN;
 
-  float acc[G::NT][4];
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, NT);
+      mbar_init(empty + i, NT);
+    }
+    mbar_init_fence();
+  }
+  zero_pad<D, DP, ROWS, NT>(sQ, tid);
+  zero_pad<D, DP, 2 * ST * BN, NT>(sKV, tid);
+  __syncthreads();
+
+  const TileCopy<D, DP, BN, NT> copy_kv(tid, H * D);
+  auto issue = [&](int j) {  // this thread's share of tile j
+    if (j >= ntiles) return;
+    const int st = j % ST;
+    if (j >= ST) mbar_wait(empty + st, (j / ST - 1) & 1);  // tile j - ST released
+    unsigned char* s = sKV + st * 2 * TB;
+    copy_kv(s, kb + (long)j * BN * HD, Sk - j * BN);
+    copy_kv(s + TB, vb + (long)j * BN * HD, Sk - j * BN);
+    cp_arrive(full + st);
+  };
+  auto ready = [&](int j) {
+    mbar_wait(full + j % ST, (j / ST) & 1);
+    fence_async_smem();
+  };
+  TileCopy<D, DP, ROWS, NT>(tid, H * D)(sQ, q + ((long)b * Sq + m0) * HD + h * D, Sq - m0);
+  issue(0);
+  issue(1);
+  issue(2);
+  cp_commit();
+  cp_wait<0>();  // Q
+  fence_async_smem();
+  __syncthreads();
+
+  const uint64_t dQ = desc_kmajor<DP>(sQ + wg * 64 * G::TILE);
+  auto qk = [&](float(&d)[BN / 2], int j) {
+    const uint64_t dK = desc_kmajor<DP>(sKV + (j % ST) * 2 * TB);
 #pragma unroll
-  for (int i = 0; i < G::NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int kk = 0; kk < G::KS; ++kk) wgmma_ss<BN>(d, dQ + kk * 16, dK + kk * 16, kk);
+  };
+  float s[BN / 2], acc[D / 2];
+  uint32_t pa[BN / 16][4];  // P of the previous tile, the A operand of P V
+  auto pv = [&](int j) {
+    const uint64_t dV = desc_mnmajor<DP>(sKV + (j % ST) * 2 * TB + TB);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<D>(acc, pa[kk], dV + kk * G::KSTEP, 1);
+  };
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // per-thread partial row sums
-  const int r0 = warp * 16;
 
-  for (int n0 = 0; n0 < Sk; n0 += BN) {
-    __syncthreads();
-    const int nvalid = min(BN, Sk - n0);
-    load_rows<D>(sK, kb + (long)n0 * HD, HD, BN, nvalid);
-    load_rows<D>(sV, vb + (long)n0 * HD, HD, BN, nvalid);
-    __syncthreads();
-
-    float s[BN / 8][4];
+  // Online softmax of tile j in s, in base 2 on raw scores: s becomes P,
+  // m_run the new row maximum; corr rescales the older sums.
+  auto softmax = [&](int j, float corr[2], float ps[2]) {
+    const int kval = Sk - j * BN;
+    if (kval < BN) {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < G::KS; ++kk) {
-      uint32_t a[4];
-      frag_a<LD>(a, sQ, r0, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        uint32_t bb[2];
-        frag_b_t<LD>(bb, sK, j * 8, kk * 16, lane);
-        mma16816(s[j], a, bb);
-      }
+      for (int i = 0; i < BN / 2; ++i)
+        if ((i >> 2) * 8 + 2 * t + (i & 1) >= kval) s[i] = -INFINITY;
     }
-
-    float mx[2] = {m_run[0], m_run[1]};
+    float mx[2] = {m_run[0], m_run[1]}, mb[2];
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t * 2 + (e & 1);
-        const float x = col < nvalid ? s[j][e] * sl2 : -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float corr[2];
+    for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m_run[r] - mx[r]);
+      corr[r] = ex2((m_run[r] - mx[r]) * sl2);
       m_run[r] = mx[r];
-      l_run[r] *= corr[r];
+      mb[r] = mx[r] * sl2;
+      ps[r] = 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m_run[e >> 1]);
-        s[j][e] = p;
-        l_run[e >> 1] += p;
-      }
-#pragma unroll
-    for (int nt = 0; nt < G::NT; ++nt) {
-      acc[nt][0] *= corr[0];
-      acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1];
-      acc[nt][3] *= corr[1];
+    for (int i = 0; i < BN / 2; ++i) {
+      s[i] = ex2(fmaf(s[i], sl2, -mb[(i >> 1) & 1]));
+      ps[(i >> 1) & 1] += s[i];
     }
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int nt = 0; nt < G::NT; ++nt) {
-        uint32_t bb[2];
-        frag_b<LD>(bb, sV, kk * 16, nt * 8, lane);
-        mma16816(acc[nt], a, bb);
-      }
-    }
+  };
+
+  ready(0);
+  wg_fence();
+  qk(s, 0);
+  wg_commit();
+  wg_wait<0>();
+  wg_keep(s);
+  {
+    float corr[2], ps[2];
+    softmax(0, corr, ps);
+    l_run[0] = ps[0];
+    l_run[1] = ps[1];
+    acc_to_a<BN / 2>(pa, s);
   }
+  for (int j = 1; j < ntiles; ++j) {
+    issue(j + 2);  // into the stage of tile j - 2
+    ready(j);
+    wg_fence();
+    qk(s, j);
+    wg_commit();
+    pv(j - 1);
+    wg_commit();
+    wg_wait<1>();  // S_j; P_{j-1} V_{j-1} may still run
+    wg_keep(s);
+    float corr[2], ps[2];
+    softmax(j, corr, ps);
+    wg_wait<0>();
+    wg_keep(acc);
+    keep_u32(pa);
+    mbar_arrive(empty + (j - 1) % ST);  // this thread is done with tile j - 1
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + ps[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    acc_to_a<BN / 2>(pa, s);
+  }
+  wg_fence();
+  pv(ntiles - 1);
+  wg_commit();
+  wg_wait<0>();
+  wg_keep(acc);
+  keep_u32(pa);
 
   float inv[2];
 #pragma unroll
@@ -251,241 +290,260 @@ __global__ void __launch_bounds__(kThreads)
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     inv[r] = 1.f / l_run[r];
   }
-  store_acc<D>(o + (long)b * Sq * HD + h * D, HD, m0 + r0, Sq, acc, inv, lane);
+  store_rows<D>(o + (long)b * Sq * HD + h * D, HD, m0 + row0, Sq, acc, inv, t);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = m0 + r0 + (lane >> 2) + r * 8;
+      const int row = m0 + row0 + r * 8;
       if (row < Sq)
-        lse[((long)b * H + h) * Sq + row] = (m_run[r] + log2f(l_run[r])) * kLn2;
+        lse[((long)b * H + h) * Sq + row] = (m_run[r] * sl2 + log2f(l_run[r])) * kLn2;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward: delta = rowsum(dO * O), then dq and dk/dv, both recomputing P
+// backward: dq (with delta) over key tiles, then dk/dv over query tiles
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void flash_delta_kernel(const bf16* __restrict__ o,
-                                   const bf16* __restrict__ dout,
-                                   float* __restrict__ delta, int B, int H,
-                                   int Sq) {
-  // one thread per (b, s, h) row; the row's D values are contiguous
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long total = (long)B * Sq * H;
-  if (idx >= total) return;
-  const int h = (int)(idx % H);
-  const long bs = idx / H;
-  const int s = (int)(bs % Sq);
-  const int b = (int)(bs / Sq);
-  const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(o + idx * D);
-  const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(dout + idx * D);
-  float acc = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < D / 2; ++i) {
-    const float2 a = __bfloat1622float2(op[i]);
-    const float2 c = __bfloat1622float2(dp[i]);
-    acc += a.x * c.x + a.y * c.y;
-  }
-  delta[((long)b * H + h) * Sq + s] = acc;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// One block: 128 query rows, 64 per warpgroup.  First delta = rowsum(dO *
+// O) of its rows (two threads a row, written for the dk/dv kernel); then
+// per K/V tile S = Q K^T and dP = dO V^T, dS = P (dP - delta) * scale,
+// dQ += dS K with K read MN-major.
+template <int D, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                        int H, int Sq, int Sk, float scale) {
+                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+                        const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq,
+                        int Sk, float scale) {
   using G = Geo<D>;
-  constexpr int LD = G::LD;
-  constexpr int BN = 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + kRows * LD;  // dO
-  bf16* sK = sO + kRows * LD;
-  bf16* sV = sK + BN * LD;
+  constexpr int DP = G::DP, QB = kRows * G::TILE, TB = BN * G::TILE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* sQ = smem;
+  unsigned char* sO = smem + QB;  // dO
+  unsigned char* sKV = smem + 2 * QB;
+  float* sDl = reinterpret_cast<float*>(sKV + kStages * 2 * TB);
 
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, t = lane & 3;
+  const int row0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
   const long HD = (long)H * D;
   const float sl2 = scale * kLog2e;
-  const int nrows = min(kRows, Sq - m0);
-
-  load_rows<D>(sQ, q + ((long)b * Sq + m0) * HD + h * D, HD, kRows, nrows);
-  load_rows<D>(sO, dout + ((long)b * Sq + m0) * HD + h * D, HD, kRows, nrows);
   const bf16* kb = k + (long)b * Sk * HD + h * D;
   const bf16* vb = v + (long)b * Sk * HD + h * D;
-  const int r0 = warp * 16;
+  const int ntiles = (Sk + BN - 1) / BN;
 
+  zero_pad<D, DP, 2 * kRows, kThreads>(sQ, tid);
+  zero_pad<D, DP, 2 * kStages * BN, kThreads>(sKV, tid);
+  const TileCopy<D, DP, BN, kThreads> copy_kv(tid, H * D);
+  auto load_kv = [&](int j) {
+    unsigned char* s = sKV + (j % kStages) * 2 * TB;
+    copy_kv(s, kb + (long)j * BN * HD, Sk - j * BN);
+    copy_kv(s + TB, vb + (long)j * BN * HD, Sk - j * BN);
+  };
+  const long qoff = ((long)b * Sq + m0) * HD + h * D;
+  {
+    const TileCopy<D, DP, kRows, kThreads> copy_q(tid, H * D);
+    copy_q(sQ, q + qoff, Sq - m0);
+    copy_q(sO, dout + qoff, Sq - m0);
+  }
+  load_kv(0);
+  cp_commit();
+  if (ntiles > 1) load_kv(1);
+  cp_commit();
+
+  {  // delta, while the copies fly
+    const int r = tid >> 1, half = tid & 1, row = m0 + r;
+    float a = 0.f;
+    if (row < Sq) {
+      const long off = qoff + (long)r * HD + half * (D / 2);
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(o + off);
+      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(dout + off);
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) {
+        const float2 x = __bfloat1622float2(op[i]);
+        const float2 y = __bfloat1622float2(dp[i]);
+        a = fmaf(x.x, y.x, fmaf(x.y, y.y, a));
+      }
+    }
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    if (half == 0) {
+      sDl[r] = a;
+      if (row < Sq) delta[((long)b * H + h) * Sq + row] = a;
+    }
+  }
   float lse2[2], dl[2];
+  __syncthreads();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = m0 + r0 + (lane >> 2) + r * 8;
-    const long i = ((long)b * H + h) * Sq + row;
-    lse2[r] = row < Sq ? lse[i] * kLog2e : 0.f;
-    dl[r] = row < Sq ? delta[i] : 0.f;
+    const int row = m0 + row0 + r * 8;
+    lse2[r] = row < Sq ? lse[((long)b * H + h) * Sq + row] * kLog2e : 0.f;
+    dl[r] = sDl[row0 + r * 8];
   }
 
-  float acc[G::NT][4];
+  const uint64_t dQ = desc_kmajor<DP>(sQ + wg * 64 * G::TILE);
+  const uint64_t dO = desc_kmajor<DP>(sO + wg * 64 * G::TILE);
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < G::NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  for (int n0 = 0; n0 < Sk; n0 += BN) {
+  for (int j = 0; j < ntiles; ++j) {
+    cp_wait<1>();
+    fence_async_smem();
     __syncthreads();
-    const int nvalid = min(BN, Sk - n0);
-    load_rows<D>(sK, kb + (long)n0 * HD, HD, BN, nvalid);
-    load_rows<D>(sV, vb + (long)n0 * HD, HD, BN, nvalid);
-    __syncthreads();
+    if (j + 2 < ntiles) load_kv(j + 2);
+    cp_commit();
+    unsigned char* sK = sKV + (j % kStages) * 2 * TB;
+    const uint64_t dK = desc_kmajor<DP>(sK), dV = desc_kmajor<DP>(sK + TB);
+    float s[BN / 2], dp[BN / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < G::KS; ++kk) wgmma_ss<BN>(s, dQ + kk * 16, dK + kk * 16, kk);
+#pragma unroll
+    for (int kk = 0; kk < G::KS; ++kk) wgmma_ss<BN>(dp, dO + kk * 16, dV + kk * 16, kk);
+    wg_commit();
+    wg_wait<0>();
+    wg_keep(s);
+    wg_keep(dp);
 
-    float s[BN / 8][4], dp[BN / 8][4];
+    const int kval = Sk - j * BN;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < G::KS; ++kk) {
-      uint32_t aq[4], ao[4];
-      frag_a<LD>(aq, sQ, r0, kk * 16, lane);
-      frag_a<LD>(ao, sO, r0, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        uint32_t bk[2], bv[2];
-        frag_b_t<LD>(bk, sK, j * 8, kk * 16, lane);
-        frag_b_t<LD>(bv, sV, j * 8, kk * 16, lane);
-        mma16816(s[j], aq, bk);
-        mma16816(dp[j], ao, bv);
-      }
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = (i >> 2) * 8 + 2 * t + (i & 1) < kval
+                          ? ex2(fmaf(s[i], sl2, -lse2[r])) : 0.f;
+      s[i] = p * (dp[i] - dl[r]) * scale;  // dS
     }
+    uint32_t pa[BN / 16][4];
+    acc_to_a<BN / 2>(pa, s);
+    const uint64_t dKt = desc_mnmajor<DP>(sK);
+    wg_fence();
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t * 2 + (e & 1);
-        const float p = col < nvalid ? exp2f(s[j][e] * sl2 - lse2[e >> 1]) : 0.f;
-        s[j][e] = p * (dp[j][e] - dl[e >> 1]) * scale;  // dS
-      }
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int nt = 0; nt < G::NT; ++nt) {
-        uint32_t bb[2];
-        frag_b<LD>(bb, sK, kk * 16, nt * 8, lane);
-        mma16816(acc[nt], a, bb);
-      }
-    }
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<D>(acc, pa[kk], dKt + kk * G::KSTEP, 1);
+    wg_commit();
+    wg_wait<0>();
+    wg_keep(acc);
+    keep_u32(pa);
   }
   const float one[2] = {1.f, 1.f};
-  store_acc<D>(dq + (long)b * Sq * HD + h * D, HD, m0 + r0, Sq, acc, one, lane);
+  store_rows<D>(dq + (long)b * Sq * HD + h * D, HD, m0 + row0, Sq, acc, one, t);
 }
 
-// dk/dv: the block owns 64 keys and streams query tiles of BQ rows.  BQ is
-// smaller at D=160 so that the two f32 accumulator blocks plus the two
-// transposed score tiles stay in registers.
+// One block: 128 keys, 64 per warpgroup; tiles of BQ queries (Q, dO, LSE,
+// delta) stream through the ring.  Per tile, transposed: S^T = K Q^T,
+// dP^T = V dO^T, P^T, dS^T = P^T (dP^T - delta) * scale; dV += P^T dO and
+// dK += dS^T Q with dO and Q read MN-major.
 template <int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int H, int Sq, int Sk,
-                         float scale) {
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq,
+                         int Sk, float scale) {
   using G = Geo<D>;
-  constexpr int LD = G::LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kRows * LD;
-  bf16* sQ = sV + kRows * LD;
-  bf16* sO = sQ + BQ * LD;  // dO
-  float* sL = reinterpret_cast<float*>(sO + BQ * LD);
-  float* sD = sL + BQ;
+  constexpr int DP = G::DP, KB = kRows * G::TILE, TB = BQ * G::TILE;
+  constexpr int SB = 2 * TB + 2 * BQ * 4;  // stage: Q, dO, LSE, delta
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + KB;
+  unsigned char* sQO = smem + 2 * KB;
 
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, t = lane & 3;
+  const int row0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
   const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
   const long HD = (long)H * D;
   const float sl2 = scale * kLog2e;
-  const int nkeys = min(kRows, Sk - n0);
-
-  load_rows<D>(sK, k + ((long)b * Sk + n0) * HD + h * D, HD, kRows, nkeys);
-  load_rows<D>(sV, v + ((long)b * Sk + n0) * HD + h * D, HD, kRows, nkeys);
   const bf16* qb = q + (long)b * Sq * HD + h * D;
   const bf16* ob = dout + (long)b * Sq * HD + h * D;
   const float* lb = lse + ((long)b * H + h) * Sq;
   const float* db = delta + ((long)b * H + h) * Sq;
-  const int r0 = warp * 16;
+  const int ntiles = (Sq + BQ - 1) / BQ;
 
-  float accK[G::NT][4], accV[G::NT][4];
-#pragma unroll
-  for (int i = 0; i < G::NT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) accK[i][e] = accV[i][e] = 0.f;
-
-  for (int m0 = 0; m0 < Sq; m0 += BQ) {
-    __syncthreads();
-    const int mvalid = min(BQ, Sq - m0);
-    load_rows<D>(sQ, qb + (long)m0 * HD, HD, BQ, mvalid);
-    load_rows<D>(sO, ob + (long)m0 * HD, HD, BQ, mvalid);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      // an absent query row gets lse = +inf, so its probabilities are 0
-      sL[i] = i < mvalid ? lb[m0 + i] * kLog2e : INFINITY;
-      sD[i] = i < mvalid ? db[m0 + i] : 0.f;
+  zero_pad<D, DP, 2 * kRows, kThreads>(sK, tid);
+  for (int st = 0; st < kStages; ++st) zero_pad<D, DP, 2 * BQ, kThreads>(sQO + st * SB, tid);
+  // absent query rows load as zeros (Q, dO, LSE and delta), which makes
+  // their dS^T and their dO rows zero: they add nothing
+  const TileCopy<D, DP, BQ, kThreads> copy_q(tid, H * D);
+  auto load_q = [&](int i) {
+    unsigned char* s = sQO + (i % kStages) * SB;
+    const int m0 = i * BQ;
+    copy_q(s, qb + (long)m0 * HD, Sq - m0);
+    copy_q(s + TB, ob + (long)m0 * HD, Sq - m0);
+    if (tid < BQ) {
+      const bool ok = m0 + tid < Sq;
+      float* sl = reinterpret_cast<float*>(s + 2 * TB);
+      cp4(sl + tid, ok ? lb + m0 + tid : lb, ok);
+      cp4(sl + BQ + tid, ok ? db + m0 + tid : db, ok);
     }
-    __syncthreads();
+  };
+  const long koff = ((long)b * Sk + n0) * HD + h * D;
+  {
+    const TileCopy<D, DP, kRows, kThreads> copy_k(tid, H * D);
+    copy_k(sK, k + koff, Sk - n0);
+    copy_k(sV, v + koff, Sk - n0);
+  }
+  load_q(0);
+  cp_commit();
+  if (ntiles > 1) load_q(1);
+  cp_commit();
 
-    // transposed scores: rows are this warp's 16 keys, columns are queries
-    float st[BQ / 8][4], dpt[BQ / 8][4];
+  const uint64_t dK = desc_kmajor<DP>(sK + wg * 64 * G::TILE);
+  const uint64_t dV = desc_kmajor<DP>(sV + wg * 64 * G::TILE);
+  float accK[D / 2], accV[D / 2];
 #pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
+  for (int i = 0; i < D / 2; ++i) accK[i] = accV[i] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    cp_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+    if (i + 2 < ntiles) load_q(i + 2);
+    cp_commit();
+    unsigned char* s = sQO + (i % kStages) * SB;
+    const float* sL = reinterpret_cast<const float*>(s + 2 * TB);
+    const float* sD = sL + BQ;
+    float st[BQ / 2], dpt[BQ / 2];
+    const uint64_t dQ = desc_kmajor<DP>(s), dO = desc_kmajor<DP>(s + TB);
+    wg_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    for (int kk = 0; kk < G::KS; ++kk) wgmma_ss<BQ>(st, dK + kk * 16, dQ + kk * 16, kk);
 #pragma unroll
-    for (int kk = 0; kk < G::KS; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a<LD>(ak, sK, r0, kk * 16, lane);
-      frag_a<LD>(av, sV, r0, kk * 16, lane);
+    for (int kk = 0; kk < G::KS; ++kk) wgmma_ss<BQ>(dpt, dV + kk * 16, dO + kk * 16, kk);
+    wg_commit();
+    wg_wait<0>();
+    wg_keep(st);
+    wg_keep(dpt);
+
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-        uint32_t bq[2], bo[2];
-        frag_b_t<LD>(bq, sQ, j * 8, kk * 16, lane);
-        frag_b_t<LD>(bo, sO, j * 8, kk * 16, lane);
-        mma16816(st[j], ak, bq);
-        mma16816(dpt[j], av, bo);
-      }
+    for (int e = 0; e < BQ / 2; ++e) {
+      const int col = (e >> 2) * 8 + 2 * t + (e & 1);
+      const float p = ex2(fmaf(st[e], sl2, -sL[col] * kLog2e));
+      st[e] = p;
+      dpt[e] = p * (dpt[e] - sD[col]) * scale;  // dS^T
     }
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t * 2 + (e & 1);
-        const float p = exp2f(st[j][e] * sl2 - sL[col]);
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - sD[col]) * scale;  // dS^T
-      }
+    uint32_t pp[BQ / 16][4], ps[BQ / 16][4];
+    acc_to_a<BQ / 2>(pp, st);
+    acc_to_a<BQ / 2>(ps, dpt);
+    const uint64_t dQt = desc_mnmajor<DP>(s), dOt = desc_mnmajor<DP>(s + TB);
+    wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t ap[4], as[4];
-      acc_to_a(ap, st[2 * kk], st[2 * kk + 1]);
-      acc_to_a(as, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-      for (int nt = 0; nt < G::NT; ++nt) {
-        uint32_t bo[2], bq[2];
-        frag_b<LD>(bo, sO, kk * 16, nt * 8, lane);
-        frag_b<LD>(bq, sQ, kk * 16, nt * 8, lane);
-        mma16816(accV[nt], ap, bo);
-        mma16816(accK[nt], as, bq);
-      }
+      wgmma_rs<D>(accV, pp[kk], dOt + kk * G::KSTEP, 1);
+      wgmma_rs<D>(accK, ps[kk], dQt + kk * G::KSTEP, 1);
     }
+    wg_commit();
+    wg_wait<0>();
+    wg_keep(accV);
+    wg_keep(accK);
+    keep_u32(pp);
+    keep_u32(ps);
   }
   const float one[2] = {1.f, 1.f};
-  store_acc<D>(dk + (long)b * Sk * HD + h * D, HD, n0 + r0, Sk, accK, one, lane);
-  store_acc<D>(dv + (long)b * Sk * HD + h * D, HD, n0 + r0, Sk, accV, one, lane);
+  store_rows<D>(dk + (long)b * Sk * HD + h * D, HD, n0 + row0, Sk, accK, one, t);
+  store_rows<D>(dv + (long)b * Sk * HD + h * D, HD, n0 + row0, Sk, accV, one, t);
 }
+
+}  // namespace fa
 
 // Launch the forward for head dim D (40, 80 or 160; else -1): out and the
 // LSE of q (B, Sq, H*D) against k/v batch b / kv_div (B / kv_div, Sk, H*D).
@@ -493,13 +551,13 @@ template <int D>
 int flash_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
               int B, int H, int Sq, int Sk, float scale, int kv_div,
               cudaStream_t st) {
-  constexpr int LD = Geo<D>::LD;
-  const size_t smem = (size_t)(kRows + 2 * 64) * LD * sizeof(bf16);
-  cudaFuncSetAttribute(flash_fwd_kernel<D>,
+  constexpr int BN = fa::Tiles<D>::FWD_BN, NWG = fa::Tiles<D>::FWD_WG;
+  constexpr size_t smem = fa::fwd_smem<D>();
+  cudaFuncSetAttribute(fa::flash_fwd_kernel<D, BN, NWG>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((Sq + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, st>>>(q, k, v, o, lse, H, Sq, Sk,
-                                                      scale, kv_div);
+  dim3 grid((Sq + 64 * NWG - 1) / (64 * NWG), H, B);
+  fa::flash_fwd_kernel<D, BN, NWG><<<grid, 128 * NWG, smem, st>>>(q, k, v, o, lse, H, Sq,
+                                                                   Sk, scale, kv_div);
   return (int)cudaGetLastError();
 }
 

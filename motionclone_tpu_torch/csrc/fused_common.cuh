@@ -47,10 +47,20 @@
 
 #pragma once
 
-#include "flash_attention.cuh"  // bf16, pack_f32, mma16816
+#include "flash_attention.cuh"  // bf16, pack_f32
 
 namespace {
 namespace fz {
+
+// c += a @ b for one m16n8k16 tile (a row-major 16x16, b "col" 16x8).
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 constexpr int kThreads = 256;  // 8 warps: 4 along M x 2 along N
 constexpr int BM = 128;

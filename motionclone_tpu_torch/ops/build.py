@@ -38,6 +38,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "mc_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "mc_flash_bwd": (_P,) * 10 + (_I, _I, _I, _I, _I, _F, _P),
+    "mc_flash_smem": (_I, _I),
     "mc_temporal_fwd": (_P,) * 5 + (_I,) * 6 + (_F, _P),
     "mc_temporal_bwd": (_P,) * 8 + (_I,) * 6 + (_F, _P),
     # the fused modules: (pointer array, int array of dims, eps, stream)
