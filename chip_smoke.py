@@ -22,6 +22,14 @@ Phase 2  kernels: each kernel at every shape the main path gives it (the
          fused modules (spatial transformer, transformer block, motion
          module, resnet) have no single PyTorch call to compare with; they
          are timed beside the port's unfused module on the same input.
+         Before them, the TMA + wgmma product that kernels 5-7 launch
+         (csrc/fused_product.cuh), alone: first one 64x160x64 tile, then
+         every distinct (M, N, K, epilogue) those kernels launch on the main
+         path, each against its plain version (tolerance as the kernels'),
+         two launches required to give the same bits, timed beside the
+         mma.sync product that kernel 8 keeps (on the same arguments) and
+         torch.matmul of the same operands (the product without its
+         epilogue), with TFLOP/s and the bound.
 Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          width, 512x512x16 frames, random weights from a seed: CLIP on random
          token ids for the CFG pair, VAE encode of a random video,
@@ -57,7 +65,11 @@ Phase 6  frame sharding: the main path of phase 3 (VAE decode on rank 0)
 
 The line before the last is the kernels JSON; the last line is the result
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
-exits non-zero and prints no result.
+exits non-zero and prints no result.  On its way out, whatever the outcome,
+the script stops every process it started that is still running
+(multiprocessing's resource tracker, which phase 6's spawned ranks start,
+and any descendant, orphans included: the script adopts them as a child
+subreaper) and names each on standard error.
 """
 
 from __future__ import annotations
@@ -132,6 +144,89 @@ SHARD_TOLS = {"latents_rel_l2": 5e-2, "rep_values_rel_l2": 3e-2,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def adopt_orphans() -> None:
+    """Make this process the child subreaper of its descendants (Linux
+    prctl PR_SET_CHILD_SUBREAPER), so that a process whose parent exits is
+    re-parented here rather than to init, and :func:`stop_descendants` still
+    finds it."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def descendants() -> list:
+    """(pid, command line) of every living process below this one, from
+    /proc, parents before their children."""
+    children = defaultdict(list)
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                # after the command's closing parenthesis: state, ppid
+                state, ppid = fh.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        if state != "Z":
+            children[int(ppid)].append(int(entry))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), ()):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                    cmd = fh.read().replace(b"\0", b" ").decode(errors="replace").strip()
+            except OSError:
+                cmd = "?"
+            out.append((pid, cmd))
+            todo.append(pid)
+    return out
+
+
+def stop_descendants(limit_s: float = 10.0) -> None:
+    """Stop every process this script started that still runs: the
+    multiprocessing resource tracker (closing its pipe ends it; it ignores
+    SIGTERM), then any other descendant (SIGKILL), each named on standard
+    error; wait until none is left and reap the exited children."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    try:
+        pid = tracker._pid
+        tracker._stop()
+        if pid is not None:
+            print(f"chip_smoke: stopped multiprocessing's resource tracker (pid {pid})",
+                  file=sys.stderr)
+    except Exception as exc:  # noqa: BLE001 - report and go on to the kill
+        print(f"chip_smoke: resource tracker: {exc!r}", file=sys.stderr)
+    deadline = time.monotonic() + limit_s
+    while True:
+        left = descendants()
+        if not left:
+            break
+        for pid, cmd in left:
+            print(f"chip_smoke: stopping process {pid} left running: {cmd[:200]}",
+                  file=sys.stderr, flush=True)
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        if time.monotonic() > deadline:
+            print(f"chip_smoke: {len(left)} processes still running after "
+                  f"{limit_s:.0f} s", file=sys.stderr)
+            break
+        time.sleep(0.1)
+        while True:  # reap the children that exited (kills included)
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    break
+            except ChildProcessError:
+                break
 
 
 def nvidia_smi() -> str:
@@ -404,6 +499,96 @@ def check_kernels(dev) -> dict:
                        b_by, lib_ms, lib_dev)
         torch.cuda.empty_cache()
     return rows
+
+
+def main_path_products() -> list:
+    """Every distinct product (M, N, K and epilogue) kernels 5 and 7 launch
+    on the main path: B·F = 16 and 32 at the levels the fused route takes
+    (64x64 and 32x32; the 16x16 and 8x8 levels, at 1280 channels, are not
+    fused), in the order the modules launch them."""
+    from motionclone_tpu_torch.ops import fused_block as fb
+    from motionclone_tpu_torch.ops import fused_temporal as ft
+
+    seen, out = set(), []
+    for hw, c in FUSED_SHAPES:
+        for b in (1, 2):
+            for p in (fb.products(b * FRAMES, hw * hw, c, b, TEXT_TOKENS, 768)
+                      + ft.products(b, FRAMES, hw * hw, c)):
+                key = p[1:]
+                if key not in seen:
+                    seen.add(key)
+                    out.append(p)
+    return out
+
+
+def check_products(dev) -> None:
+    """The product of kernels 5-7 alone (phase 2): each shape against its
+    plain version, two launches bit for bit, timed beside kernel 8's
+    mma.sync product and torch.matmul."""
+    from motionclone_tpu_torch.ops import build as kb
+    from motionclone_tpu_torch.ops import fused_common as fc
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lib = kb.load_library()
+    f32, bf16 = torch.float32, torch.bfloat16
+    dt = {"bf16": bf16, "f32": f32}
+    probe = fc.Product("probe", 64, 160, 64)
+    for p in [probe] + main_path_products():
+        a = torch.randn(p.m, p.k, generator=gen, device=dev).to(bf16)
+        w = (torch.randn(p.n, p.k, generator=gen, device=dev) * p.k ** -0.5).to(bf16)
+        bias = 0.1 * torch.randn(p.n, generator=gen, device=dev) if p.bias else None
+        res = (torch.randn(p.m, p.n, generator=gen, device=dev).to(dt[p.res])
+               if p.res else None)
+        kw = dict(geglu_out=p.geglu, out_dtype=dt[p.out], split=p.split)
+
+        def launch(r):
+            # the in-place update writes the residual it reads
+            return fc.fused_product(a, w, bias, r, out=r if p.inplace else None, **kw)
+
+        first = launch(None if res is None else res.clone())
+        again = launch(None if res is None else res.clone())
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"product {p}: two launches differ")
+        ref = fc.product_plain(a, w, bias, res, **kw)
+        err, tol = max_err((first,), (ref,))
+        del again, ref
+        # both products timed through their C entry points on the same
+        # arguments: the same host work per launch
+        work = None if res is None else res.clone()
+        out = torch.empty_like(first)
+        ptrs, dims = fc.product_pointers(a, w, bias, work if p.inplace else res,
+                                         work if p.inplace else out,
+                                         geglu_out=p.geglu, split=p.split)
+        stream = fc.stream_of(a)
+
+        def entry(fn):
+            return lambda: kb.check(fn(ptrs, dims, stream), "product")
+
+        ms = time_ms(entry(lib.mc_fused_product), reps=10)
+        mma_ms = time_ms(entry(lib.mc_mma_product), reps=10)
+        wt = w.t()
+        lib_ms = time_ms(lambda: torch.matmul(a, wt), reps=10)
+        flops = 2 * p.m * p.n * p.k
+        n_out = p.n // 2 if p.geglu else p.n
+        nbytes = (2 * p.m * p.k + 2 * p.n * p.k + (4 * p.n if p.bias else 0)
+                  + (res.element_size() * p.m * p.n if p.res else 0)
+                  + first.element_size() * p.m * n_out)
+        b_ms, b_by = bound(flops, nbytes)
+        tf = lambda t: flops / t / 1e9
+        epi = ("bias " if p.bias else "") + (f"res {p.res} " if p.res else "") \
+            + ("in place " if p.inplace else "") + ("GEGLU " if p.geglu else "") \
+            + (f"split {p.split} " if p.split else "") + f"out {p.out}"
+        ok = err <= tol
+        log(f"product {p.label:10s} (M, N, K)=({p.m}, {p.n}, {p.k}) [{epi}] "
+            f"max_abs_err={err:.3e} tol={tol:.3e} {'OK' if ok else 'FAIL'} bits_equal "
+            f"kernel_ms={ms:.4f} ({tf(ms):.1f} TFLOP/s) mma_sync_ms={mma_ms:.4f} "
+            f"({tf(mma_ms):.1f}) library_ms={lib_ms:.4f} ({tf(lib_ms):.1f}) "
+            f"bound_ms={b_ms:.4f} ({b_by}){'  SLOWER than mma.sync' if ms > mma_ms else ''}")
+        if not ok:
+            raise AssertionError(f"product {p}: error {err} > tolerance {tol}")
+        del a, w, bias, res, first, work, out, ptrs
+        torch.cuda.empty_cache()
 
 
 def module_on_card(ctor, dev, gen):
@@ -820,9 +1005,12 @@ def steady_steps(pipe, rep, uncond, cond, lat) -> None:
 
 def category(name: str) -> str:
     n = name.lower()
-    if "fz::" in n or "gemm_kernel" in n or "gn_partial" in n or "gn_finalize" in n \
-            or "row_stats" in n:
-        return "fused modules: products, norms (port kernels)"
+    if "product_kernel" in n:
+        return "fused modules: products, wgmma (kernels 5-7)"
+    if "gemm_kernel" in n:
+        return "fused modules: products, mma.sync (kernel 8)"
+    if "fz::" in n or "gn_partial" in n or "gn_finalize" in n or "row_stats" in n:
+        return "fused modules: norms (port kernels)"
     if "flash_" in n and "kernel" in n:
         return "flash attention (port kernels)"
     if "temporal_" in n and "kernel" in n:
@@ -864,7 +1052,7 @@ def profile_steps(out_dir: str, steps: dict) -> None:
         for name, ms in by_kernel.items():
             cats[category(name)] += ms
         for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
-            log(f"  {cat:36s} {ms:9.2f} ms {100 * ms / busy:5.1f}%")
+            log(f"  {cat:46s} {ms:9.2f} ms {100 * ms / busy:5.1f}%")
         log("  top kernels:")
         for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
             log(f"    {ms:8.2f} ms  {name[:110]}")
@@ -1139,6 +1327,32 @@ def log_flash_resources(build_log: str, lib) -> None:
             name = None
 
 
+def log_product_resources(build_log: str, lib) -> None:
+    """Registers per thread, spills (ptxas) and dynamic shared memory per
+    block of each instantiation of the product of kernels 5-7, in each
+    source that includes it."""
+    import re
+
+    section, name, spills = "", None, "spills not reported"
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            section = line[3:].strip()
+        m = re.search(r"product_kernelILi(\d)ELb([01])ELb([01])E", line)
+        if m and "Compiling entry function" in line:
+            res, out, geglu = m.groups()
+            name = (f"residual {('none', 'bf16', 'f32')[int(res)]}, "
+                    f"out {('bf16', 'f32')[int(out)]}{', GEGLU' if geglu == '1' else ''}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            log(f"  product resources {section} product_kernel<{name}>: {m.group(1)} "
+                f"registers (at launch; setmaxnreg 40 producer / 232 consumers), {spills}, "
+                f"{lib.mc_fused_product_smem(int(out == '1'))} bytes shared memory")
+            name = None
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from motionclone_tpu_torch.ops import flash_attention as fa
@@ -1195,6 +1409,7 @@ def main() -> int:
             if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 log("  ptxas " + line.strip())
         log_flash_resources(kbuild.build_info["log"], kbuild.load_library())
+        log_product_resources(kbuild.build_info["log"], kbuild.load_library())
 
     wrappers = kernel_wrappers()
     if args.sharded_only:
@@ -1210,6 +1425,7 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     t0 = time.perf_counter()
+    check_products(dev)
     rows = check_kernels(dev)
     rows.update(check_fused_kernels(dev))
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
@@ -1250,4 +1466,9 @@ def finish(card: str) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        code = main()
+    finally:
+        stop_descendants()
+    sys.exit(code)

@@ -17,18 +17,20 @@
 // bound by operations.  The TPU kernel keeps a frame's K and V^T in VMEM
 // scratch across its query tiles; a frame's K and V (4096 x 320 bf16,
 // 2.6 MB each) do not fit a Hopper block's shared memory, so here one
-// launch of the fused product (fused_common.cuh) writes the frame's q, k
-// and v once, and the attention streams K/V tile by tile through the exact
-// online-softmax forward of flash_attention.cuh (no +-75 logit clamp).
-// The cross-attention's K2/V2 are projected once per video from its 77
+// launch of the TMA + wgmma product (fused_product.cuh) writes the frame's
+// q, k and v once, and the attention streams K/V tile by tile through the
+// exact online-softmax forward of flash_attention.cuh (no +-75 logit
+// clamp).  The cross-attention's K2/V2 are projected once per video from its 77
 // text tokens and shared by its frames (the attention kernel reads k/v
 // batch b / frames).  Each LayerNorm, and the GroupNorm (statistics from
 // the two-pass reduction), is one normalisation pass writing the bf16
 // operand of the next product; biases, the GEGLU gate and every residual
-// add run in the products' epilogues.  Activations between launches are
+// add run in the products' epilogues.  Every product of both entry points
+// is one launch of that product (128 x 160 tiles: N and the q|k|v chunk
+// width are multiples of 160, K of 64).  Activations between launches are
 // bf16, where the TPU kernel rounds them too.
 
-#include "fused_common.cuh"
+#include "fused_product.cuh"
 
 namespace {
 
@@ -71,7 +73,7 @@ int transformer(void* const* p, const int* d, float eps, bool whole,
                                      (float*)p[26], gw, gb, BF, S, C, G, nch,
                                      eps, st));
     MC_CHECK(group_norm_apply<bf16>(x, gw, gb, xn, BF, S, C, false, st));
-    MC_CHECK(gemm(gemm_args(xn, p[4], p[5], h, 0, M, C, C), st));
+    MC_CHECK(product(gemm_args(xn, p[4], p[5], h, 0, M, C, C), st));
   } else {
     h = const_cast<bf16*>(x);
   }
@@ -81,19 +83,19 @@ int transformer(void* const* p, const int* d, float eps, bool whole,
                                  xn, M, C, 1, 1, ln_eps, st));
   GemmArgs q = gemm_args(xn, p[8], nullptr, qkv, 0, M, 3 * C, C);
   split_output(q, C);
-  MC_CHECK(gemm(q, st));
+  MC_CHECK(product(q, st));
   MC_CHECK(flash_fwd(D, qkv, qkv + mc, qkv + 2 * mc, attn, lse, BF, H, S, S, scale, 1, st));
   GemmArgs o1 = gemm_args(attn, p[9], p[10], x1, 0, M, C, C);
   o1.res = h;
-  MC_CHECK(gemm(o1, st));
+  MC_CHECK(product(o1, st));
 
   // attn2: LN2 -> q2; k2, v2 once per video from the text; cross-attention
   MC_CHECK(layer_norm_rows<bf16>(x1, (const float*)p[11], (const float*)p[12], nullptr,
                                  xn, M, C, 1, 1, ln_eps, st));
-  MC_CHECK(gemm(gemm_args(xn, p[13], nullptr, qkv, 0, M, C, C), st));
+  MC_CHECK(product(gemm_args(xn, p[13], nullptr, qkv, 0, M, C, C), st));
   GemmArgs kv = gemm_args(p[1], p[14], nullptr, kv2, 0, videos * T, 2 * C, Dc);
   split_output(kv, C);
-  MC_CHECK(gemm(kv, st));
+  MC_CHECK(product(kv, st));
   MC_CHECK(flash_fwd(D, qkv, kv2, kv2 + (long)videos * T * C, attn, lse, BF, H,
                      S, T, scale, F, st));
   // x2 = x1 + attn2 @ wo2^T + bo2, into h's buffer (h is read no more; for
@@ -101,24 +103,24 @@ int transformer(void* const* p, const int* d, float eps, bool whole,
   bf16* x2 = whole ? h : qkv + mc;
   GemmArgs o2 = gemm_args(attn, p[15], p[16], x2, 0, M, C, C);
   o2.res = x1;
-  MC_CHECK(gemm(o2, st));
+  MC_CHECK(product(o2, st));
 
   // ff: LN3 -> GEGLU -> + bff2 + x2
   MC_CHECK(layer_norm_rows<bf16>(x2, (const float*)p[17], (const float*)p[18], nullptr,
                                  xn, M, C, 1, 1, ln_eps, st));
   GemmArgs f1 = gemm_args(xn, p[19], p[20], act, 0, M, 8 * C, C);
   f1.ldo = 4 * C;
-  MC_CHECK((gemm<false, true>(f1, st)));
+  MC_CHECK((product<true>(f1, st)));
   GemmArgs f2 = gemm_args(act, p[21], p[22], whole ? (void*)x1 : p[25], 0, M,
                           C, 4 * C);
   f2.res = x2;
-  MC_CHECK(gemm(f2, st));
+  MC_CHECK(product(f2, st));
   if (!whole) return 0;
 
   // proj_out + bout + x
   GemmArgs y = gemm_args(x1, p[23], p[24], p[25], 0, M, C, C);
   y.res = x;
-  return gemm(y, st);
+  return product(y, st);
 }
 
 }  // namespace

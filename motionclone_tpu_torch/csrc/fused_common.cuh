@@ -1,6 +1,9 @@
 // Device code shared by the fused forward modules (fused_resnet.cu,
-// fused_temporal.cu, fused_block.cu): the normalisation passes and a bf16
-// tensor-core matrix product with a fusing epilogue.
+// fused_temporal.cu, fused_block.cu): the normalisation passes, the
+// product's arguments (GemmArgs) and a bf16 mma.sync matrix product with a
+// fusing epilogue.  That product now serves the fused resnet (kernel 8)
+// alone; the spatial transformer and the motion module (kernels 5-7) run
+// the TMA + wgmma product of fused_product.cuh on the same GemmArgs.
 //
 // Normalisation.  Every product of the TPU kernels reads a normalised
 // activation rounded to bf16: LN(h) (+ the positional encoding), the
@@ -43,7 +46,9 @@
 // stages, so two tiles are in flight while one is multiplied.  Each thread
 // copies the same rows and the same k column of every tile, so its rows'
 // geometry is worked out once per block and the conv's (tap, channel)
-// advances with k.  No wgmma, no TMA: those are later work.
+// advances with k.  It reaches 126-190 TFLOP/s on the H100; the conv's
+// gather loader (taps, zero fill at frame edges) is what keeps it off
+// fused_product.cuh's TMA loads for now.
 
 #pragma once
 

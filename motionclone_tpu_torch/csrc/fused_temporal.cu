@@ -17,17 +17,18 @@
 // attention itself is 16 x 16 per (pixel, head) and bound by memory.  The
 // TPU kernel holds a (F, 16 pixels, C) tile in VMEM through the whole
 // module; a Hopper block cannot hold the FF's 4C-wide hidden layer for
-// enough rows, so here every product is one launch of the product of
-// fused_common.cuh (bias, GEGLU gate and residual add in its epilogue), each
-// reading a bf16 operand that one normalisation pass writes (GN affine, LN
-// + PE, or the f32 stream's cast: the TPU kernel's own rounding points),
-// and the attention is the temporal forward kernel of
+// enough rows, so here every product is one launch of the TMA + wgmma
+// product of fused_product.cuh (bias, GEGLU gate and residual add in its
+// epilogue; the out-projections and the FF's second product update the f32
+// stream h in place), each reading a bf16 operand that one normalisation
+// pass writes (GN affine, LN + PE, or the f32 stream's cast: the TPU
+// kernel's own rounding points), and the attention is the temporal forward kernel of
 // temporal_attention.cuh on the q, k, v the product lays out as three
 // contiguous (B, F, S, C) tensors.  The per-pixel attention is exact (the
 // TPU's +-75 logit clamp and its block-diagonal packing are not carried
 // over).
 
-#include "fused_common.cuh"
+#include "fused_product.cuh"
 #include "temporal_attention.cuh"
 
 // ptrs:  0 x, 1 gn gamma, 2 gn beta, 3 pe (F, C) bf16 or null, 4 win, 5 bin,
@@ -65,7 +66,7 @@ extern "C" int mc_fused_temporal_module(void* const* p, const int* d, float eps,
                                    (float*)p[15], gw, gb, B * F, S, C, G, nch,
                                    eps, st));
   MC_CHECK(group_norm_apply<bf16>(x, gw, gb, xn, B * F, S, C, false, st));
-  MC_CHECK(gemm(gemm_args(xn, p[4], p[5], h, 1, M, C, C), st));
+  MC_CHECK(product(gemm_args(xn, p[4], p[5], h, 1, M, C, C), st));
 
   for (int i = 0; i < n_attn; ++i) {
     void* const* a = p + 24 + 5 * i;
@@ -74,7 +75,7 @@ extern "C" int mc_fused_temporal_module(void* const* p, const int* d, float eps,
                                     xn, M, C, S, F, ln_eps, st));
     GemmArgs q = gemm_args(xn, a[2], nullptr, qkv, 0, M, 3 * C, C);
     split_output(q, C);
-    MC_CHECK(gemm(q, st));
+    MC_CHECK(product(q, st));
     MC_CHECK(temporal_fwd(D, kF, qkv, qkv + mc, qkv + 2 * mc, attn, (float*)p[23], B,
                           S, H, 1.f / sqrtf((float)D), st));
     // out-proj + bo + h -> h (in place: each element is read, then written,
@@ -82,7 +83,7 @@ extern "C" int mc_fused_temporal_module(void* const* p, const int* d, float eps,
     GemmArgs o = gemm_args(attn, a[3], a[4], h, 1, M, C, C);
     o.res = h;
     o.res_f32 = 1;
-    MC_CHECK(gemm(o, st));
+    MC_CHECK(product(o, st));
   }
 
   // LN -> GEGLU projection -> activation (M, 4C) bf16 -> FF out + bff2 + h
@@ -90,14 +91,14 @@ extern "C" int mc_fused_temporal_module(void* const* p, const int* d, float eps,
                                   xn, M, C, S, F, ln_eps, st));
   GemmArgs f1 = gemm_args(xn, p[8], p[9], act, 0, M, 8 * C, C);
   f1.ldo = 4 * C;
-  MC_CHECK((gemm<false, true>(f1, st)));
+  MC_CHECK((product<true>(f1, st)));
   GemmArgs f2 = gemm_args(act, p[10], p[11], h, 1, M, C, 4 * C);
   f2.res = h;
   f2.res_f32 = 1;
-  MC_CHECK(gemm(f2, st));
+  MC_CHECK(product(f2, st));
   // proj_out(bf16(h)) + bout + x -> out
   MC_CHECK(group_norm_apply<float>(h, nullptr, nullptr, xn, B * F, S, C, false, st));
   GemmArgs y = gemm_args(xn, p[12], p[13], p[14], 0, M, C, C);
   y.res = x;
-  return gemm(y, st);
+  return product(y, st);
 }

@@ -46,6 +46,11 @@ SIGNATURES = {
     "mc_fused_temporal_module": (_P, _P, _F, _P),
     "mc_fused_spatial_transformer": (_P, _P, _F, _P),
     "mc_fused_transformer_block": (_P, _P, _F, _P),
+    # the fused modules' product alone, and the resnet's mma.sync product
+    # (a yardstick for chip_smoke.py): (pointer array, dims array, stream)
+    "mc_fused_product": (_P, _P, _P),
+    "mc_mma_product": (_P, _P, _P),
+    "mc_fused_product_smem": (_I,),
 }
 
 _library: Optional[ctypes.CDLL] = None
@@ -144,5 +149,8 @@ def check(status: int, name: str) -> None:
     """Raise if a C entry point reported a launch error."""
     if status == -1:
         raise ValueError(f"{name}: no kernel for this shape")
+    if status == -2:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused an operand "
+                           f"(or the CUDA runtime found no such entry point)")
     if status:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")

@@ -11,7 +11,9 @@ the Pallas TPU kernels of ``motionclone_tpu/ops/fused_block.py``:
 
 The frame's self-attention streams K/V tile by tile through the exact
 flash forward of ``csrc/flash_attention.cuh``; the products run through the
-fused product of ``csrc/fused_common.cuh``, and the text keys and values are
+TMA + wgmma product of ``csrc/fused_product.cuh`` (whose shape rule
+:func:`products` and ``fused_common.check_products`` mirror: the wrapper
+refuses other shapes before any launch), and the text keys and values are
 projected once per video, not once per frame (design note in the CUDA
 source).  Unlike the JAX functions, which take the text context repeated
 per frame (BF, T, Dc), these take it once per video (B, T, Dc) with
@@ -83,6 +85,27 @@ def supported(s: int, c: int, heads: int, block_q: int = DEFAULT_BQ) -> bool:
     return s % min(block_q, s) == 0
 
 
+def products(bf: int, s: int, c: int, videos: int, t: int, dc: int,
+             whole: bool = True) -> list:
+    """The products ``csrc/fused_block.cu`` launches for (BF, S, C) frames of
+    ``videos`` videos with (T, Dc) text, in order (kernel 5; kernel 6
+    without the GN / proj_in entry and the proj_out exit)."""
+    m, P = bf * s, fc.Product
+    out = [P("proj_in", m, c, c, bias=True)] if whole else []
+    out += [
+        P("q|k|v", m, 3 * c, c, split=c),
+        P("attn1 out", m, c, c, bias=True, res="bf16"),
+        P("q2", m, c, c),
+        P("text k|v", videos * t, 2 * c, dc, split=c),
+        P("attn2 out", m, c, c, bias=True, res="bf16"),
+        P("GEGLU", m, 8 * c, c, bias=True, geglu=True),
+        P("ff out", m, c, 4 * c, bias=True, res="bf16"),
+    ]
+    if whole:
+        out.append(P("proj_out", m, c, c, bias=True, res="bf16"))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -137,12 +160,13 @@ def _launch(entry: str, x, ctx, w: BlockWeights, entry_w, exit_w, heads: int,
         raise ValueError(f"{entry}: {bf} frames of x for {b} videos of {frames}")
     if w.wqkv1.shape != (3 * c, c) or w.wkv2.shape != (2 * c, dc):
         raise ValueError(f"{entry}: weights do not fit x {tuple(x.shape)}, ctx {tuple(ctx.shape)}")
+    whole = entry_w is not None
+    fc.check_products(entry, products(bf, s, c, b, t, dc, whole))
     m = bf * s
     nch = fc.gn_chunks(s)
     dev = x.device
     f32 = dict(device=dev, dtype=torch.float32)
     bf16 = dict(device=dev, dtype=torch.bfloat16)
-    whole = entry_w is not None
     scratch = (
         torch.empty(bf * nch * 2 * c, **f32) if whole else None,  # partial sums
         torch.empty(bf * c, **f32) if whole else None,            # gn w

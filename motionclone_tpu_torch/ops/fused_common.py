@@ -1,10 +1,12 @@
 """Python side shared by the fused forward modules (kernels 5-8).
 
-Mirrors ``csrc/fused_common.cuh``: the plain PyTorch versions of the
-normalisations and products the fused kernels apply (with the kernels'
-rounding points, so a bf16 kernel can be held against them), the checks
-every fused wrapper makes before a launch, and the cache that keeps a
-module's weights in the kernels' layout.
+Mirrors ``csrc/fused_common.cuh`` and ``csrc/fused_product.cuh``: the plain
+PyTorch versions of the normalisations and products the fused kernels apply
+(with the kernels' rounding points, so a bf16 kernel can be held against
+them), the checks every fused wrapper makes before a launch, the shapes the
+TMA + wgmma product of kernels 5-7 takes, that product alone
+(:func:`fused_product`, for checking and timing it apart from the modules),
+and the cache that keeps a module's weights in the kernels' layout.
 
 The layouts the kernels read, shared by the plain versions:
 
@@ -19,10 +21,12 @@ The layouts the kernels read, shared by the plain versions:
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, TypeVar
+from typing import Callable, Iterable, NamedTuple, Optional, Sequence, TypeVar
 
 import torch
 from torch.nn import functional as F
+
+from motionclone_tpu_torch.ops.build import check, ints, load_library, pointers
 
 T = TypeVar("T")
 
@@ -73,6 +77,66 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -
 def geglu(hp: torch.Tensor) -> torch.Tensor:
     """value * gelu_erf(gate) of an interleaved (value, gate) projection."""
     return hp[..., 0::2] * F.gelu(hp[..., 1::2])
+
+
+def product_plain(
+    a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+    res: Optional[torch.Tensor] = None, *, geglu_out: bool = False,
+    out_dtype: torch.dtype = torch.bfloat16, split: int = 0,
+) -> torch.Tensor:
+    """The fused product with its epilogue, in f32 with one rounding to
+    ``out_dtype``: a (M, K) @ w (N, K)^T + bias, then GEGLU of the
+    interleaved columns (M, N / 2), or + res; with ``split``, the N columns
+    as N / split contiguous (M, split) chunks, (N / split, M, split)."""
+    y = linear(a, w, bias)
+    if geglu_out:
+        y = geglu(y)
+    if res is not None:
+        y = y + res.float()
+    y = y.to(out_dtype)
+    return torch.stack(y.split(split, dim=-1)) if split else y
+
+
+# ---------------------------------------------------------------------------
+# the shapes the product of kernels 5-7 takes (csrc/fused_product.cuh)
+# ---------------------------------------------------------------------------
+
+PRODUCT_BK = 64   # k-tile: one 128-byte swizzle row of bf16
+PRODUCT_BN = 160  # tile width: every N and q|k|v chunk width at SD1.5 widths
+
+
+class Product(NamedTuple):
+    """One launch of the product inside a fused module: (M, N, K) and its
+    epilogue, as the module's CUDA source launches it."""
+
+    label: str
+    m: int
+    n: int
+    k: int
+    bias: bool = False
+    res: Optional[str] = None   # residual dtype, "bf16" or "f32"
+    out: str = "bf16"
+    geglu: bool = False         # output (M, N / 2)
+    split: int = 0              # chunk width of a split store, 0 for none
+    inplace: bool = False       # the residual is the output (the f32 stream)
+
+
+def check_product(name: str, p: Product) -> None:
+    """Raise ValueError unless the TMA + wgmma product takes ``p``: K a
+    multiple of 64, N and a split store's chunk width multiples of 160."""
+    if (p.m < 1 or p.k % PRODUCT_BK or p.n % PRODUCT_BN
+            or (p.split and p.split % PRODUCT_BN)):
+        chunk = f" in chunks of {p.split}" if p.split else ""
+        raise ValueError(
+            f"{name}: its {p.label} product (M, N, K) = ({p.m}, {p.n}, {p.k}){chunk} "
+            f"is not a shape the TMA + wgmma product takes (K % {PRODUCT_BK} == 0, "
+            f"N and the chunk width % {PRODUCT_BN} == 0)"
+        )
+
+
+def check_products(name: str, products: Iterable[Product]) -> None:
+    for p in products:
+        check_product(name, p)
 
 
 # ---------------------------------------------------------------------------
@@ -161,3 +225,59 @@ def check_cuda_inputs(name: str, activations: Sequence[Optional[torch.Tensor]],
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# the product alone
+# ---------------------------------------------------------------------------
+
+
+def product_pointers(a, w, bias, res, out, *, geglu_out: bool = False, split: int = 0):
+    """The (pointer array, dims array) of ``mc_fused_product`` (and of the
+    resnet's ``mc_mma_product``, which takes the same arguments)."""
+    return (pointers(a, w, bias, res, out),
+            ints(a.shape[0], w.shape[0], a.shape[1],
+                 int(res is not None and res.dtype == torch.float32),
+                 int(out.dtype == torch.float32), int(geglu_out), split))
+
+
+def fused_product(
+    a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+    res: Optional[torch.Tensor] = None, *, geglu_out: bool = False,
+    out_dtype: torch.dtype = torch.bfloat16, split: int = 0,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The product of kernels 5-7 alone (arguments as :func:`product_plain`),
+    into ``out`` if given (which may be ``res``: the in-place update of the
+    motion module's f32 stream): the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    m, k = a.shape
+    n = w.shape[0]
+    shape = (m, n // 2) if geglu_out else (n // split, m, split) if split else (m, n)
+    if out is None:
+        out = torch.empty(shape, device=a.device, dtype=out_dtype)
+    elif tuple(out.shape) != shape or out.dtype != out_dtype:
+        raise ValueError(f"fused_product: out must be {shape} {out_dtype}")
+    if a.device.type == "cpu":
+        return out.copy_(product_plain(a, w, bias, res, geglu_out=geglu_out,
+                                       out_dtype=out_dtype, split=split))
+    check_cuda_inputs("fused_product", (a,), (w, bias))
+    for t in (res, out):
+        if t is not None and (t.device != a.device or not t.is_contiguous()
+                              or t.data_ptr() % 16 or t.dtype not in (torch.bfloat16, torch.float32)):
+            raise ValueError("fused_product: res and out must be contiguous, 16-byte aligned "
+                             "bf16 or f32 tensors on a's device")
+    if w.shape[1] != k or (res is not None and (tuple(res.shape) != (m, n) or geglu_out)):
+        raise ValueError(f"fused_product: a {tuple(a.shape)}, w {tuple(w.shape)} and res "
+                         f"do not fit (GEGLU takes no residual)")
+    check_product("fused_product", Product("", m, n, k, split=split))
+    lib = load_library()
+    with torch.cuda.device(a.device):
+        check(lib.mc_fused_product(*product_pointers(a, w, bias, res, out,
+                                                     geglu_out=geglu_out, split=split),
+                                   stream_of(a)), "fused_product")
+    fused_product.launches += 1
+    return out
+
+
+fused_product.launches = 0

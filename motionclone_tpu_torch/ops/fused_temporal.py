@@ -10,9 +10,11 @@ Replaces the Pallas TPU kernel ``fused_temporal_module`` of
       -> proj_out -> + x
 
 on the natural (B, F, S, C) layout, with the residual stream in f32 as on
-the TPU.  Each product is one launch of the fused product of
-``csrc/fused_common.cuh`` and the attention is the temporal forward kernel
-of ``csrc/temporal_attention.cuh`` (design note in the CUDA source).
+the TPU.  Each product is one launch of the TMA + wgmma product of
+``csrc/fused_product.cuh`` (whose shape rule :func:`products` and
+``fused_common.check_products`` mirror: the wrapper refuses other shapes
+before any launch) and the attention is the temporal forward kernel of
+``csrc/temporal_attention.cuh`` (design note in the CUDA source).
 Forward-only: the wrapper refuses inputs that require grad.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the kernel
@@ -81,6 +83,22 @@ def _weights(w: TemporalModuleWeights):
     return out
 
 
+def products(b: int, f: int, s: int, c: int, n_attn: int = 2) -> list:
+    """The products ``csrc/fused_temporal.cu`` launches for (B, F, S, C)
+    with ``n_attn`` attention blocks, in order; the out-projections and the
+    FF's second product update the f32 stream h in place."""
+    m, P = b * f * s, fc.Product
+    out = [P("proj_in", m, c, c, bias=True, out="f32")]
+    for _ in range(n_attn):
+        out += [P("q|k|v", m, 3 * c, c, split=c),
+                P("attn out", m, c, c, bias=True, res="f32", out="f32", inplace=True)]
+    return out + [
+        P("GEGLU", m, 8 * c, c, bias=True, geglu=True),
+        P("ff out", m, c, 4 * c, bias=True, res="f32", out="f32", inplace=True),
+        P("proj_out", m, c, c, bias=True, res="bf16"),
+    ]
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -129,6 +147,7 @@ def fused_temporal_kernel(
     fc.check_cuda_inputs("fused_temporal_module", (x, pe), _weights(w))
     if w.win.shape != (c, c) or w.wff1.shape != (8 * c, c):
         raise ValueError(f"fused_temporal_module: weights do not fit x {tuple(x.shape)}")
+    fc.check_products("fused_temporal_module", products(b, f, s, c, len(w.attn)))
     m = b * f * s
     nch = fc.gn_chunks(s)
     dev = x.device

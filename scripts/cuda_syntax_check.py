@@ -43,10 +43,26 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class T> int cudaFuncSetAttribute(T, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 inline int cudaDeviceSynchronize() { return 0; }
+#define CUDART_VERSION 12080
+enum cudaError_t { cudaSuccess = 0 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess };
+enum { cudaEnableDefault = 0 };
+cudaError_t cudaGetDevice(int*);
+cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int);
+cudaError_t cudaGetDriverEntryPoint(const char*, void**, unsigned long long,
+                                    cudaDriverEntryPointQueryResult*);
+cudaError_t cudaGetDriverEntryPointByVersion(const char*, void**, unsigned int,
+                                             unsigned long long,
+                                             cudaDriverEntryPointQueryResult*);
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+float __uint_as_float(unsigned);
+void __trap();
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 size_t __cvta_generic_to_shared(const void*);
@@ -56,9 +72,24 @@ void __syncthreads();
 void __syncwarp(unsigned = 0xffffffffu);
 float __expf(float);
 float rsqrtf(float);
+float erff(float);
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline long min(long a, long b) { return a < b ? a : b; }
+"""
+
+CUDA_DRIVER = r"""
+#pragma once
+#include <cstdint>
+typedef uint32_t cuuint32_t;
+typedef uint64_t cuuint64_t;
+enum CUresult { CUDA_SUCCESS = 0 };
+struct CUtensorMap { alignas(64) cuuint64_t opaque[16]; };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 };
+enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE };
+enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_128B };
+enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_256B };
+enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE };
 """
 
 CUDA_BF16 = r"""
@@ -82,6 +113,7 @@ def main(argv) -> int:
         stub.mkdir()
         (stub / "cuda_runtime.h").write_text(CUDA_RUNTIME)
         (stub / "cuda_bf16.h").write_text(CUDA_BF16)
+        (stub / "cuda.h").write_text(CUDA_DRIVER)
         for src in sources:
             # the source's directory and csrc/, at their places under the
             # repository root, so that relative includes resolve

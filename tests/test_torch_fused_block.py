@@ -122,3 +122,93 @@ def test_module_fused_matches_jax(case, jax_impl, monkeypatch):
 ])
 def test_predicate_matches_jax(s, c, heads):
     assert tfb.supported(s, c, heads) == jfb.supported(s, c, heads)
+
+
+# ---------------------------------------------------------------------------
+# the shapes of the TMA + wgmma product (csrc/fused_product.cuh), no JAX
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", [1, 2])  # a CFG half, the vanilla pair
+@pytest.mark.parametrize("level", range(4))  # 64², 32², 16², 8² latents at 512²
+def test_main_path_products_fit_the_product(level, b):
+    """Every product kernels 5 and 6 launch at UNet3DConfig() widths is a
+    shape the wgmma product takes; the levels the predicate leaves unfused
+    launch none."""
+    from motionclone_tpu_torch.config import UNet3DConfig
+    from motionclone_tpu_torch.ops import fused_common as fc
+
+    cfg = UNet3DConfig()
+    s, c = (64 >> level) ** 2, cfg.block_out_channels[level]
+    if not tfb.supported(s, c, cfg.num_heads):
+        assert c > tfb.MAX_FUSED_CHANNELS
+        return
+    for whole in (True, False):
+        prods = tfb.products(16 * b, s, c, b, 77, cfg.cross_attention_dim, whole)
+        assert len(prods) == (9 if whole else 7)
+        fc.check_products("fused_spatial_transformer", prods)
+
+
+@pytest.mark.parametrize("prod", [
+    dict(m=256, n=320, k=32),             # K not a multiple of 64
+    dict(m=256, n=128, k=64),             # N not a multiple of 160
+    dict(m=256, n=480, k=64, split=240),  # a q|k|v chunk straddling tiles
+    dict(m=0, n=320, k=320),
+])
+def test_product_shape_rule_refuses(prod):
+    from motionclone_tpu_torch.ops import fused_common as fc
+
+    with pytest.raises(ValueError, match="TMA \\+ wgmma product"):
+        fc.check_product("test", fc.Product("x", **prod))
+
+
+@pytest.mark.parametrize("entry", ["block", "transformer"])
+def test_kernel_wrappers_refuse_unsupported_shapes_before_launch(entry):
+    """C = 32 (the CPU tests' width) has K % 64 != 0: the kernel wrappers
+    raise ValueError before they build or launch anything."""
+    bf16 = torch.bfloat16
+    mat = lambda o, i: torch.zeros(o, i, dtype=bf16)
+    vec = lambda n: torch.zeros(n)
+    blk = tfb.BlockWeights(vec(C), vec(C), mat(3 * C, C), mat(C, C), vec(C), vec(C), vec(C),
+                           mat(C, C), mat(2 * C, CTX_DIM), mat(C, C), vec(C), vec(C), vec(C),
+                           mat(8 * C, C), vec(8 * C), mat(C, 4 * C), vec(C))
+    x, ctx = torch.zeros(FRAMES, HH * WW, C, dtype=bf16), torch.zeros(1, T, CTX_DIM, dtype=bf16)
+    with pytest.raises(ValueError, match="TMA \\+ wgmma product"):
+        if entry == "block":
+            tfb.fused_transformer_block_kernel(x, ctx, blk, heads=HEADS, frames=FRAMES)
+        else:
+            w = tfb.TransformerWeights(vec(C), vec(C), mat(C, C), vec(C), blk, mat(C, C), vec(C))
+            tfb.fused_spatial_transformer_kernel(x, ctx, w, heads=HEADS, groups=GROUPS,
+                                                 frames=FRAMES)
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "res_bf16", "res_f32_inplace", "geglu", "split"])
+def test_product_plain_version(epilogue):
+    """The product alone on the CPU (its plain version) against the same
+    math written out: f32, one rounding at the store."""
+    from motionclone_tpu_torch.ops import fused_common as fc
+
+    r = np.random.default_rng(3)
+    m, n, k = 24, 320, 64
+    a = torch.from_numpy(r.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(r.standard_normal((n, k)).astype(np.float32) / 8).to(torch.bfloat16)
+    bias = torch.from_numpy(r.standard_normal(n).astype(np.float32))
+    y = a.float() @ w.float().T + bias
+    if epilogue == "bias":
+        got, want = fc.fused_product(a, w, bias), y.to(torch.bfloat16)
+    elif epilogue == "res_bf16":
+        res = torch.from_numpy(r.standard_normal((m, n)).astype(np.float32)).to(torch.bfloat16)
+        got, want = fc.fused_product(a, w, bias, res), (y + res.float()).to(torch.bfloat16)
+    elif epilogue == "res_f32_inplace":
+        h = torch.from_numpy(r.standard_normal((m, n)).astype(np.float32))
+        want = y + h
+        got = fc.fused_product(a, w, bias, h, out_dtype=torch.float32, out=h)
+        assert got is h
+    elif epilogue == "geglu":
+        got = fc.fused_product(a, w, bias, geglu_out=True)
+        want = (y[:, 0::2] * torch.nn.functional.gelu(y[:, 1::2])).to(torch.bfloat16)
+    else:
+        got = fc.fused_product(a, w, split=160)
+        want = (a.float() @ w.float().T).to(torch.bfloat16).reshape(m, 2, 160).transpose(0, 1)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=1e-6)

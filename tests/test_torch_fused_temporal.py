@@ -106,3 +106,42 @@ def test_probs_keep_the_unfused_route(data, monkeypatch):
 ])
 def test_predicate_matches_jax(f, s, c, heads):
     assert tft.supported(f, s, c, heads) == jft.supported(f, s, c, heads)
+
+
+# ---------------------------------------------------------------------------
+# the shapes of the TMA + wgmma product (csrc/fused_product.cuh), no JAX
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", [1, 2])  # a CFG half, the vanilla pair
+@pytest.mark.parametrize("level", range(4))  # 64², 32², 16², 8² latents at 512²
+def test_main_path_products_fit_the_product(level, b):
+    """Every product kernel 7 launches at UNet3DConfig() widths is a shape
+    the wgmma product takes; the levels the predicate leaves unfused launch
+    none."""
+    from motionclone_tpu_torch.ops import fused_common as fc
+
+    cfg = tcfg.UNet3DConfig()
+    mm = cfg.motion_module
+    s, c = (64 >> level) ** 2, cfg.block_out_channels[level]
+    if not tft.supported(16, s, c, mm.num_attention_heads):
+        assert c > tft.MAX_CHANNELS
+        return
+    prods = tft.products(b, 16, s, c, len(mm.attention_block_types))
+    assert len(prods) == 8
+    fc.check_products("fused_temporal_module", prods)
+
+
+def test_kernel_wrapper_refuses_unsupported_shapes_before_launch():
+    """C = 32 (the CPU tests' width) has K % 64 != 0: the kernel wrapper
+    raises ValueError before it builds or launches anything."""
+    bf16 = torch.bfloat16
+    mat = lambda o, i: torch.zeros(o, i, dtype=bf16)
+    vec = lambda n: torch.zeros(n)
+    attn = tft.AttnWeights(vec(C), vec(C), mat(3 * C, C), mat(C, C), vec(C))
+    w = tft.TemporalModuleWeights(vec(C), vec(C), None, mat(C, C), vec(C), (attn, attn),
+                                  vec(C), vec(C), mat(8 * C, C), vec(8 * C), mat(C, 4 * C),
+                                  vec(C), mat(C, C), vec(C))
+    x = torch.zeros(B, F, H * W, C, dtype=bf16)
+    with pytest.raises(ValueError, match="TMA \\+ wgmma product"):
+        tft.fused_temporal_kernel(x, w, heads=HEADS, groups=GROUPS)
