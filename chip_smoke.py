@@ -21,15 +21,18 @@ Phase 2  kernels: each kernel at every shape the main path gives it (the
          (B, S*heads, F, D) view of its (B, F, S, heads*D) tensors.  The
          fused modules (spatial transformer, transformer block, motion
          module, resnet) have no single PyTorch call to compare with; they
-         are timed beside the port's unfused module on the same input.
-         Before them, the TMA + wgmma product that kernels 5-7 launch
-         (csrc/fused_product.cuh), alone: first one 64x160x64 tile, then
-         every distinct (M, N, K, epilogue) those kernels launch on the main
-         path, each against its plain version (tolerance as the kernels'),
-         two launches required to give the same bits, timed beside the
-         mma.sync product that kernel 8 keeps (on the same arguments) and
-         torch.matmul of the same operands (the product without its
-         epilogue), with TFLOP/s and the bound.
+         are timed beside the port's unfused module on the same input, and
+         two launches of kernel 8 must give the same bits.  Before them,
+         the TMA + wgmma product of csrc/fused_product.cuh alone: first one
+         64x160x64 tile, then every distinct (M, N, K, epilogue) kernels 5-7
+         launch on the main path, each against its plain version (tolerance
+         as the kernels'), two launches required to give the same bits,
+         timed beside torch.matmul of the same operands (the product
+         without its epilogue), with TFLOP/s and the bound; then kernel 8's
+         3x3 convolution on that product (4-D tensor map over the video) at
+         every distinct (M, Cout, 9·Cin, epilogue) of the main path, the
+         same way, timed beside torch.nn.functional.conv2d (cuDNN) on the
+         same operands.
 Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          width, 512x512x16 frames, random weights from a seed: CLIP on random
          token ids for the CFG pair, VAE encode of a random video,
@@ -523,8 +526,7 @@ def main_path_products() -> list:
 
 def check_products(dev) -> None:
     """The product of kernels 5-7 alone (phase 2): each shape against its
-    plain version, two launches bit for bit, timed beside kernel 8's
-    mma.sync product and torch.matmul."""
+    plain version, two launches bit for bit, timed beside torch.matmul."""
     from motionclone_tpu_torch.ops import build as kb
     from motionclone_tpu_torch.ops import fused_common as fc
 
@@ -553,8 +555,7 @@ def check_products(dev) -> None:
         ref = fc.product_plain(a, w, bias, res, **kw)
         err, tol = max_err((first,), (ref,))
         del again, ref
-        # both products timed through their C entry points on the same
-        # arguments: the same host work per launch
+        # timed through its C entry point: no Python checks per launch
         work = None if res is None else res.clone()
         out = torch.empty_like(first)
         ptrs, dims = fc.product_pointers(a, w, bias, work if p.inplace else res,
@@ -566,7 +567,6 @@ def check_products(dev) -> None:
             return lambda: kb.check(fn(ptrs, dims, stream), "product")
 
         ms = time_ms(entry(lib.mc_fused_product), reps=10)
-        mma_ms = time_ms(entry(lib.mc_mma_product), reps=10)
         wt = w.t()
         lib_ms = time_ms(lambda: torch.matmul(a, wt), reps=10)
         flops = 2 * p.m * p.n * p.k
@@ -582,12 +582,96 @@ def check_products(dev) -> None:
         ok = err <= tol
         log(f"product {p.label:10s} (M, N, K)=({p.m}, {p.n}, {p.k}) [{epi}] "
             f"max_abs_err={err:.3e} tol={tol:.3e} {'OK' if ok else 'FAIL'} bits_equal "
-            f"kernel_ms={ms:.4f} ({tf(ms):.1f} TFLOP/s) mma_sync_ms={mma_ms:.4f} "
-            f"({tf(mma_ms):.1f}) library_ms={lib_ms:.4f} ({tf(lib_ms):.1f}) "
-            f"bound_ms={b_ms:.4f} ({b_by}){'  SLOWER than mma.sync' if ms > mma_ms else ''}")
+            f"kernel_ms={ms:.4f} ({tf(ms):.1f} TFLOP/s) "
+            f"library_ms={lib_ms:.4f} ({tf(lib_ms):.1f}) bound_ms={b_ms:.4f} ({b_by})")
         if not ok:
             raise AssertionError(f"product {p}: error {err} > tolerance {tol}")
         del a, w, bias, res, first, work, out, ptrs
+        torch.cuda.empty_cache()
+
+
+def main_path_convs() -> list:
+    """Every distinct convolution (M, Cout, 9·Cin and epilogue) kernel 8
+    launches on the main path, as ((B·F, H, W, Cin), Product): conv1 (f32
+    out, + bias + temb row) and conv2 (bf16 out, + bias + the bf16 input or
+    the f32 shortcut) of each resnet the fused route takes, B·F = 16 and
+    32."""
+    from motionclone_tpu_torch.ops import fused_resnet as fr
+
+    seen, out = set(), []
+    for hw, cin, cout in RESNET_SHAPES:
+        for b in (1, 2):
+            for p in fr.products(b * FRAMES, hw, hw, cin, cout):
+                if p.label == "shortcut":
+                    continue
+                key = (hw,) + p[1:]
+                if key not in seen:
+                    seen.add(key)
+                    out.append(((b * FRAMES, hw, hw, p.k // 9), p))
+    return out
+
+
+def check_convs(dev) -> None:
+    """Kernel 8's convolution alone (phase 2): each shape against its plain
+    version, two launches bit for bit, timed beside cuDNN's convolution
+    (torch.nn.functional.conv2d, channels last, bf16, with its bias) on the
+    same operands."""
+    from torch.nn import functional as F
+
+    from motionclone_tpu_torch.ops import build as kb
+    from motionclone_tpu_torch.ops import fused_common as fc
+    from motionclone_tpu_torch.ops import fused_resnet as fr
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    lib = kb.load_library()
+    f32, bf16 = torch.float32, torch.bfloat16
+    for (bf, h, w, cin), p in main_path_convs():
+        act = torch.randn(bf, h, w, cin, generator=gen, device=dev).to(bf16)
+        wt = (torch.randn(p.n, 3, 3, cin, generator=gen, device=dev)
+              * (9 * cin) ** -0.5).to(bf16)
+        wk = wt.reshape(p.n, 9 * cin)
+        bias = 0.1 * torch.randn(p.n, generator=gen, device=dev)
+        temb = res = None
+        if p.res is None:
+            temb = torch.randn(bf // FRAMES, p.n, generator=gen, device=dev).to(bf16)
+        else:
+            res = torch.randn(bf, h, w, p.n, generator=gen, device=dev).to(
+                f32 if p.res == "f32" else bf16)
+        out_dtype = f32 if p.out == "f32" else bf16
+        kw = dict(frames=FRAMES, out_dtype=out_dtype)
+        first = fr.conv3x3(act, wk, bias, temb, res, **kw)
+        again = fr.conv3x3(act, wk, bias, temb, res, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"conv3x3 {p}: two launches differ")
+        ref = fr.conv3x3_plain(act, wk, bias, temb, res, **kw)
+        err, tol = max_err((first,), (ref,))
+        del again, ref
+        # timed through its C entry point: no Python checks per launch
+        ptrs = kb.pointers(act, wk, bias, temb, res, first)
+        dims = kb.ints(bf, FRAMES, h, w, cin, p.n, int(p.res == "f32"), int(p.out == "f32"))
+        stream = fc.stream_of(act)
+        ms = time_ms(lambda: kb.check(lib.mc_conv3x3(ptrs, dims, stream), "conv3x3"), reps=10)
+        x_cl = act.permute(0, 3, 1, 2)  # NCHW view of the channels-last video
+        w_cl = wt.permute(0, 3, 1, 2)
+        b16 = bias.to(bf16)
+        lib_ms = time_ms(lambda: F.conv2d(x_cl, w_cl, b16, padding=1), reps=10)
+        flops = 2 * p.m * p.n * p.k
+        nbytes = (2 * p.m * cin + 2 * p.n * p.k + 4 * p.n
+                  + (0 if temb is None else 2 * temb.numel())
+                  + (0 if res is None else res.element_size() * res.numel())
+                  + first.element_size() * first.numel())
+        b_ms, b_by = bound(flops, nbytes)
+        tf = lambda t: flops / t / 1e9
+        epi = "bias " + ("temb " if temb is not None else f"res {p.res} ") + f"out {p.out}"
+        ok = err <= tol
+        log(f"conv {p.label} (M, N, K)=({p.m}, {p.n}, {p.k}) frame {h}x{w} [{epi}] "
+            f"max_abs_err={err:.3e} tol={tol:.3e} {'OK' if ok else 'FAIL'} bits_equal "
+            f"kernel_ms={ms:.4f} ({tf(ms):.1f} TFLOP/s) cudnn_ms={lib_ms:.4f} "
+            f"({tf(lib_ms):.1f}) bound_ms={b_ms:.4f} ({b_by})")
+        if not ok:
+            raise AssertionError(f"conv3x3 {p}: error {err} > tolerance {tol}")
+        del act, wt, wk, bias, temb, res, first, ptrs, x_cl, w_cl, b16
         torch.cuda.empty_cache()
 
 
@@ -601,17 +685,53 @@ def module_on_card(ctor, dev, gen):
     return m.to(torch.bfloat16).eval()
 
 
+def check_fused(rows, name, shape, kernel, plain, slices, unfused, flops, nbytes, main,
+                same_bits=False) -> None:
+    """One fused kernel at one shape against its plain version, timed
+    beside the port's unfused module; ``plain(sl)`` is the plain version on
+    batch slice ``sl`` (the plain time is the sum over the slices).  With
+    ``same_bits`` two launches must give the same bits.  ``main`` puts the
+    shape in ``rows`` (the kernels JSON line) if the kernel has none yet."""
+    out = kernel()
+    if same_bits:
+        again = kernel()
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name} at {shape}: two launches differ")
+        del again
+    torch.cuda.synchronize()
+    got, ref = [], []
+    for sl in slices:
+        ref.append(plain(sl))
+        got.append(out[sl])
+    err, tol = max_err(got, ref)
+    del got, ref, out
+    ms = time_ms(kernel, reps=5, warmup=1)
+    plain_ms = sum(time_ms(lambda: plain(sl), reps=2, warmup=1) for sl in slices)
+    unfused_ms = time_ms(unfused, reps=5, warmup=1)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"kernel {name:25s} shape={shape} max_abs_err={err:.3e} tol={tol:.3e} "
+        f"{'OK' if err <= tol else 'FAIL'}{' bits_equal' if same_bits else ''} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}) unfused_ms={unfused_ms:.4f} library_ms=null")
+    if err > tol:
+        raise AssertionError(f"{name} at {shape}: error {err} > tolerance {tol}")
+    if main and name not in rows:
+        rows[name] = dict(shape=list(shape), max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None, unfused_ms=unfused_ms)
+    torch.cuda.empty_cache()
+
+
 def check_fused_kernels(dev) -> dict:
-    """Kernels 5-8 at every main-path shape, over the whole batch, against
+    """Kernels 5-7 at every main-path shape, over the whole batch, against
     their plain versions on the same bf16 inputs and weights (the module's
     own weights in the kernel's layout), timed beside the port's unfused
     module on the same input."""
     from motionclone_tpu_torch.config import MotionModuleConfig
     from motionclone_tpu_torch.models.attention import Transformer3DModel
     from motionclone_tpu_torch.models.motion_module import TemporalTransformer3D
-    from motionclone_tpu_torch.models.resnet import ResnetBlock3D
     from motionclone_tpu_torch.ops import fused_block as fb
-    from motionclone_tpu_torch.ops import fused_resnet as fr
     from motionclone_tpu_torch.ops import fused_temporal as ft
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -621,31 +741,8 @@ def check_fused_kernels(dev) -> dict:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(bf16)
 
-    def run(name, shape, kernel, plain, slices, unfused, flops, nbytes, main):
-        """``plain(sl)`` is the plain version on batch slice ``sl``; the
-        plain time is the sum over the slices."""
-        out = kernel()
-        torch.cuda.synchronize()
-        got, ref = [], []
-        for sl in slices:
-            ref.append(plain(sl))
-            got.append(out[sl])
-        err, tol = max_err(got, ref)
-        del got, ref, out
-        ms = time_ms(kernel, reps=5, warmup=1)
-        plain_ms = sum(time_ms(lambda: plain(sl), reps=2, warmup=1) for sl in slices)
-        unfused_ms = time_ms(unfused, reps=5, warmup=1)
-        b_ms, b_by = bound(flops, nbytes)
-        log(f"kernel {name:25s} shape={shape} max_abs_err={err:.3e} tol={tol:.3e} "
-            f"{'OK' if err <= tol else 'FAIL'} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) unfused_ms={unfused_ms:.4f} library_ms=null")
-        if err > tol:
-            raise AssertionError(f"{name} at {shape}: error {err} > tolerance {tol}")
-        if main and name not in rows:
-            rows[name] = dict(shape=list(shape), max_abs_err=err, ms=ms,
-                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=None, unfused_ms=unfused_ms)
-        torch.cuda.empty_cache()
+    def run(*args, **kwargs):
+        check_fused(rows, *args, **kwargs)
 
     def frame_slices(bf, s):
         # slices of 4 frames bound the plain attention's (4, 8, S, S) f32
@@ -709,7 +806,25 @@ def check_fused_kernels(dev) -> dict:
                     44 * m_rows * c * c + 2 * 4 * b * s * FRAMES * FRAMES * c,
                     2 * 2 * m_rows * c + 2 * 22 * c * c, True)
                 del x, x5
+    return rows
 
+
+def check_resnet_kernels(dev) -> dict:
+    """Kernel 8 at every main-path shape (RESNET_SHAPES at B·F = 16 and 32)
+    against its plain version on the same bf16 inputs and the module's own
+    weights in the kernel's layout, two launches bit for bit, timed beside
+    the port's unfused module on the same input."""
+    from motionclone_tpu_torch.models.resnet import ResnetBlock3D
+    from motionclone_tpu_torch.ops import fused_resnet as fr
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    with torch.no_grad():
         for hw, cin, cout in RESNET_SHAPES:
             m = module_on_card(lambda: ResnetBlock3D(cin, cout, 1280), dev, gen)
             w = m.fused_weights(bf16)
@@ -718,12 +833,13 @@ def check_fused_kernels(dev) -> dict:
                 t = m.time_emb_proj(torch.nn.functional.silu(temb))
                 pix = b * FRAMES * hw * hw
                 macs = 9 * cin * cout + 9 * cout * cout + (cin * cout if cin != cout else 0)
-                run("fused_resnet_block", (b * FRAMES, hw, hw, cin, cout),
+                check_fused(
+                    rows, "fused_resnet_block", (b * FRAMES, hw, hw, cin, cout),
                     lambda: fr.fused_resnet_kernel(x, t, w, groups=32, eps=1e-5),
                     lambda sl: fr.fused_resnet_block_plain(x[sl], t[sl], w, groups=32, eps=1e-5),
                     [slice(0, b)], lambda: m(x, temb, "flash"),
                     2 * pix * macs, 2 * pix * (cin + cout) + 2 * macs + 2 * b * cout,
-                    hw == 64 and cin == cout)
+                    hw == 64 and cin == cout, same_bits=True)
                 del x, t, temb
     return rows
 
@@ -1004,11 +1120,13 @@ def steady_steps(pipe, rep, uncond, cond, lat) -> None:
 
 
 def category(name: str) -> str:
+    import re
+
     n = name.lower()
+    if "product_kernel" in n and re.search(r"product_kernel<\d, \w+, \w+, true>", n):
+        return "fused modules: convolutions, TMA + wgmma (kernel 8)"
     if "product_kernel" in n:
-        return "fused modules: products, wgmma (kernels 5-7)"
-    if "gemm_kernel" in n:
-        return "fused modules: products, mma.sync (kernel 8)"
+        return "fused modules: products, TMA + wgmma (kernels 5-7, 8's shortcut)"
     if "fz::" in n or "gn_partial" in n or "gn_finalize" in n or "row_stats" in n:
         return "fused modules: norms (port kernels)"
     if "flash_" in n and "kernel" in n:
@@ -1329,7 +1447,8 @@ def log_flash_resources(build_log: str, lib) -> None:
 
 def log_product_resources(build_log: str, lib) -> None:
     """Registers per thread, spills (ptxas) and dynamic shared memory per
-    block of each instantiation of the product of kernels 5-7, in each
+    block of each instantiation of the TMA + wgmma product (kernels 5-7's
+    linear layers, kernel 8's shortcut and its convolutions), in each
     source that includes it."""
     import re
 
@@ -1337,10 +1456,11 @@ def log_product_resources(build_log: str, lib) -> None:
     for line in build_log.splitlines():
         if line.startswith("== "):
             section = line[3:].strip()
-        m = re.search(r"product_kernelILi(\d)ELb([01])ELb([01])E", line)
+        m = re.search(r"product_kernelILi(\d)ELb([01])ELb([01])ELb([01])E", line)
         if m and "Compiling entry function" in line:
-            res, out, geglu = m.groups()
-            name = (f"residual {('none', 'bf16', 'f32')[int(res)]}, "
+            res, out, geglu, conv = m.groups()
+            name = (f"{'conv3x3, ' if conv == '1' else ''}"
+                    f"residual {('none', 'bf16', 'f32')[int(res)]}, "
                     f"out {('bf16', 'f32')[int(out)]}{', GEGLU' if geglu == '1' else ''}")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -1426,8 +1546,10 @@ def main() -> int:
     # phase 2: kernels against their plain versions
     t0 = time.perf_counter()
     check_products(dev)
+    check_convs(dev)
     rows = check_kernels(dev)
     rows.update(check_fused_kernels(dev))
+    rows.update(check_resnet_kernels(dev))
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the main path (with phase 6, the only windows the launch

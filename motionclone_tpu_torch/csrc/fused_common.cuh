@@ -1,9 +1,6 @@
 // Device code shared by the fused forward modules (fused_resnet.cu,
-// fused_temporal.cu, fused_block.cu): the normalisation passes, the
-// product's arguments (GemmArgs) and a bf16 mma.sync matrix product with a
-// fusing epilogue.  That product now serves the fused resnet (kernel 8)
-// alone; the spatial transformer and the motion module (kernels 5-7) run
-// the TMA + wgmma product of fused_product.cuh on the same GemmArgs.
+// fused_temporal.cu, fused_block.cu): the normalisation passes and the
+// arguments of their TMA + wgmma product (GemmArgs, fused_product.cuh).
 //
 // Normalisation.  Every product of the TPU kernels reads a normalised
 // activation rounded to bf16: LN(h) (+ the positional encoding), the
@@ -25,30 +22,16 @@
 // arithmetic at 60-75 TFLOP/s; the extra bf16 write and read of a pass
 // costs ~25 us per (16, 4096, 320) activation.
 //
-// The product.  C[m, n] = sum_k A[m, k] * B[n, k], A bf16 (M, K) row-major
-// and B stored as nn.Linear stores its weight, (N, K) row-major; for the
-// convolution (CONV), A is the (BF, H, W, Cin) video and k = tap * Cin + ci:
-// the implicit-GEMM 3x3 convolution (padding 1), whose loader gathers tap
-// (dy, dx) of pixel m and zero-fills outside the frame.  The epilogue adds
-// a bias, the temb row of the video that row m belongs to, and a residual
-// (f32 or bf16), then stores f32 or bf16; or, with GEGLU, it pairs the
-// interleaved columns (2j, 2j + 1) that one thread holds as (value, gate)
-// and stores value * gelu_erf(gate) at column j.  A split store writes
-// column n to chunk n / ldo of the output, which lays q, k and v (or k and
-// v) out as separate contiguous tensors.
-//
-// What bounds it on the H100: at the main path's shapes (M = B·F·S up to
-// 131072 rows, K and N 320-5120) a product does 2·K flops per output
-// element against ~2 bytes per input, far above the card's ~295 flops per
-// byte: it is bound by the tensor cores.  The design: a 128 x BN x 64 block
-// tile (8 warps, each 32 x BN/2, mma.sync m16n8k16 bf16 with f32
-// accumulation, fragments read with ldmatrix) and a ring of three cp.async
-// stages, so two tiles are in flight while one is multiplied.  Each thread
-// copies the same rows and the same k column of every tile, so its rows'
-// geometry is worked out once per block and the conv's (tap, channel)
-// advances with k.  It reaches 126-190 TFLOP/s on the H100; the conv's
-// gather loader (taps, zero fill at frame edges) is what keeps it off
-// fused_product.cuh's TMA loads for now.
+// The product's arguments.  C[m, n] = sum_k A[m, k] * B[n, k], A bf16 (M, K)
+// row-major and B stored as nn.Linear stores its weight, (N, K) row-major;
+// for the convolution, A is the (BF, H, W, Cin) video and k = tap * Cin +
+// ci.  The epilogue adds a bias, the temb row of the video that row m
+// belongs to (the convolution's), and a residual (f32 or bf16), then
+// stores f32 or bf16, rounding once; or, with GEGLU, it pairs the
+// interleaved columns (2j, 2j + 1) as (value, gate) and stores value *
+// gelu_erf(gate) at column j.  A split store writes column n to chunk n /
+// ldo of the output, which lays q, k and v (or k and v) out as separate
+// contiguous tensors.
 
 #pragma once
 
@@ -57,24 +40,10 @@
 namespace {
 namespace fz {
 
-// c += a @ b for one m16n8k16 tile (a row-major 16x16, b "col" 16x8).
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-constexpr int kThreads = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int BM = 128;
-constexpr int BK = 64;
-constexpr int LDS = BK + 8;  // shared row stride: 144 bytes, staggers banks
-constexpr int STAGES = 3;
+constexpr int kThreads = 256;  // threads per block of the norm passes
 
 struct GemmArgs {
-  const bf16* a;  // (M, K) row-major, or the (BF*H*W, Cin) video for the conv
+  const bf16* a;  // (M, K) row-major, or the (BF·H·W, Cin) video for the conv
   const bf16* b;  // (N, K) row-major
   int M, N, K;
   int H, W, Cin;  // conv geometry
@@ -121,228 +90,6 @@ __device__ __forceinline__ float silu(float x) { return x / (1.f + __expf(-x)); 
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-}
-
-// ldmatrix: four 8x8 b16 matrices from shared memory, one row address per
-// lane (lanes 8i..8i+7 give the rows of matrix i).
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  // src-size 0 writes zeros and reads nothing
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// What a thread knows of one of the A rows it copies, fixed for the block:
-// the row's (for the conv: the frame's) pointer and the conv's pixel.
-struct ARow {
-  const bf16* base;
-  int ok, y, x;
-};
-
-template <bool CONV>
-__device__ __forceinline__ void init_row(const GemmArgs& g, int m, ARow& r) {
-  r.ok = m < g.M;
-  const int mm = r.ok ? m : 0;
-  if constexpr (CONV) {
-    const int hw = g.H * g.W;
-    const int bf = mm / hw, p = mm - bf * hw;
-    r.y = p / g.W;
-    r.x = p - r.y * g.W;
-    r.base = g.a + (long)bf * hw * g.Cin;
-  } else {
-    r.base = g.a + (long)mm * g.K;
-  }
-}
-
-// Start the copy of one 8-wide A chunk (column k; the conv's tap and input
-// channel) into shared memory; zeros past the matrix's or the frame's edge.
-template <bool CONV>
-__device__ __forceinline__ void copy_a(const GemmArgs& g, const ARow& r, int k,
-                                        int tap, int ci, bf16* dst) {
-  const bf16* src = r.base;
-  bool ok = r.ok && k < g.K;
-  if constexpr (CONV) {
-    const int y = r.y + tap / 3 - 1, x = r.x + tap % 3 - 1;
-    ok = ok && y >= 0 && y < g.H && x >= 0 && x < g.W;
-    if (ok) src += ((long)y * g.W + x) * g.Cin + ci;
-  } else if (ok) {
-    src += k;
-  }
-  cp_async16(dst, src, ok);
-}
-
-__device__ __forceinline__ void copy_b(const GemmArgs& g, int n, int k, bf16* dst) {
-  const bool ok = n < g.N && k < g.K;
-  cp_async16(dst, ok ? g.b + (long)n * g.K + k : g.b, ok);
-}
-
-template <bool GEGLU>
-__device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n,
-                                         float v0, float v1) {
-  if (m >= g.M || n >= g.N) return;
-  if (g.bias != nullptr) {
-    v0 += g.bias[n];
-    v1 += g.bias[n + 1];
-  }
-  if (g.temb != nullptr) {
-    const long vid = m / g.temb_rows;
-    const float2 t = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(g.temb + vid * g.N + n));
-    v0 += t.x;
-    v1 += t.y;
-  }
-  if constexpr (GEGLU) {
-    // columns (2j, 2j + 1) are (value j, gate j) of the interleaved weight
-    const float y = v0 * gelu_erf(v1);
-    const long idx = (long)m * g.ldo + n / 2;
-    if (g.out_f32)
-      reinterpret_cast<float*>(g.out)[idx] = y;
-    else
-      reinterpret_cast<bf16*>(g.out)[idx] = __float2bfloat16(y);
-    return;
-  }
-  if (g.res != nullptr) {
-    const long r = (long)m * g.N + n;
-    if (g.res_f32) {
-      const float2 x = *reinterpret_cast<const float2*>(
-          reinterpret_cast<const float*>(g.res) + r);
-      v0 += x.x;
-      v1 += x.y;
-    } else {
-      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          reinterpret_cast<const bf16*>(g.res) + r));
-      v0 += x.x;
-      v1 += x.y;
-    }
-  }
-  const int chunk = n / g.ldo;
-  const long idx = chunk * g.chunk_stride + (long)m * g.ldo + (n - chunk * g.ldo);
-  if (g.out_f32)
-    *reinterpret_cast<float2*>(reinterpret_cast<float*>(g.out) + idx) =
-        make_float2(v0, v1);
-  else
-    *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(g.out) + idx) =
-        __floats2bfloat162_rn(v0, v1);
-}
-
-template <int BN>
-constexpr int gemm_smem_bytes() {
-  return STAGES * (BM + BN) * LDS * 2;
-}
-
-template <bool CONV, int BN, bool GEGLU>
-__global__ void __launch_bounds__(kThreads) gemm_kernel(const GemmArgs g) {
-  constexpr int CPR = BK / 8;                   // 16-byte chunks per tile row
-  constexpr int AC = BM * CPR / kThreads;       // A chunks per thread: 4
-  constexpr int BC = BN * CPR / kThreads;       // B chunks per thread: 2 or 4
-  constexpr int WN = BN / 2;                    // warp tile: 32 x WN
-  constexpr int NT = WN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // [STAGES][BM][LDS]
-  bf16* sB = sA + STAGES * BM * LDS;         // [STAGES][BN][LDS]
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * WN;
-  const int kc = (tid % CPR) * 8;  // the thread's column within a k-tile
-
-  ARow rows[AC];
-#pragma unroll
-  for (int j = 0; j < AC; ++j) init_row<CONV>(g, m0 + (tid + j * kThreads) / CPR, rows[j]);
-  int tap = 0, ci = kc;  // the conv's (tap, input channel) of the next tile
-  if constexpr (CONV) {
-    tap = kc / g.Cin;
-    ci = kc - tap * g.Cin;
-  }
-  auto fetch = [&](int t) {
-    const int slot = t % STAGES, k = t * BK + kc;
-#pragma unroll
-    for (int j = 0; j < AC; ++j) {
-      const int r = (tid + j * kThreads) / CPR;
-      copy_a<CONV>(g, rows[j], k, tap, ci, sA + (slot * BM + r) * LDS + kc);
-    }
-#pragma unroll
-    for (int j = 0; j < BC; ++j) {
-      const int n = (tid + j * kThreads) / CPR;
-      copy_b(g, n0 + n, k, sB + (slot * BN + n) * LDS + kc);
-    }
-    if constexpr (CONV) {
-      ci += BK;
-      while (ci >= g.Cin) {
-        ci -= g.Cin;
-        ++tap;
-      }
-    }
-  };
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < NT; ++b) acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
-
-  // ldmatrix row addresses: A rows wm + a*16 + (lane & 15), column half
-  // lane >> 4; B rows (two n-tiles) wn + (lane & 7) + ((lane >> 4) << 3),
-  // column half (lane >> 3) & 1
-  const int a_off = (wm + (lane & 15)) * LDS + (lane >> 4) * 8;
-  const int b_off = (wn + (lane & 7) + ((lane >> 4) << 3)) * LDS + ((lane >> 3) & 1) * 8;
-  const int nk = (g.K + BK - 1) / BK;
-
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < nk) fetch(t);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt have landed
-    __syncthreads();              // everyone's have; slot (kt - 1) is free
-    if (kt + STAGES - 1 < nk) fetch(kt + STAGES - 1);
-    cp_async_commit();
-    const bf16* a_t = sA + (kt % STAGES) * BM * LDS;
-    const bf16* b_t = sB + (kt % STAGES) * BN * LDS;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int a = 0; a < 2; ++a) ldsm_x4(af[a], a_t + a_off + a * 16 * LDS + ks * 16);
-#pragma unroll
-      for (int bp = 0; bp < NT / 2; ++bp) {
-        uint32_t bfr[4];
-        ldsm_x4(bfr, b_t + b_off + bp * 16 * LDS + ks * 16);
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          mma16816(acc[a][2 * bp], af[a], bfr);
-          mma16816(acc[a][2 * bp + 1], af[a], bfr + 2);
-        }
-      }
-    }
-  }
-
-  const int gi = lane >> 2, t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < NT; ++b) {
-      const int m = m0 + wm + a * 16 + gi, n = n0 + wn + b * 8 + t2;
-      epilogue<GEGLU>(g, m, n, acc[a][b][0], acc[a][b][1]);
-      epilogue<GEGLU>(g, m + 8, n, acc[a][b][2], acc[a][b][3]);
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -560,26 +307,6 @@ int layer_norm_rows(const TA* x, const float* gamma, const float* beta,
   ln_rows_kernel<TA><<<(M + rows - 1) / rows, kThreads, 0, st>>>(
       x, gamma, beta, pe, out, M, K, rows_per_frame, frames, eps);
   return (int)cudaGetLastError();
-}
-
-template <bool CONV, int BN, bool GEGLU>
-int launch_gemm(const GemmArgs& g, cudaStream_t st) {
-  const int bytes = gemm_smem_bytes<BN>();
-  cudaFuncSetAttribute(gemm_kernel<CONV, BN, GEGLU>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
-  gemm_kernel<CONV, BN, GEGLU><<<grid, kThreads, bytes, st>>>(g);
-  return (int)cudaGetLastError();
-}
-
-// Launch the product; BN = 128 where N is a multiple of 128 or above 256
-// (the wider tile's better ratio of products to fragment loads outweighs
-// the padded columns), else 64.
-template <bool CONV = false, bool GEGLU = false>
-int gemm(const GemmArgs& g, cudaStream_t st) {
-  if (g.K % 8 || g.N % 8 || (CONV && g.Cin % 8)) return -1;
-  if (g.N % 128 == 0 || g.N > 256) return launch_gemm<CONV, 128, GEGLU>(g, st);
-  return launch_gemm<CONV, 64, GEGLU>(g, st);
 }
 
 // A GemmArgs for the product out = a @ b^T (+ bias), one output chunk.

@@ -1,9 +1,7 @@
 // The product of the fused spatial transformer and motion module alone
 // (fused_product.cuh), for checking and timing it apart from the modules.
 //
-// mc_fused_product launches the TMA + wgmma product that kernels 5-7 run;
-// mc_mma_product launches the mma.sync product of fused_common.cuh (the
-// fused resnet's) on the same arguments, as a yardstick only.
+// mc_fused_product launches the TMA + wgmma product that kernels 5-7 run.
 //
 // ptrs:  0 a (M, K) bf16, 1 b (N, K) bf16, 2 bias (N) f32 or null, 3
 //        residual (M, N) or null (may be the output), 4 out
@@ -13,29 +11,14 @@
 
 #include "fused_product.cuh"
 
-namespace {
-
-fz::GemmArgs product_args(void* const* p, const int* d) {
+extern "C" int mc_fused_product(void* const* p, const int* d, void* stream) {
   fz::GemmArgs g = fz::gemm_args(p[0], p[1], p[2], p[4], d[4], d[0], d[1], d[2]);
   g.res = p[3];
   g.res_f32 = d[3];
   if (d[5]) g.ldo = d[1] / 2;
   if (d[6]) fz::split_output(g, d[6]);
-  return g;
-}
-
-}  // namespace
-
-extern "C" int mc_fused_product(void* const* p, const int* d, void* stream) {
-  const fz::GemmArgs g = product_args(p, d);
   cudaStream_t st = (cudaStream_t)stream;
   return d[5] ? fz::product<true>(g, st) : fz::product<false>(g, st);
-}
-
-extern "C" int mc_mma_product(void* const* p, const int* d, void* stream) {
-  const fz::GemmArgs g = product_args(p, d);
-  cudaStream_t st = (cudaStream_t)stream;
-  return d[5] ? fz::gemm<false, true>(g, st) : fz::gemm(g, st);
 }
 
 // dynamic shared memory per block of the product, for a bf16 or f32 output

@@ -1,13 +1,12 @@
-// The matrix product of the fused spatial transformer and the fused motion
-// module (fused_block.cu, fused_temporal.cu) on Hopper's TMA and wgmma.
+// The matrix product of the fused modules (fused_block.cu, fused_temporal.cu,
+// fused_resnet.cu) on Hopper's TMA and wgmma.
 //
 // Serves the TPU kernels motionclone_tpu/ops/fused_block.py
 // `fused_spatial_transformer` (:306) and `fused_transformer_block` (:387),
-// and motionclone_tpu/ops/fused_temporal.py `fused_temporal_module` (:171):
-// every linear layer of those modules is one launch of it.  The fused
-// resnet's implicit-GEMM convolution keeps the mma.sync product of
-// fused_common.cuh (its loader gathers 3x3 taps, which this product's 2-D
-// tensor maps do not express).
+// motionclone_tpu/ops/fused_temporal.py `fused_temporal_module` (:171) and
+// motionclone_tpu/ops/fused_resnet.py `fused_resnet_block` (:200): every
+// linear layer of those modules, and each 3x3 convolution and 1x1 shortcut
+// of the resnet, is one launch of it.
 //
 // C[m, n] = sum_k A[m, k] * B[n, k] with A bf16 (M, K) row-major and B an
 // nn.Linear weight (N, K) row-major: both operands are K-major, so wgmma
@@ -21,15 +20,34 @@
 // which its row is stored, and tiles are disjoint.  No split-K and no
 // atomics: two launches give the same bits.
 //
-// What bounds it on the H100.  The shapes (C = 320 or 640): M = B·F·S rows
-// (16384-131072; videos x 77 for the text's k|v), N in {C, 2C, 3C, 8C}, K
-// in {C, 4C, 768}.  At K = C a product does 2·C flops per output element
-// against ~4-12 bytes of operand, residual and output per element, under
-// the card's ~295 flops per byte: the C x C products and the FF's second
-// product are bound by memory, GEGLU's 8C-wide one (and the q|k|v one
-// nearly) by the tensor cores.  K is short (5 k-tiles at K = 320), so the
-// epilogue (a residual read, an f32 write) weighs as much as the products:
-// the design keeps HBM streaming through it.
+// The convolution (CONV).  A is then the (BF, H, W, Cin) video and the
+// product the implicit GEMM of a 3x3 convolution with padding 1: K = 9·Cin,
+// k = (dy·3 + dx)·Cin + ci, the weight (Cout, 9·Cin) K-major as any other.
+// The producer reads A through a 4-D tensor map over (Cin, W, H, BF) whose
+// box, (64, min(W, 128), 128 / min(W, 128), 1), is one 128-row x 64-channel
+// A tile of whole image rows of one frame (H·W % 128 == 0, so a tile never
+// straddles two frames).  For tap (dy, dx) and channel tile c0 it loads the
+// box at (c0, x0 + dx - 1, y0 + dy - 1, frame): TMA zero-fills every
+// coordinate outside the tensor, negative ones included, which is the
+// convolution's padding, and the box's frame extent of 1 keeps a tap from
+// reading the neighbouring frame.  The box lands in the same swizzled 128 x
+// 64 layout as a 2-D A tile, so the consumers do not change.  Cin % 64 ==
+// 0, so a k-tile never straddles two taps.  Its epilogue adds the temb row
+// of the tile's video (conv1, which has no residual) or a residual (conv2).
+// ops/fused_resnet.py `conv_a_tile` emulates the addressing on the CPU.
+//
+// What bounds it on the H100.  The linear layers (C = 320 or 640): M =
+// B·F·S rows (16384-131072; videos x 77 for the text's k|v), N in {C, 2C,
+// 3C, 8C}, K in {C, 4C, 768}.  At K = C a product does 2·C flops per output
+// element against ~4-12 bytes of operand, residual and output per element,
+// under the card's ~295 flops per byte: the C x C products and the FF's
+// second product are bound by memory, GEGLU's 8C-wide one (and the q|k|v
+// one nearly) by the tensor cores.  K is short (5 k-tiles at K = 320), so
+// the epilogue (a residual read, an f32 write) weighs as much as the
+// products: the design keeps HBM streaming through it.  The convolutions
+// have K = 9·Cin (45-270 k-tiles) and are bound by the tensor cores (242
+// GFLOP at 16 frames of 64x64, 320 -> 320); each tap reads its A tile again
+// from L2, so there the mainloop sets the pace.
 //
 // The design.  Tiles of 128 x 160 x 64: every K is a multiple of 64, and a
 // 64-wide bf16 k-tile row is 128 bytes, the width of TMA's and wgmma's
@@ -55,7 +73,8 @@
 //     while the ring already holds its first k-tiles.
 // scripts/torch_product_variants.{py,cu} time the earlier epilogues this
 // replaced (from registers straight to global memory: 3-5x the memory
-// bound), and the mainloop and the loads alone.  At GEGLU's 8C-wide
+// bound), the mainloop and the loads alone, and the convolution on
+// 256-row tiles.  At GEGLU's 8C-wide
 // product the epilogue is bound by erff; handing it to the producer
 // warpgroup's three spare warps was slower (three warps cannot hide its
 // dependent latency, eight consumer warps can), and so was interleaving it
@@ -124,6 +143,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"((uint32_t)__cvta_generic_to_shared(bar)),
       "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// TMA: the box at (c0, c1, c2, c3) of a 4-D tensor map; coordinates
+// outside the tensor, negative ones included, load as zeros
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"((uint32_t)__cvta_generic_to_shared(bar)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -236,8 +267,9 @@ struct Residual {
 // The epilogue of one consumer warpgroup's 64 x 160 share of a tile.  Each
 // thread adds the bias and its residual to its accumulators (rows wr =
 // warp·16 + lane/4 and wr + 8, columns 8j + 2·(lane % 4) + {0, 1} of
-// acc[4j + {0, 1}] and acc[4j + {2, 3}], mma.sync's C fragment per 8
-// columns) or, with GEGLU, forms value · gelu_erf(gate) of each pair at
+// acc[4j + {0, 1}] and acc[4j + {2, 3}], wgmma's accumulator layout per 8
+// columns), with TEMB the temb row of the tile's video after the bias, or,
+// with GEGLU, forms value · gelu_erf(gate) of each pair at
 // column 4j + lane % 4, rounds once to the output's type and writes the row
 // into the warpgroup's staging block (rows ROW bytes apart: 16 bytes of
 // padding spread the 8 rows a warp writes over the banks).  After a fence and a
@@ -245,8 +277,9 @@ struct Residual {
 // asynchronous copy into the output (the split chunk's, at the tile's
 // output column; rows past M are not copied) and go on to the next tile:
 // only the next tile's epilogue waits for the copies to have read the
-// block.  The arithmetic and its order are fused_common.cuh's `epilogue`.
-template <int RES, bool OUTF32, bool GEGLU>
+// block.  The arithmetic and its order are the plain versions'
+// (ops/fused_common.py `product_plain`, ops/fused_resnet.py `conv3x3_plain`).
+template <int RES, bool OUTF32, bool GEGLU, bool TEMB>
 __device__ __forceinline__ void store_tile(const GemmArgs& g, const float (&acc)[ACC],
                                            const Residual<RES>& res, unsigned char* sb,
                                            int m0, int n0, int wg, int warp, int lane) {
@@ -265,12 +298,25 @@ __device__ __forceinline__ void store_tile(const GemmArgs& g, const float (&acc)
       b[jj] = g.bias != nullptr
                   ? *reinterpret_cast<const float2*>(g.bias + n0 + 8 * (half * BN / 16 + jj) + 2 * q)
                   : make_float2(0.f, 0.f);
+    float2 tb[TEMB ? BN / 16 : 1];  // the temb row's columns (a tile lies in one video)
+    if constexpr (TEMB) {
+      const bf16* tr = g.temb == nullptr ? nullptr : g.temb + (m0 / g.temb_rows) * g.N + n0;
+#pragma unroll
+      for (int jj = 0; jj < BN / 16; ++jj)
+        tb[jj] = tr != nullptr ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                     tr + 8 * (half * BN / 16 + jj) + 2 * q))
+                               : make_float2(0.f, 0.f);
+    }
 #pragma unroll
     for (int jj = 0; jj < BN / 16; ++jj) {
       const int j = half * BN / 16 + jj;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float v0 = acc[4 * j + 2 * h] + b[jj].x, v1 = acc[4 * j + 2 * h + 1] + b[jj].y;
+        if constexpr (TEMB) {
+          v0 += tb[jj].x;
+          v1 += tb[jj].y;
+        }
         unsigned char* row = sb + (wr + 8 * h) * ROW;
         if constexpr (GEGLU) {
           const float y = v0 * gelu_erf(v1);
@@ -303,7 +349,10 @@ __device__ __forceinline__ void store_tile(const GemmArgs& g, const float (&acc)
   }
 }
 
-template <int RES, bool OUTF32, bool GEGLU>
+// CONV: A is the (BF, H, W, Cin) video behind a 4-D tensor map and the
+// product the 3x3 convolution's implicit GEMM (head note); its epilogue
+// adds the temb row where it has no residual.
+template <int RES, bool OUTF32, bool GEGLU, bool CONV>
 __global__ void __launch_bounds__(kThreads, 1)
     product_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_b, const GemmArgs g) {
@@ -340,11 +389,29 @@ __global__ void __launch_bounds__(kThreads, 1)
       int stage = 0, phase = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int m0 = t / n_tiles_n * BM, n0 = t % n_tiles_n * BN;
+        // the conv: the tile's frame and its first pixel (x0, y0); then
+        // the (tap, channel tile) of each k-tile, taps outermost
+        int frame = 0, x0 = 0, y0 = 0, tap = 0, c0 = 0;
+        if constexpr (CONV) {
+          const int hw = g.H * g.W;
+          frame = m0 / hw;
+          y0 = (m0 - frame * hw) / g.W;
+          x0 = m0 - frame * hw - y0 * g.W;
+        }
         for (int kt = 0; kt < nk; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* slot = smem + stage * STAGE_BYTES;
           mbar_expect_tx(&full[stage], STAGE_BYTES);
-          tma_load_2d(slot, &map_a, kt * BK, m0, &full[stage]);
+          if constexpr (CONV) {
+            tma_load_4d(slot, &map_a, c0, x0 + tap % 3 - 1, y0 + tap / 3 - 1, frame,
+                        &full[stage]);
+            if ((c0 += BK) == g.Cin) {
+              c0 = 0;
+              ++tap;
+            }
+          } else {
+            tma_load_2d(slot, &map_a, kt * BK, m0, &full[stage]);
+          }
           tma_load_2d(slot + A_BYTES, &map_b, kt * BK, n0, &full[stage]);
           if (++stage == STAGES) {
             stage = 0;
@@ -389,7 +456,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_wait<0>();
       wg_keep(acc);
       if (lane == 0) mbar_arrive(&empty[prev]);
-      store_tile<RES, OUTF32, GEGLU>(g, acc, res, sb, m0, n0, wg, warp, lane);
+      store_tile<RES, OUTF32, GEGLU, CONV && RES == 0>(g, acc, res, sb, m0, n0, wg, warp,
+                                                       lane);
     }
     if ((threadIdx.x & 127) < 64) bulk_wait();
   }
@@ -436,6 +504,26 @@ inline bool encode(CUtensorMap* map, const void* base, int rows, int K, int box_
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The tensor map of the (BF, H, W, Cin) bf16 video as the convolution's A:
+// 4-D over (Cin, W, H, BF) with the 128-byte swizzle, in boxes of (64,
+// min(W, box_rows), box_rows / min(W, box_rows), 1), one box_rows x 64 A
+// tile each.
+inline bool encode_conv(CUtensorMap* map, const void* base, int BF, int H, int W, int Cin,
+                        int box_rows = BM) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const int wb = W < box_rows ? W : box_rows;
+  const cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)BF};
+  const cuuint64_t strides[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)W * Cin * 2,
+                                 (cuuint64_t)H * W * Cin * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)BK, (cuuint32_t)wb, (cuuint32_t)(box_rows / wb), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 inline int sm_count() {
   int dev = 0, n = 0;
   cudaGetDevice(&dev);
@@ -452,32 +540,39 @@ constexpr int kTensorMapError = -2;
 
 namespace tp {
 
-template <int RES, bool OUTF32, bool GEGLU>
+template <int RES, bool OUTF32, bool GEGLU, bool CONV = false>
 int launch(const GemmArgs& g, cudaStream_t st) {
   CUtensorMap ma, mb;
-  if (!encode(&ma, g.a, g.M, g.K, BM) || !encode(&mb, g.b, g.N, g.K, BN))
-    return kTensorMapError;
+  const bool a_ok = CONV ? encode_conv(&ma, g.a, g.M / (g.H * g.W), g.H, g.W, g.Cin)
+                         : encode(&ma, g.a, g.M, g.K, BM);
+  if (!a_ok || !encode(&mb, g.b, g.N, g.K, BN)) return kTensorMapError;
   constexpr int smem = Smem<OUTF32>::BYTES;
-  MC_CHECK((int)cudaFuncSetAttribute(product_kernel<RES, OUTF32, GEGLU>,
+  MC_CHECK((int)cudaFuncSetAttribute(product_kernel<RES, OUTF32, GEGLU, CONV>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   const int sms = sm_count();
   const int tiles = (g.M + BM - 1) / BM * (g.N / BN);
-  product_kernel<RES, OUTF32, GEGLU><<<tiles < sms ? tiles : sms, kThreads, smem, st>>>(ma, mb, g);
+  product_kernel<RES, OUTF32, GEGLU, CONV><<<tiles < sms ? tiles : sms, kThreads, smem, st>>>(
+      ma, mb, g);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tp
 
-// Launch the TMA + wgmma product on the shapes it takes: K % 64 == 0,
-// N % 160 == 0 and, for a split store, the chunk width % 160 == 0; no temb
-// row (the resnet's, which stays on `gemm`) and, with GEGLU, no residual.
+// The shapes the product takes: K % 64 == 0, N % 160 == 0 and, for a split
+// store, the chunk width % 160 == 0; no temb row (only the convolution,
+// fused_resnet.cu, adds one) and, with GEGLU, no residual.
+// ops/fused_common.py mirrors the rule.
+inline bool product_takes(const GemmArgs& g) {
+  return g.M >= 1 && g.K % tp::BK == 0 && g.N % tp::BN == 0 && g.temb == nullptr;
+}
+
+// Launch the TMA + wgmma product on the shapes it takes (product_takes).
 // The residual's and the output's types select the kernel.  Returns -1 for
 // another shape, kTensorMapError if a tensor map cannot be encoded, else
-// cudaGetLastError() after the launch.  ops/fused_common.py mirrors the
-// shape rule.
+// cudaGetLastError() after the launch.
 template <bool GEGLU = false>
 int product(const GemmArgs& g, cudaStream_t st) {
-  if (g.M < 1 || g.K % tp::BK || g.N % tp::BN || g.temb != nullptr) return -1;
+  if (!product_takes(g)) return -1;
   if constexpr (GEGLU) {
     if (g.ldo != g.N / 2 || g.res != nullptr) return -1;
     return g.out_f32 ? tp::launch<0, true, true>(g, st) : tp::launch<0, false, true>(g, st);

@@ -8,11 +8,13 @@ Self-attention (``attn1``) goes through the flash kernels at every
 resolution; cross-attention (``attn2``, 77 text tokens) is plain PyTorch.
 
 With ``impl="fused"``, under the JAX package's conditions and predicate
-(``ops/fused_block.supported``), a whole single-layer Transformer3DModel
-with 1x1-conv projections runs as kernel 5, and otherwise its
-BasicTransformerBlock as kernel 6 (the linear-projection models): forward
-only, on weights repacked once into the kernels' layout and cached on the
-module.  ``impl="flash"`` and every other shape run the unfused path.
+(``ops/fused_block.supported``) and, on CUDA, the kernels' own shape rule
+(``ops/fused_block.device_supported``: :meth:`Transformer3DModel.fused_route`),
+a whole single-layer Transformer3DModel with 1x1-conv projections runs as
+kernel 5, and otherwise its BasicTransformerBlock as kernel 6 (the
+linear-projection models): forward only, on weights repacked once into the
+kernels' layout and cached on the module.  ``impl="flash"`` and every other
+shape run the unfused path.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from torch.nn import functional as F
 from motionclone_tpu_torch.models.layers import GroupNorm, LayerNorm
 from motionclone_tpu_torch.ops import fused_block
 from motionclone_tpu_torch.ops.attention import dot_product_attention
-from motionclone_tpu_torch.ops.fused_common import cached_pack, geglu_weights
+from motionclone_tpu_torch.ops.fused_common import cached_pack, geglu_weights, takes_kernel
 
 
 class CrossAttention(nn.Module):
@@ -163,24 +165,42 @@ class Transformer3DModel(nn.Module):
             )
         return cached_pack(self, dtype, build)
 
+    def fused_route(self, x_shape, context_shape, device_type: str) -> Optional[str]:
+        """The fused kernel ``impl="fused"`` takes for a (B, F, H, W, C)
+        input with (B, T, Dc) text on ``device_type``: "spatial_transformer"
+        (kernel 5), "transformer_block" (kernel 6) or None (the unfused
+        path), from the shapes alone."""
+        b, f, hh, ww, c = x_shape
+        block = self.transformer_blocks[0]
+        heads, inner = block.attn1.heads, block.attn1.heads * block.attn1.dim_head
+        if context_shape is None or not block.has_cross:
+            return None
+        t, dc = context_shape[-2:]
+        if not takes_kernel(device_type, fused_block.supported(hh * ww, inner, heads),
+                            lambda: fused_block.device_supported(hh * ww, inner, t, dc)):
+            return None
+        if not self.use_linear_projection and inner == c:
+            return "spatial_transformer"
+        return "transformer_block"
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 impl: str = "flash") -> torch.Tensor:
         b, f, hh, ww, c = x.shape
         block = self.transformer_blocks[0]
-        heads, inner = block.attn1.heads, block.attn1.heads * block.attn1.dim_head
-        fused = impl == "fused" and context is not None and block.has_cross
-        if (fused and not self.use_linear_projection and inner == c
-                and fused_block.supported(hh * ww, inner, heads)):
+        route = None if impl != "fused" else self.fused_route(
+            x.shape, None if context is None else context.shape, x.device.type)
+        if route == "spatial_transformer":
             out = fused_block.fused_spatial_transformer(
                 x.reshape(b * f, hh * ww, c), context, self.fused_weights(x.dtype),
-                heads=heads, groups=self.norm.num_groups, frames=f, eps=self.norm.eps,
+                heads=block.attn1.heads, groups=self.norm.num_groups, frames=f,
+                eps=self.norm.eps,
             )
             return out.reshape(x.shape)
         h = self._project(self.proj_in, self.norm(x, per_frame=True))
         h = h.reshape(b * f, hh * ww, h.shape[-1])
-        if fused and fused_block.supported(hh * ww, inner, heads):
+        if route == "transformer_block":
             h = fused_block.fused_transformer_block(
-                h, context, block.fused_weights(x.dtype), heads=heads, frames=f)
+                h, context, block.fused_weights(x.dtype), heads=block.attn1.heads, frames=f)
         else:
             ctx = None if context is None else context.repeat_interleave(f, dim=0)
             h = block(h, ctx)

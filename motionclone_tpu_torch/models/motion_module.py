@@ -10,8 +10,10 @@ on the natural (B, F, S, C) layout.  Where the probabilities are requested
 differentiates, and returned as (B, S, heads, F, F) float32.
 
 With ``impl="fused"``, under the JAX package's conditions and predicate
-(``ops/fused_temporal.supported``), a module whose probabilities are not
-requested runs as kernel 7, forward only, on its weights repacked once into
+(``ops/fused_temporal.supported``) and, on CUDA, the kernel's own shape rule
+(``ops/fused_temporal.device_supported``:
+:meth:`TemporalTransformer3D.fused_route`), a module whose probabilities are
+not requested runs as kernel 7, forward only, on its weights repacked once into
 the kernel's layout and cached on the module.
 
 With a ``frame_group`` (the JAX package's ``frames_axis``: frame-sharded
@@ -34,7 +36,7 @@ from motionclone_tpu_torch.models.embeddings import temporal_positional_encoding
 from motionclone_tpu_torch.models.layers import GroupNorm, LayerNorm
 from motionclone_tpu_torch.ops import fused_temporal
 from motionclone_tpu_torch.ops.attention import attention_probs
-from motionclone_tpu_torch.ops.fused_common import cached_pack, geglu_weights
+from motionclone_tpu_torch.ops.fused_common import cached_pack, geglu_weights, takes_kernel
 from motionclone_tpu_torch.ops.temporal_attention import temporal_attention
 from motionclone_tpu_torch.parallel.frames import FrameGroup
 
@@ -198,15 +200,25 @@ class TemporalTransformer3D(nn.Module):
             )
         return cached_pack(self, dtype, build)
 
+    def fused_route(self, x_shape, device_type: str, return_probs: bool = False,
+                    frame_group: Optional[FrameGroup] = None) -> bool:
+        """Whether ``impl="fused"`` runs kernel 7 for a (B, F, H, W, C) input
+        on ``device_type``, from the shapes alone."""
+        b, f, hh, ww, c = x_shape
+        if (frame_group is not None or return_probs or self.inner != c
+                or self.cfg.num_transformer_block != 1):
+            return False
+        n_attn = len(self.transformer_blocks[0].attention_blocks)
+        return takes_kernel(device_type, fused_temporal.supported(f, hh * ww, c, self.heads),
+                            lambda: fused_temporal.device_supported(hh * ww, c, n_attn))
+
     def forward(
         self, x: torch.Tensor, return_probs: bool = False, impl: str = "flash",
         frame_group: Optional[FrameGroup] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         b, f, hh, ww, c = x.shape
-        if (impl == "fused" and frame_group is None and not return_probs
-                and self.inner == c
-                and self.cfg.num_transformer_block == 1
-                and fused_temporal.supported(f, hh * ww, c, self.heads)):
+        if impl == "fused" and self.fused_route(x.shape, x.device.type, return_probs,
+                                                frame_group):
             out = fused_temporal.fused_temporal_module(
                 x.reshape(b, f, hh * ww, c), self.fused_weights(x),
                 heads=self.heads, groups=self.norm.num_groups, eps=self.norm.eps,

@@ -5,9 +5,11 @@ diffusers keys: ``norm1``, ``conv1``, ``time_emb_proj``, ``norm2``,
 ``conv2``, ``conv_shortcut``.
 
 With ``impl="fused"`` a block that the JAX package fuses (same predicate,
-``ops/fused_resnet.supported``) runs as kernel 8, forward only, on its
-weights repacked once into the kernel's layout and cached on the module;
-any other block, and ``impl="flash"``, runs the unfused path.
+``ops/fused_resnet.supported``) and, on CUDA, whose shapes kernel 8 takes
+(``ops/fused_resnet.device_supported``: :meth:`ResnetBlock3D.fused_route`)
+runs as kernel 8, forward only, on its weights repacked once into the
+kernel's layout and cached on the module; any other block, and
+``impl="flash"``, runs the unfused path.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from torch.nn import functional as F
 
 from motionclone_tpu_torch.models.layers import GroupNorm, conv2d, spatial_conv
 from motionclone_tpu_torch.ops import fused_resnet
-from motionclone_tpu_torch.ops.fused_common import cached_pack
+from motionclone_tpu_torch.ops.fused_common import cached_pack, takes_kernel
 
 
 class ResnetBlock3D(nn.Module):
@@ -56,11 +58,18 @@ class ResnetBlock3D(nn.Module):
             )
         return cached_pack(self, dtype, build)
 
+    def fused_route(self, x_shape, device_type: str, itemsize: int = 2) -> bool:
+        """Whether ``impl="fused"`` runs kernel 8 for a (B, F, H, W, Cin)
+        input of ``itemsize``-byte elements on ``device_type``, from the
+        shapes alone."""
+        cout = self.conv1.out_channels
+        return self.per_frame and takes_kernel(
+            device_type,
+            fused_resnet.supported(x_shape, cout, self.norm1.num_groups, itemsize=itemsize),
+            lambda: fused_resnet.device_supported(x_shape, cout))
+
     def forward(self, x: torch.Tensor, temb: torch.Tensor, impl: str = "flash") -> torch.Tensor:
-        if impl == "fused" and self.per_frame and fused_resnet.supported(
-            x.shape, self.conv1.out_channels, self.norm1.num_groups,
-            itemsize=x.element_size(),
-        ):
+        if impl == "fused" and self.fused_route(x.shape, x.device.type, x.element_size()):
             t = self.time_emb_proj(F.silu(temb))
             return fused_resnet.fused_resnet_block(
                 x, t, self.fused_weights(x.dtype), groups=self.norm1.num_groups,

@@ -46,10 +46,10 @@ SIGNATURES = {
     "mc_fused_temporal_module": (_P, _P, _F, _P),
     "mc_fused_spatial_transformer": (_P, _P, _F, _P),
     "mc_fused_transformer_block": (_P, _P, _F, _P),
-    # the fused modules' product alone, and the resnet's mma.sync product
-    # (a yardstick for chip_smoke.py): (pointer array, dims array, stream)
+    # the fused modules' product alone, and the resnet's convolution alone:
+    # (pointer array, dims array, stream)
     "mc_fused_product": (_P, _P, _P),
-    "mc_mma_product": (_P, _P, _P),
+    "mc_conv3x3": (_P, _P, _P),
     "mc_fused_product_smem": (_I,),
 }
 

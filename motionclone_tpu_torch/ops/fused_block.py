@@ -12,8 +12,9 @@ the Pallas TPU kernels of ``motionclone_tpu/ops/fused_block.py``:
 The frame's self-attention streams K/V tile by tile through the exact
 flash forward of ``csrc/flash_attention.cuh``; the products run through the
 TMA + wgmma product of ``csrc/fused_product.cuh`` (whose shape rule
-:func:`products` and ``fused_common.check_products`` mirror: the wrapper
-refuses other shapes before any launch), and the text keys and values are
+:func:`products` and ``fused_common.check_products`` mirror: the models
+route only shapes of :func:`device_supported` to the kernels on CUDA, and
+the wrapper refuses other shapes before any launch), and the text keys and values are
 projected once per video, not once per frame (design note in the CUDA
 source).  Unlike the JAX functions, which take the text context repeated
 per frame (BF, T, Dc), these take it once per video (B, T, Dc) with
@@ -104,6 +105,13 @@ def products(bf: int, s: int, c: int, videos: int, t: int, dc: int,
     if whole:
         out.append(P("proj_out", m, c, c, bias=True, res="bf16"))
     return out
+
+
+def device_supported(s: int, c: int, t: int, dc: int) -> bool:
+    """Whether kernels 5 and 6 take (S, C) frames with (T, Dc) text: every
+    product of :func:`products` passes ``fused_common.product_takes``.  A
+    pure function of the shapes; no device is needed."""
+    return all(fc.product_takes(p) for p in products(1, s, c, 1, t, dc))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ Mirrors ``csrc/fused_common.cuh`` and ``csrc/fused_product.cuh``: the plain
 PyTorch versions of the normalisations and products the fused kernels apply
 (with the kernels' rounding points, so a bf16 kernel can be held against
 them), the checks every fused wrapper makes before a launch, the shapes the
-TMA + wgmma product of kernels 5-7 takes, that product alone
+TMA + wgmma product of kernels 5-8 takes (and the routing rule that sends a
+module to its kernel only on those shapes), that product alone
 (:func:`fused_product`, for checking and timing it apart from the modules),
 and the cache that keeps a module's weights in the kernels' layout.
 
@@ -98,7 +99,7 @@ def product_plain(
 
 
 # ---------------------------------------------------------------------------
-# the shapes the product of kernels 5-7 takes (csrc/fused_product.cuh)
+# the shapes the product of kernels 5-8 takes (csrc/fused_product.cuh)
 # ---------------------------------------------------------------------------
 
 PRODUCT_BK = 64   # k-tile: one 128-byte swizzle row of bf16
@@ -121,11 +122,16 @@ class Product(NamedTuple):
     inplace: bool = False       # the residual is the output (the f32 stream)
 
 
+def product_takes(p: Product) -> bool:
+    """Whether the TMA + wgmma product takes ``p``: K a multiple of 64, N
+    and a split store's chunk width multiples of 160."""
+    return not (p.m < 1 or p.k % PRODUCT_BK or p.n % PRODUCT_BN
+                or (p.split and p.split % PRODUCT_BN))
+
+
 def check_product(name: str, p: Product) -> None:
-    """Raise ValueError unless the TMA + wgmma product takes ``p``: K a
-    multiple of 64, N and a split store's chunk width multiples of 160."""
-    if (p.m < 1 or p.k % PRODUCT_BK or p.n % PRODUCT_BN
-            or (p.split and p.split % PRODUCT_BN)):
+    """Raise ValueError unless the TMA + wgmma product takes ``p``."""
+    if not product_takes(p):
         chunk = f" in chunks of {p.split}" if p.split else ""
         raise ValueError(
             f"{name}: its {p.label} product (M, N, K) = ({p.m}, {p.n}, {p.k}){chunk} "
@@ -137,6 +143,19 @@ def check_product(name: str, p: Product) -> None:
 def check_products(name: str, products: Iterable[Product]) -> None:
     for p in products:
         check_product(name, p)
+
+
+def takes_kernel(device_type: str, supported: bool,
+                 device_supported: Callable[[], bool]) -> bool:
+    """The fused route of a module on ``device_type``: the JAX package's
+    predicate ``supported`` (on the CPU, where the kernel's plain version
+    runs, that alone) and, on CUDA, the kernel's own shape rule
+    ``device_supported()`` as well, a pure function of the shapes.  On
+    CUDA, a shape the JAX package fuses but the kernel does not take runs
+    the unfused modules (with the port's attention kernels): a decision made
+    on shapes before any launch.  The kernel wrappers still raise on such a
+    shape."""
+    return supported and (device_type != "cuda" or device_supported())
 
 
 # ---------------------------------------------------------------------------
@@ -233,8 +252,7 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def product_pointers(a, w, bias, res, out, *, geglu_out: bool = False, split: int = 0):
-    """The (pointer array, dims array) of ``mc_fused_product`` (and of the
-    resnet's ``mc_mma_product``, which takes the same arguments)."""
+    """The (pointer array, dims array) of ``mc_fused_product``."""
     return (pointers(a, w, bias, res, out),
             ints(a.shape[0], w.shape[0], a.shape[1],
                  int(res is not None and res.dtype == torch.float32),

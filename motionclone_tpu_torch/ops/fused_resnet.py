@@ -9,9 +9,13 @@ the Pallas TPU kernel ``fused_resnet_block`` of
 
 with per-(batch·frame) GroupNorm statistics.  The TPU kernel keeps one frame
 in VMEM and forms each 3x3 tap as a masked row shift; on the H100 each
-convolution is an implicit GEMM over K = 9·Cin whose loader gathers the taps
-and zero-fills the frame edges, reading GN + SiLU of its input written once
-as bf16 (design note in the CUDA source).  Forward-only: the wrapper refuses
+convolution is an implicit GEMM over K = 9·Cin on the TMA + wgmma product of
+``csrc/fused_product.cuh``, whose producer loads each tap's A tile through a
+4-D tensor map that zero-fills outside the frame (:func:`conv_a_tile`
+emulates that addressing), reading GN + SiLU of its input written once as
+bf16 (design note in the CUDA sources).  The kernel takes the shapes of
+:func:`device_supported`; the wrapper refuses others before any launch.
+The convolution alone is :func:`conv3x3`.  Forward-only: the wrapper refuses
 inputs that require grad.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the kernel
@@ -71,6 +75,92 @@ def supported(x_shape, cout: int, groups: int, time_embedding_norm: str = "defau
     return frame_bytes < 24 * 1024 * 1024
 
 
+CONV_BM = 128  # rows of the product's tile: one A box of whole image rows
+
+
+def products(bf: int, h: int, w: int, cin: int, cout: int) -> list:
+    """The products ``csrc/fused_resnet.cu`` launches for (BF, H, W, Cin)
+    -> Cout, in order: conv1 (f32 out, + b1 + temb row), the 1x1 shortcut
+    when Cin != Cout, conv2 (+ b2 + the residual)."""
+    m, P = bf * h * w, fc.Product
+    out = [P("conv1", m, cout, 9 * cin, bias=True, out="f32")]
+    if cin != cout:
+        out.append(P("shortcut", m, cout, cin, bias=True, out="f32"))
+    return out + [P("conv2", m, cout, 9 * cout, bias=True,
+                    res="bf16" if cin == cout else "f32")]
+
+
+def conv_takes(h: int, w: int, cin: int) -> bool:
+    """The convolution's own rule beside the product's (csrc/fused_resnet.cu
+    ``conv_takes``): Cin % 64 == 0 (a k-tile never straddles two taps), H·W
+    % 128 == 0 (a tile never straddles two frames), and min(W, 128) dividing
+    both 128 and W (one A box is whole image rows)."""
+    wb = min(w, CONV_BM)
+    return (cin % fc.PRODUCT_BK == 0 and h >= 1 and w >= 1 and (h * w) % CONV_BM == 0
+            and CONV_BM % wb == 0 and w % wb == 0)
+
+
+def device_supported(x_shape, cout: int) -> bool:
+    """Whether kernel 8 takes a (B, F, H, W, Cin) input with Cout output
+    channels: both convolutions (:func:`conv_takes`) and every product of
+    :func:`products` (``fused_common.product_takes``).  A pure function of
+    the shapes; no device is needed."""
+    if len(x_shape) != 5:
+        return False
+    b, f, h, w, cin = x_shape
+    return (conv_takes(h, w, cin) and conv_takes(h, w, cout)
+            and all(fc.product_takes(p) for p in products(max(1, b * f), h, w, cin, cout)))
+
+
+def _check_conv(name: str, h: int, w: int, *inputs: int) -> None:
+    """Raise ValueError unless :func:`conv_takes` holds for each convolution
+    input width."""
+    if not all(conv_takes(h, w, c) for c in inputs):
+        raise ValueError(
+            f"{name}: (H, W) = ({h}, {w}) with input channels {inputs} is not a shape "
+            f"the TMA + wgmma convolution takes (input channels % {fc.PRODUCT_BK} == 0, "
+            f"H·W % {CONV_BM} == 0, min(W, {CONV_BM}) dividing {CONV_BM} and W)")
+
+
+def check_shapes(name: str, x_shape, cout: int) -> None:
+    """Raise ValueError unless kernel 8 takes the shapes (:func:`device_supported`)."""
+    b, f, h, w, cin = x_shape
+    fc.check_products(name, products(b * f, h, w, cin, cout))
+    _check_conv(name, h, w, cin, cout)
+
+
+def conv_box(h: int, w: int, cin: int, m_tile: int, k_tile: int) -> tuple:
+    """The 4-D box the convolution's producer loads for (m-tile, k-tile):
+    its start (c0, x, y, frame) in the tensor map over (Cin, W, H, BF) and
+    its extent (64, min(W, 128), 128 / min(W, 128), 1).  k-tiles run over
+    the 9 taps (dy·3 + dx) outermost, then the channel tiles."""
+    hw, wb = h * w, min(w, CONV_BM)
+    m0 = m_tile * CONV_BM
+    frame, p0 = divmod(m0, hw)
+    y0, x0 = divmod(p0, w)
+    tap, c_tile = divmod(k_tile, cin // fc.PRODUCT_BK)
+    dy, dx = divmod(tap, 3)
+    start = (c_tile * fc.PRODUCT_BK, x0 + dx - 1, y0 + dy - 1, frame)
+    return start, (fc.PRODUCT_BK, wb, CONV_BM // wb, 1)
+
+
+def conv_a_tile(act: torch.Tensor, m_tile: int, k_tile: int) -> torch.Tensor:
+    """The (128, 64) A tile the producer's 4-D TMA load delivers for
+    (m-tile, k-tile) of the (BF, H, W, Cin) video ``act``, unswizzled: row r
+    is box element (x + r % Wb, y + r // Wb), zero outside the tensor (the
+    convolution's padding).  The whole im2col matrix, assembled from these
+    tiles, is the implicit GEMM's A."""
+    bf, h, w, cin = act.shape
+    (c0, x, y, frame), (bk, wb, hb, _) = conv_box(h, w, cin, m_tile, k_tile)
+    tile = act.new_zeros(hb, wb, bk)
+    ys = [i for i in range(hb) if 0 <= y + i < h]
+    xs = [i for i in range(wb) if 0 <= x + i < w]
+    if ys and xs and 0 <= frame < bf:
+        tile[ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] = act[
+            frame, y + ys[0]:y + ys[-1] + 1, x + xs[0]:x + xs[-1] + 1, c0:c0 + bk]
+    return tile.reshape(hb * wb, bk)
+
+
 def conv_weight(w: torch.Tensor) -> torch.Tensor:
     """PyTorch's (Cout, Cin, 3, 3) conv weight as the kernel's (Cout, 9·Cin)."""
     return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
@@ -93,6 +183,23 @@ def _conv3x3(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wk = w.float().reshape(cout, 3, 3, -1).permute(0, 3, 1, 2)
     y = F.conv2d(a.float().permute(0, 3, 1, 2), wk, padding=1)
     return y.permute(0, 2, 3, 1)
+
+
+def conv3x3_plain(
+    act: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+    temb: Optional[torch.Tensor] = None, res: Optional[torch.Tensor] = None, *,
+    frames: int = 1, out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The convolution with its epilogue, f32 math, one rounding to
+    ``out_dtype``: (BF, H, W, Cin) by the kernel-layout weight, + bias, then
+    + the temb row (videos, Cout) of each frame's video (``frames`` frames
+    per video) or + ``res`` (BF, H, W, Cout)."""
+    y = _conv3x3(act, w) + bias.float()
+    if temb is not None:
+        y = y + temb.float().repeat_interleave(frames, dim=0)[:, None, None, :]
+    if res is not None:
+        y = y + res.float()
+    return y.to(out_dtype)
 
 
 def fused_resnet_block_plain(
@@ -122,6 +229,49 @@ def fused_resnet_block_plain(
 # ---------------------------------------------------------------------------
 
 
+def conv3x3(
+    act: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+    temb: Optional[torch.Tensor] = None, res: Optional[torch.Tensor] = None, *,
+    frames: int = 1, out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Kernel 8's convolution alone (arguments as :func:`conv3x3_plain`; the
+    kernel takes conv1's flavour, f32 out with an optional temb row, and
+    conv2's, bf16 out with a residual): the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if act.device.type == "cpu":
+        return conv3x3_plain(act, w, bias, temb, res, frames=frames, out_dtype=out_dtype)
+    bf, hh, ww, cin = act.shape
+    cout = w.shape[0]
+    fc.check_cuda_inputs("conv3x3", (act, temb), (w, bias))
+    if w.shape[1] != 9 * cin or (res is not None and tuple(res.shape) != (bf, hh, ww, cout)):
+        raise ValueError(f"conv3x3: act {tuple(act.shape)}, w {tuple(w.shape)} and res "
+                         f"do not fit")
+    if res is None and out_dtype != torch.float32 or res is not None and (
+            out_dtype != torch.bfloat16 or temb is not None):
+        raise ValueError("conv3x3: the kernel takes f32 out with no residual (conv1) or "
+                         "bf16 out with a residual and no temb row (conv2)")
+    if res is not None and (not res.is_contiguous() or res.device != act.device
+                            or res.dtype not in (torch.bfloat16, torch.float32)):
+        raise ValueError("conv3x3: res must be a contiguous bf16 or f32 tensor on act's device")
+    fc.check_product("conv3x3", fc.Product("conv", bf * hh * ww, cout, 9 * cin))
+    _check_conv("conv3x3", hh, ww, cin)
+    out = torch.empty((bf, hh, ww, cout), device=act.device, dtype=out_dtype)
+    lib = load_library()
+    with torch.cuda.device(act.device):
+        check(lib.mc_conv3x3(
+            pointers(act, w, bias, temb, res, out),
+            ints(bf, frames, hh, ww, cin, cout,
+                 int(res is not None and res.dtype == torch.float32),
+                 int(out_dtype == torch.float32)),
+            fc.stream_of(act),
+        ), "conv3x3")
+    conv3x3.launches += 1
+    return out
+
+
+conv3x3.launches = 0
+
+
 def fused_resnet_kernel(
     x: torch.Tensor, temb_out: Optional[torch.Tensor], w: ResnetWeights, *,
     groups: int, eps: float,
@@ -135,6 +285,7 @@ def fused_resnet_kernel(
                          f"{tuple(w.w2.shape)} do not fit x {tuple(x.shape)}")
     if temb_out is not None and temb_out.shape != (b, cout):
         raise ValueError(f"fused_resnet_block: temb {tuple(temb_out.shape)} != {(b, cout)}")
+    check_shapes("fused_resnet_block", x.shape, cout)
     bf, hw, cmax = b * f, hh * ww, max(cin, cout)
     nch = fc.gn_chunks(hw)
     f32 = dict(device=x.device, dtype=torch.float32)

@@ -12,8 +12,9 @@ Replaces the Pallas TPU kernel ``fused_temporal_module`` of
 on the natural (B, F, S, C) layout, with the residual stream in f32 as on
 the TPU.  Each product is one launch of the TMA + wgmma product of
 ``csrc/fused_product.cuh`` (whose shape rule :func:`products` and
-``fused_common.check_products`` mirror: the wrapper refuses other shapes
-before any launch) and the attention is the temporal forward kernel of
+``fused_common.check_products`` mirror: the models route only shapes of
+:func:`device_supported` to the kernel on CUDA, and the wrapper refuses
+other shapes before any launch) and the attention is the temporal forward kernel of
 ``csrc/temporal_attention.cuh`` (design note in the CUDA source).
 Forward-only: the wrapper refuses inputs that require grad.
 
@@ -97,6 +98,14 @@ def products(b: int, f: int, s: int, c: int, n_attn: int = 2) -> list:
         P("ff out", m, c, 4 * c, bias=True, res="f32", out="f32", inplace=True),
         P("proj_out", m, c, c, bias=True, res="bf16"),
     ]
+
+
+def device_supported(s: int, c: int, n_attn: int = 2) -> bool:
+    """Whether kernel 7 takes S pixels of C channels with ``n_attn``
+    attention blocks: every product of :func:`products` passes
+    ``fused_common.product_takes``.  A pure function of the shapes; no
+    device is needed."""
+    return all(fc.product_takes(p) for p in products(1, 1, s, c, n_attn))
 
 
 # ---------------------------------------------------------------------------

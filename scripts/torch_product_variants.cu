@@ -1,6 +1,7 @@
-// Design variants of the product of kernels 5-7 (csrc/fused_product.cuh),
-// timed by scripts/torch_product_variants.py.  Built on the header's own
-// device code (descriptors, TMA, wgmma, the epilogue).  One kernel template:
+// Design variants of the TMA + wgmma product of kernels 5-8
+// (csrc/fused_product.cuh), timed by scripts/torch_product_variants.py.
+// Built on the header's own device code (descriptors, TMA, wgmma, the
+// epilogue).  One kernel template:
 //
 //   WGR    rows per consumer warpgroup: 64 (one m64n160 product per k16
 //          step; the 128-row tile of the shipped kernel) or 128 (two; a
@@ -19,9 +20,15 @@
 //          shipped epilogue (residual prefetched into registers, rows
 //          staged in the output's type and stored by bulk asynchronous
 //          copies) is timed as fused_common.fused_product.
+//   CONV   the 3x3 convolution of kernel 8: A through the 4-D tensor map
+//          of the video (fused_product.cuh), the box 2·WGR rows of whole
+//          image rows; the shipped convolution is timed as
+//          fused_resnet.conv3x3.
 //
 // mc_var(v, ...) launches variant v of the list in variant(); arguments as
-// mc_fused_product (csrc/fused_product.cu).
+// mc_fused_product (csrc/fused_product.cu).  mc_var_conv(v, ...) launches
+// convolution variant v of conv_variant(); arguments as mc_conv3x3
+// (csrc/fused_resnet.cu), without the temb row.
 
 #include "../motionclone_tpu_torch/csrc/fused_product.cuh"
 
@@ -33,8 +40,9 @@ namespace tp {
 // one consumer thread's share of a tile, rows r and r + 8
 // (r = m0 + its warpgroup's 64 + its warp's 16 + lane / 4), columns
 // n0 + 8j + 2·(lane % 4) + {0, 1} for j < 20 in acc[4j + {0, 1}] (row r)
-// and acc[4j + {2, 3}] (row r + 8), as mma.sync's C fragment per 8 columns.
-// The arithmetic and the rounding are fused_common.cuh's `epilogue`; the
+// and acc[4j + {2, 3}] (row r + 8), wgmma's accumulator layout per 8
+// columns.  The arithmetic and the rounding are the plain version's
+// (ops/fused_common.py `product_plain`); the
 // split chunk and the output column are worked out once per tile, since a
 // tile never straddles a chunk.
 template <bool GEGLU>
@@ -220,12 +228,12 @@ __device__ __forceinline__ void copy_out(const GemmArgs& g, const float* sf, int
 //   1. each thread writes its accumulators + bias to the block at their
 //      (row, column): rows wr = warp·16 + lane/4 and wr + 8, columns
 //      8j + 2·(lane % 4) + {0, 1} of acc[4j + {0, 1}] and acc[4j + {2, 3}]
-//      (mma.sync's C fragment per 8 columns); GEGLU writes value ·
+//      (wgmma's accumulator layout per 8 columns); GEGLU writes value ·
 //      gelu_erf(gate) of each pair at column 4j + lane % 4;
 //   2. after a barrier of the warpgroup, copy_out adds the residual and
 //      stores rows of 16-byte chunks; a second barrier frees the block.
-// The arithmetic and its order are fused_common.cuh's `epilogue` (acc +
-// bias, GEGLU or + residual, one rounding); a tile never straddles a split
+// The arithmetic and its order are the plain version's (acc + bias, GEGLU
+// or + residual, one rounding); a tile never straddles a split
 // chunk, so the chunk and the output column are worked out once per tile.
 template <bool GEGLU>
 __device__ __forceinline__ void store_staged(const GemmArgs& g, float (&acc)[ACC], float* sf,
@@ -269,7 +277,7 @@ constexpr int var_smem() {
          1024;
 }
 
-template <int WGR, int ST, int MODE, bool GEGLU, int EPI>
+template <int WGR, int ST, int MODE, bool GEGLU, int EPI, bool CONV>
 __global__ void __launch_bounds__(kThreads, 1)
     var_kernel(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_b, const GemmArgs g) {
@@ -299,11 +307,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       int stage = 0, phase = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int m0 = t / n_tiles_n * VBM, n0 = t % n_tiles_n * BN;
+        int frame = 0, x0 = 0, y0 = 0, tap = 0, c0 = 0;
+        if constexpr (CONV) {
+          const int hw = g.H * g.W;
+          frame = m0 / hw;
+          y0 = (m0 - frame * hw) / g.W;
+          x0 = m0 - frame * hw - y0 * g.W;
+        }
         for (int kt = 0; kt < nk; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* slot = smem + stage * VSTAGE;
           mbar_expect_tx(&full[stage], VSTAGE);
-          tma_load_2d(slot, &map_a, kt * BK, m0, &full[stage]);
+          if constexpr (CONV) {
+            tma_load_4d(slot, &map_a, c0, x0 + tap % 3 - 1, y0 + tap / 3 - 1, frame,
+                        &full[stage]);
+            if ((c0 += BK) == g.Cin) {
+              c0 = 0;
+              ++tap;
+            }
+          } else {
+            tma_load_2d(slot, &map_a, kt * BK, m0, &full[stage]);
+          }
           tma_load_2d(slot + VA, &map_b, kt * BK, n0, &full[stage]);
           if (++stage == ST) {
             stage = 0;
@@ -367,23 +391,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int WGR, int ST, int MODE, int EPI>
+template <int WGR, int ST, int MODE, int EPI, bool CONV = false>
 int launch_var(const GemmArgs& g, bool geglu, cudaStream_t st) {
   constexpr int smem = var_smem<WGR, ST, EPI>();
   CUtensorMap ma, mb;
-  if (!encode(&ma, g.a, g.M, g.K, 2 * WGR) || !encode(&mb, g.b, g.N, g.K, BN))
-    return kTensorMapError;
+  const bool a_ok = CONV ? encode_conv(&ma, g.a, g.M / (g.H * g.W), g.H, g.W, g.Cin, 2 * WGR)
+                         : encode(&ma, g.a, g.M, g.K, 2 * WGR);
+  if (!a_ok || !encode(&mb, g.b, g.N, g.K, BN)) return kTensorMapError;
   const int sms = sm_count();
   const int tiles = (g.M + 2 * WGR - 1) / (2 * WGR) * (g.N / BN);
   const int grid = tiles < sms ? tiles : sms;
   if (geglu) {
-    MC_CHECK((int)cudaFuncSetAttribute(var_kernel<WGR, ST, MODE, true, EPI>,
+    MC_CHECK((int)cudaFuncSetAttribute(var_kernel<WGR, ST, MODE, true, EPI, CONV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-    var_kernel<WGR, ST, MODE, true, EPI><<<grid, kThreads, smem, st>>>(ma, mb, g);
+    var_kernel<WGR, ST, MODE, true, EPI, CONV><<<grid, kThreads, smem, st>>>(ma, mb, g);
   } else {
-    MC_CHECK((int)cudaFuncSetAttribute(var_kernel<WGR, ST, MODE, false, EPI>,
+    MC_CHECK((int)cudaFuncSetAttribute(var_kernel<WGR, ST, MODE, false, EPI, CONV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-    var_kernel<WGR, ST, MODE, false, EPI><<<grid, kThreads, smem, st>>>(ma, mb, g);
+    var_kernel<WGR, ST, MODE, false, EPI, CONV><<<grid, kThreads, smem, st>>>(ma, mb, g);
   }
   return (int)cudaGetLastError();
 }
@@ -410,6 +435,25 @@ int variant(int v, const fz::GemmArgs& g, bool geglu, cudaStream_t st) {
   }
 }
 
+// The convolution on 128-row tiles (the shipped kernel's) and on 256-row
+// tiles (two m64n160 products per consumer per k16 step: half the B tiles'
+// L2 traffic per row, 160 accumulators a thread), each as its mainloop
+// alone, its loads alone, and whole with the register epilogue (EPI 0).
+// Without GEGLU; 4 ring slots each (the shipped f32-out kernel's).
+int conv_variant(int v, const fz::GemmArgs& g, cudaStream_t st) {
+  using namespace fz::tp;
+  if (g.temb != nullptr || (g.H * g.W) % 256 || g.Cin % BK) return -1;
+  switch (v) {
+    case 0: return launch_var<64, 4, 1, 0, true>(g, false, st);   // 128 rows, no epilogue
+    case 1: return launch_var<64, 4, 3, 0, true>(g, false, st);   //   loads alone
+    case 2: return launch_var<64, 4, 0, 0, true>(g, false, st);   //   register epilogue
+    case 3: return launch_var<128, 4, 1, 0, true>(g, false, st);  // 256 rows, no epilogue
+    case 4: return launch_var<128, 4, 3, 0, true>(g, false, st);  //   loads alone
+    case 5: return launch_var<128, 4, 0, 0, true>(g, false, st);  //   register epilogue
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // ptrs and dims as mc_fused_product
@@ -420,4 +464,17 @@ extern "C" int mc_var(int v, void* const* p, const int* d, void* stream) {
   if (d[5]) g.ldo = d[1] / 2;
   if (d[6]) fz::split_output(g, d[6]);
   return variant(v, g, d[5] != 0, (cudaStream_t)stream);
+}
+
+// ptrs and dims as mc_conv3x3, with no temb row
+extern "C" int mc_var_conv(int v, void* const* p, const int* d, void* stream) {
+  fz::GemmArgs g = fz::gemm_args(p[0], p[1], p[2], p[5], d[7], d[0] * d[2] * d[3], d[5],
+                                 9 * d[4]);
+  g.H = d[2];
+  g.W = d[3];
+  g.Cin = d[4];
+  g.temb = (const bf16*)p[3];
+  g.res = p[4];
+  g.res_f32 = d[6];
+  return conv_variant(v, g, (cudaStream_t)stream);
 }

@@ -11,7 +11,11 @@ against the JAX package, on the CPU.
   projections: kernel 5; linear projections: kernel 6 inside the unfused
   GN / proj_in / proj_out) against the JAX module with
   ``attention_impl="fused"`` and ``"xla"``, checking the route taken;
-* the port's copy of the routing predicate against JAX's."""
+* the port's copy of the routing predicate against JAX's;
+* without JAX: the products' shape rule, the kernels' own predicate
+  (``device_supported``) at SD1.5 width and at the widths the JAX package
+  fuses but the product does not take (C = 80, 240), and the route a model
+  takes on CUDA (the unfused one there)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -212,3 +216,43 @@ def test_product_plain_version(epilogue):
         want = (a.float() @ w.float().T).to(torch.bfloat16).reshape(m, 2, 160).transpose(0, 1)
     assert got.shape == want.shape and got.dtype == want.dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' own shape rule and the route on CUDA, no JAX
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s,c", [(4096, 320), (1024, 640)])  # the levels that fuse
+def test_device_predicate_holds_at_sd15_levels(s, c):
+    assert tfb.supported(s, c, 8) and tfb.device_supported(s, c, 77, 768)
+
+
+@pytest.mark.parametrize("s,c,heads", [(128, 80, 2), (256, 80, 2), (128, 240, 3),
+                                       (1024, 240, 6)])
+def test_narrow_widths_pass_jax_predicate_fail_device_predicate(s, c, heads):
+    """C = 80 (2 heads of 40) and C = 240: the JAX package fuses them, the
+    TMA + wgmma product does not take them (K % 64, N % 160)."""
+    assert tfb.supported(s, c, heads)
+    assert not tfb.device_supported(s, c, 77, 768)
+
+
+@pytest.mark.parametrize("linear", [False, True])
+@pytest.mark.parametrize("c,heads,cpu,cuda", [
+    (80, 2, True, False), (240, 3, True, False), (C, HEADS, True, False),
+    (320, 8, True, True),
+])
+def test_model_route_on_shapes(c, heads, cpu, cuda, linear):
+    """The route a Transformer3DModel takes with impl="fused", from the
+    shapes alone (the model lives on the meta device): on the CPU the plain
+    version wherever the JAX package fuses; on CUDA a C = 80 or 240 model
+    (and the CPU tests' C = 32) takes the unfused path instead of a kernel
+    that would raise, and SD1.5's C = 320 its kernel as before."""
+    with torch.device("meta"):
+        m = tattn.Transformer3DModel(c, heads, c // heads, cross_attention_dim=768,
+                                     norm_num_groups=8, use_linear_projection=linear)
+    kernel = "transformer_block" if linear else "spatial_transformer"
+    x_shape, ctx_shape = (1, FRAMES, 16, 16, c), (1, 77, 768)
+    assert m.fused_route(x_shape, ctx_shape, "cpu") == (kernel if cpu else None)
+    assert m.fused_route(x_shape, ctx_shape, "cuda") == (kernel if cuda else None)
+    assert m.fused_route(x_shape, None, "cpu") is None

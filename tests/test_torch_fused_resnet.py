@@ -10,7 +10,14 @@
 * the port's copy of the routing predicate against JAX's at every
   main-path shape and at the JAX tests' edge cases;
 * the forward-only wrapper's refusal of inputs that require grad, and the
-  kernel library's hash over the shared headers."""
+  kernel library's hash over the shared headers;
+* without JAX: the kernel's own shape rule (``device_supported``) at every
+  SD1.5 shape and at shapes it refuses, the route a module takes on CUDA
+  (the unfused one where the kernel does not take the shapes), the
+  convolution's products against the product's shape rule, the wrapper's
+  refusal before any launch, the producer's tap addressing (``conv_a_tile``)
+  against ``torch.nn.functional.unfold``, and the convolution's plain
+  version."""
 
 import shutil
 
@@ -161,3 +168,147 @@ def test_library_hash_covers_headers(tmp_path):
     source = csrc / "fused_resnet.cu"
     source.write_text(source.read_text() + "\n// edited\n")
     assert kbuild._digest(csrc) not in (before, after_header)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's own shape rule and the route on CUDA, no JAX
+# ---------------------------------------------------------------------------
+
+FUSED_MAIN_PATH = [(s, c) for s, c in MAIN_PATH if tfr.supported(s, c, 32)]
+
+
+@pytest.mark.parametrize("x_shape,cout", FUSED_MAIN_PATH,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_device_predicate_holds_at_sd15_shapes(x_shape, cout):
+    """Every resnet the JAX package fuses at SD1.5 width is a shape kernel 8
+    takes, and each of its products passes the product's shape rule."""
+    from motionclone_tpu_torch.ops import fused_common as fc
+
+    assert tfr.device_supported(x_shape, cout)
+    b, f, h, w, cin = x_shape
+    prods = tfr.products(b * f, h, w, cin, cout)
+    assert [p.label for p in prods] == (
+        ["conv1", "conv2"] if cin == cout else ["conv1", "shortcut", "conv2"])
+    fc.check_products("fused_resnet_block", prods)
+    tfr.check_shapes("fused_resnet_block", x_shape, cout)
+
+
+def test_cuda_route_fuses_the_same_eleven_resnets_per_forward():
+    """On CUDA the route fuses exactly the resnets the JAX predicate fuses
+    at SD1.5 width: 11 per forward, as before the kernel's rule was added."""
+    from motionclone_tpu_torch.ops.fused_common import takes_kernel
+
+    def route(dev, r):
+        shape = (1, 16, r[0], r[0], r[1])
+        return takes_kernel(dev, tfr.supported(shape, r[2], 32),
+                            lambda: tfr.device_supported(shape, r[2]))
+
+    assert [route("cuda", r) for r in SD15_RESNETS] == [route("cpu", r) for r in SD15_RESNETS]
+    assert sum(route("cuda", r) for r in SD15_RESNETS) == 11
+
+
+@pytest.mark.parametrize("x_shape,cout", [
+    ((1, 2, 8, 8, 32), 48),      # the CPU tests' widths: Cin % 64 != 0
+    ((1, 2, 8, 8, 96), 320),     # Cin % 64 != 0
+    ((1, 2, 16, 16, 64), 64),    # Cout % 160 != 0
+    ((1, 2, 16, 16, 64), 160),   # Cout % 64 != 0 (conv2's input)
+    ((1, 2, 8, 24, 64), 320),    # H·W % 128 != 0
+    ((1, 2, 16, 48, 64), 320),   # min(W, 128) does not divide 128
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_device_predicate_refuses_shapes_the_jax_package_fuses(x_shape, cout):
+    assert tfr.supported(x_shape, cout, 8)
+    assert not tfr.device_supported(x_shape, cout)
+    with pytest.raises(ValueError, match="TMA \\+ wgmma"):
+        tfr.check_shapes("fused_resnet_block", x_shape, cout)
+
+
+@pytest.mark.parametrize("cin,cout,x_shape,cpu,cuda", [
+    (32, 48, (1, 2, 8, 8, 32), True, False),           # the CPU tests' block
+    (64, 320, (1, 2, 8, 24, 64), True, False),         # H·W % 128 != 0
+    (320, 320, (1, 16, 64, 64, 320), True, True),      # SD1.5, down 0
+    (640, 1280, (1, 16, 16, 16, 640), True, True),     # SD1.5, down 2
+    (1280, 1280, (1, 16, 16, 16, 1280), False, False), # over the weight budget
+])
+def test_module_route_on_shapes(cin, cout, x_shape, cpu, cuda):
+    """The route a ResnetBlock3D takes with impl="fused", from the shapes
+    alone (the module lives on the meta device): the kernel's plain version
+    on the CPU wherever the JAX package fuses, kernel 8 on CUDA only where
+    it takes the shapes, else the unfused path."""
+    with torch.device("meta"):
+        m = tres.ResnetBlock3D(cin, cout, 1280, groups=8 if cin == 32 else 32)
+    assert m.fused_route(x_shape, "cpu") == cpu
+    assert m.fused_route(x_shape, "cuda") == cuda
+
+
+@pytest.mark.parametrize("x_shape,cout", [((1, 2, 8, 8, 32), 48), ((1, 2, 8, 24, 64), 320)])
+def test_kernel_wrapper_refuses_unsupported_shapes_before_launch(x_shape, cout):
+    """Kernel 8's wrapper raises ValueError on a shape it does not take
+    before it builds or launches anything."""
+    b, f, h, w, cin = x_shape
+    bf16 = torch.bfloat16
+    vec = lambda n: torch.zeros(n)
+    sc = cin != cout
+    weights = tfr.ResnetWeights(
+        vec(cin), vec(cin), torch.zeros(cout, 9 * cin, dtype=bf16), vec(cout), vec(cout),
+        vec(cout), torch.zeros(cout, 9 * cout, dtype=bf16), vec(cout),
+        torch.zeros(cout, cin, dtype=bf16) if sc else None, vec(cout) if sc else None)
+    x = torch.zeros(x_shape, dtype=bf16)
+    with pytest.raises(ValueError, match="TMA \\+ wgmma"):
+        tfr.fused_resnet_kernel(x, torch.zeros(b, cout, dtype=bf16), weights,
+                                groups=8, eps=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the producer's tap addressing and the convolution's plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bf,h,w,cin", [
+    (2, 16, 16, 64),    # W = 16: boxes of 8 image rows, 2 tiles per frame
+    (2, 8, 32, 128),    # W = 32: boxes of 4 rows, 2 channel tiles per tap
+    (3, 4, 64, 64),     # W = 64: boxes of 2 rows; 3 frames
+    (2, 2, 256, 64),    # W = 256: boxes of half an image row
+])
+def test_tap_addressing_matches_unfold(bf, h, w, cin):
+    """The im2col matrix assembled from the A tiles the 4-D TMA loads would
+    deliver (zero fill outside the frame, no tap reading the neighbouring
+    frame) is ``unfold`` of the same frames, column (dy·3 + dx)·Cin + ci."""
+    r = np.random.default_rng(bf * w + cin)
+    act = torch.from_numpy(r.standard_normal((bf, h, w, cin)).astype(np.float32))
+    m_tiles, k_tiles = bf * h * w // tfr.CONV_BM, 9 * cin // 64
+    a = torch.cat([torch.cat([tfr.conv_a_tile(act, i, k) for k in range(k_tiles)], dim=1)
+                   for i in range(m_tiles)], dim=0)
+    u = torch.nn.functional.unfold(act.permute(0, 3, 1, 2), 3, padding=1)
+    want = u.reshape(bf, cin, 9, h * w).permute(0, 3, 2, 1).reshape(bf * h * w, 9 * cin)
+    assert torch.equal(a, want)
+    # the first tap's box of a frame's first tile starts above and left of it
+    (c0, x, y, frame), box = tfr.conv_box(h, w, cin, m_tiles - 1, 0)
+    assert (c0, x, frame) == (0, -1 if w <= 128 else w - 128 - 1, bf - 1)
+    assert box == (64, min(w, 128), 128 // min(w, 128), 1)
+
+
+@pytest.mark.parametrize("flavour", ["conv1", "conv2_bf16", "conv2_f32"])
+def test_conv3x3_plain_version(flavour):
+    """The convolution alone on the CPU (its plain version) against
+    ``conv2d`` of the same frames with its epilogue written out: f32, one
+    rounding at the store."""
+    r = np.random.default_rng(4)
+    bf, h, w, cin, cout, frames = 4, 8, 16, 64, 160, 2
+    rnd = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+    act = rnd(bf, h, w, cin).to(torch.bfloat16)
+    wk = (rnd(cout, cin, 3, 3) / 24).to(torch.bfloat16)
+    bias = rnd(cout)
+    y = torch.nn.functional.conv2d(act.float().permute(0, 3, 1, 2), wk.float(), padding=1)
+    y = y.permute(0, 2, 3, 1) + bias
+    wkl = tfr.conv_weight(wk)
+    if flavour == "conv1":
+        temb = rnd(bf // frames, cout).to(torch.bfloat16)
+        got = tfr.conv3x3(act, wkl, bias, temb, frames=frames, out_dtype=torch.float32)
+        want = y + temb.float().repeat_interleave(frames, 0)[:, None, None, :]
+    else:
+        dt = torch.bfloat16 if flavour == "conv2_bf16" else torch.float32
+        res = rnd(bf, h, w, cout).to(dt)
+        got = tfr.conv3x3(act, wkl, bias, res=res)
+        want = (y + res.float()).to(torch.bfloat16)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=1e-4)

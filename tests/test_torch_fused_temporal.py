@@ -8,7 +8,11 @@
 * the port's module with ``impl="fused"`` against the JAX module with
   ``attention_impl="fused"`` and ``"xla"``, checking that the fused route
   was taken, and that requested probabilities keep the unfused route;
-* the port's copy of the routing predicate against JAX's."""
+* the port's copy of the routing predicate against JAX's;
+* without JAX: the products' shape rule, the kernel's own predicate
+  (``device_supported``) at SD1.5 width and at the widths the JAX package
+  fuses but the product does not take (C = 80, 240), and the route a motion
+  module takes on CUDA (the unfused one there)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -145,3 +149,42 @@ def test_kernel_wrapper_refuses_unsupported_shapes_before_launch():
     x = torch.zeros(B, F, H * W, C, dtype=bf16)
     with pytest.raises(ValueError, match="TMA \\+ wgmma product"):
         tft.fused_temporal_kernel(x, w, heads=HEADS, groups=GROUPS)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's own shape rule and the route on CUDA, no JAX
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s,c", [(4096, 320), (1024, 640)])  # the levels that fuse
+def test_device_predicate_holds_at_sd15_levels(s, c):
+    assert tft.supported(16, s, c, 8) and tft.device_supported(s, c)
+
+
+@pytest.mark.parametrize("f,s,c,heads", [(8, 64, 80, 2), (16, 256, 80, 2), (8, 64, 240, 3),
+                                         (16, 1024, 240, 6)])
+def test_narrow_widths_pass_jax_predicate_fail_device_predicate(f, s, c, heads):
+    """C = 80 (2 heads of 40) and C = 240: the JAX package fuses them, the
+    TMA + wgmma product does not take them (K % 64, N % 160)."""
+    assert tft.supported(f, s, c, heads)
+    assert not tft.device_supported(s, c)
+
+
+@pytest.mark.parametrize("c,heads,cpu,cuda", [
+    (80, 2, True, False), (240, 3, True, False), (C, HEADS, True, False),
+    (320, 8, True, True),
+])
+def test_module_route_on_shapes(c, heads, cpu, cuda):
+    """The route a motion module takes with impl="fused", from the shapes
+    alone (the module lives on the meta device): on the CPU the plain
+    version wherever the JAX package fuses; on CUDA a C = 80 or 240 module
+    (and the CPU tests' C = 32) takes the unfused path instead of a kernel
+    that would raise, and SD1.5's C = 320 its kernel as before.  Requested
+    probabilities and a frame group keep the unfused route everywhere."""
+    with torch.device("meta"):
+        m = tmm.TemporalTransformer3D(c, tcfg.MotionModuleConfig(
+            num_attention_heads=heads, norm_num_groups=8))
+    x_shape = (1, 16, 16, 16, c)
+    assert m.fused_route(x_shape, "cpu") == cpu
+    assert m.fused_route(x_shape, "cuda") == cuda
+    assert not m.fused_route(x_shape, "cpu", return_probs=True)

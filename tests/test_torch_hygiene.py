@@ -33,9 +33,11 @@ def _imported_roots(tree: ast.AST):
 
 
 # the rank bodies of the frame-sharding tests start in processes of their
-# own, which must not pay for importing JAX
+# own, which must not pay for importing JAX; the port's scripts run on the
+# card's machine, which has no JAX
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py",
-                                               ROOT / "tests" / "test_torch_frame_shard_ranks.py"],
+                                               ROOT / "tests" / "test_torch_frame_shard_ranks.py"]
+                         + sorted((ROOT / "scripts").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
