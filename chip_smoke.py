@@ -18,11 +18,13 @@ Phase 2  kernels: each kernel at every shape the main path gives it (the
          F.scaled_dot_product_attention for the forwards, the aten flash
          attention backward op (fed its own forward's out and LSE) for the
          backwards; temporal attention is handed to them as a strided
-         (B, S*heads, F, D) view of its (B, F, S, heads*D) tensors.  The
-         fused modules (spatial transformer, transformer block, motion
-         module, resnet) have no single PyTorch call to compare with; they
-         are timed beside the port's unfused module on the same input, and
-         two launches of kernel 8 must give the same bits.  Before them,
+         (B, S*heads, F, D) view of its (B, F, S, heads*D) tensors; two
+         launches of each flash and temporal kernel must give the same
+         bits.  The fused modules (spatial transformer, transformer
+         block, motion module, resnet) have no single PyTorch call to
+         compare with; they are timed beside the port's unfused module on
+         the same input, and two launches of kernel 8 must give the same
+         bits.  Before them,
          the TMA + wgmma product of csrc/fused_product.cuh alone: first one
          64x160x64 tile, then every distinct (M, N, K, epilogue) kernels 5-7
          launch on the main path, each against its plain version (tolerance
@@ -307,18 +309,10 @@ def library_bwd(q4, k4, v4, do4, scale):
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(dev) -> dict:
-    from torch.nn import functional as F
-
-    from motionclone_tpu_torch.ops import flash_attention as fa
-    from motionclone_tpu_torch.ops import temporal_attention as ta
-
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
-
-    rows = {}
+def attention_recorder(rows: dict):
+    """The attention kernels' ``record``: logs one shape's line, raises if
+    the error passes the tolerance, and keeps the main path's largest shape
+    (S = 4096) of each kernel in ``rows`` for the kernels JSON line."""
 
     def record(name, shape, err, tol, ms, plain_ms, b_ms, b_by, lib_ms, lib_dev,
                exp_ms=None):
@@ -337,6 +331,32 @@ def check_kernels(dev) -> dict:
             rows[name] = dict(shape=list(shape), max_abs_err=err, ms=ms,
                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               library_ms=lib_ms)
+
+    return record
+
+
+def check_kernels(dev) -> dict:
+    """Kernels 1-4 (flash and temporal attention, and 3r, 4r) at every
+    main-path shape against their plain versions, timed beside PyTorch's
+    own attention."""
+    rows = check_flash_kernels(dev)
+    rows.update(check_temporal_kernels(dev))
+    return rows
+
+
+def check_flash_kernels(dev) -> dict:
+    from torch.nn import functional as F
+
+    from motionclone_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    rows = {}
+
+    record = attention_recorder(rows)
 
     def exp_floor(b, sq, sk):  # one exponential per score, the least any algorithm needs
         return b * HEADS * sq * sk / PEAK_EXP * 1e3
@@ -413,13 +433,41 @@ def check_kernels(dev) -> dict:
         record("flash_bwd", (b, s, HEADS, d), err, tol, ms, plain_ms, b_ms, b_by,
                lib_ms, lib_dev, exp_floor(b, s, s))
         torch.cuda.empty_cache()
+    return rows
 
+
+def check_temporal_kernels(dev) -> dict:
+    """Kernels 3, 4, 3r and 4r at every main-path shape (the rectangular ones
+    at 8, 4 and 2 query frames) against their plain versions over the whole
+    batch, two launches of each required to give the same bits, timed
+    beside PyTorch's attention on strided views."""
+    from torch.nn import functional as F
+
+    from motionclone_tpu_torch.ops import temporal_attention as ta
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def same_bits(name, shape, first, fn):
+        again = fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError(f"{name}: two launches differ at {shape}")
+
+    rows = {}
+    record = attention_recorder(rows)
+    for s, d in ATTN_SHAPES:
+        hd = HEADS * d
+        scale = d ** -0.5
         # temporal forward, batch 1 (one CFG half) and 2 (the vanilla pair)
         f = 16
         for b in (1, 2):
             q, k, v = (randn(b, f, s, hd) for _ in range(3))
             out, lse = ta.temporal_fwd(q, k, v, HEADS, scale)
-            torch.cuda.synchronize()
+            same_bits("temporal_fwd", (b, f, s, hd), (out, lse),
+                      lambda: ta.temporal_fwd(q, k, v, HEADS, scale))
             ref_out, ref_lse = ta.temporal_attention_plain(q, k, v, HEADS, scale)
             err, tol = max_err((out,), (ref_out,))
             lse_err = (lse - ref_lse).abs().max().item()
@@ -442,7 +490,8 @@ def check_kernels(dev) -> dict:
         q, k, v, dout = (randn(b, f, s, hd) for _ in range(4))
         _, lse = ta.temporal_fwd(q, k, v, HEADS, scale)
         grads = ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale)
-        torch.cuda.synchronize()
+        same_bits("temporal_bwd", (b, f, s, hd), grads,
+                  lambda: ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale))
         ref = ta.temporal_attention_bwd_plain(q, k, v, dout, HEADS, scale)
         err, tol = max_err(grads, ref)
         ms = time_ms(lambda: ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale), reps=20)
@@ -465,7 +514,10 @@ def check_kernels(dev) -> dict:
                 k, v = randn(b, f, s, hd), randn(b, f, s, hd)
                 out, lse = ta.temporal_fwd_rect(q, k, v, HEADS, scale)
                 grads = ta.temporal_bwd_rect(q, k, v, lse, dout, HEADS, scale)
-                torch.cuda.synchronize()
+                same_bits("temporal_fwd_rect", (b, fq, s, hd), (out, lse),
+                          lambda: ta.temporal_fwd_rect(q, k, v, HEADS, scale))
+                same_bits("temporal_bwd_rect", (b, fq, s, hd), grads,
+                          lambda: ta.temporal_bwd_rect(q, k, v, lse, dout, HEADS, scale))
                 ref_out, ref_lse = ta.temporal_attention_plain(q, k, v, HEADS, scale)
                 err, tol = max_err((out,), (ref_out,))
                 lse_err = (lse - ref_lse).abs().max().item()
@@ -501,6 +553,24 @@ def check_kernels(dev) -> dict:
                 record("temporal_bwd_rect", (b, fq, s, hd), err, tol, ms, plain_ms, b_ms,
                        b_by, lib_ms, lib_dev)
         torch.cuda.empty_cache()
+
+    # off the main path: a width the 160-channel tiles do not divide (6
+    # heads of 40: a tile of 4 heads, then one of 2)
+    for fq in (16, 8):
+        q, dout = randn(1, fq, 64, 240), randn(1, fq, 64, 240)
+        k, v = randn(1, 16, 64, 240), randn(1, 16, 64, 240)
+        rect = "_rect" if fq != 16 else ""
+        out, lse = getattr(ta, "temporal_fwd" + rect)(q, k, v, 6, 40 ** -0.5)
+        grads = getattr(ta, "temporal_bwd" + rect)(q, k, v, lse, dout, 6, 40 ** -0.5)
+        ref_out, ref_lse = ta.temporal_attention_plain(q, k, v, 6, 40 ** -0.5)
+        errs = [max_err((out,), (ref_out,)),
+                max_err(grads, ta.temporal_attention_bwd_plain(q, k, v, dout, 6, 40 ** -0.5))]
+        lse_err = (lse - ref_lse).abs().max().item()
+        log(f"kernel temporal_fwd{rect}/bwd{rect} shape={(1, fq, 64, 240)} (6 heads of 40) "
+            f"max_abs_err={errs[0][0]:.3e}/{errs[1][0]:.3e} tol={errs[0][1]:.3e}/"
+            f"{errs[1][1]:.3e} lse_err={lse_err:.3e}")
+        if any(e > t for e, t in errs) or lse_err > 1e-2:
+            raise AssertionError(f"temporal{rect} at 6 heads of 40: {errs}, lse {lse_err}")
     return rows
 
 
@@ -1473,6 +1543,36 @@ def log_product_resources(build_log: str, lib) -> None:
             name = None
 
 
+def log_temporal_resources(build_log: str, lib) -> None:
+    """Registers per thread, spills (ptxas), warps and dynamic shared memory
+    per block of each instantiation of the temporal attention kernel
+    (kernels 3, 4, 3r and 4r) in temporal_attention.cu; kernel 7's source,
+    fused_temporal.cu, compiles the same forwards."""
+    import re
+
+    from motionclone_tpu_torch.ops import temporal_attention as ta
+
+    section, name, spills = "", None, "spills not reported"
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            section = line[3:].strip()
+        m = re.search(r"temporal_kernelILi(\d+)ELi(\d+)ELb([01])E", line)
+        if m and "Compiling entry function" in line and section == "temporal_attention.cu":
+            name = m.groups()
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            d, fq, bwd = name
+            smem = lib.mc_temporal_smem(int(d), int(fq), int(bwd))
+            warps = ta.warps_per_block(int(d), int(fq), bwd == "1")
+            log(f"  temporal resources {section} {'bwd' if bwd == '1' else 'fwd'}"
+                f"<D={d}, FQ={fq}>: {m.group(1)} registers, {spills}, {warps} warps and "
+                f"{smem} bytes shared memory per block")
+            name, spills = None, "spills not reported"
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from motionclone_tpu_torch.ops import flash_attention as fa
@@ -1530,6 +1630,7 @@ def main() -> int:
                 log("  ptxas " + line.strip())
         log_flash_resources(kbuild.build_info["log"], kbuild.load_library())
         log_product_resources(kbuild.build_info["log"], kbuild.load_library())
+        log_temporal_resources(kbuild.build_info["log"], kbuild.load_library())
 
     wrappers = kernel_wrappers()
     if args.sharded_only:

@@ -202,6 +202,18 @@ __device__ __forceinline__ void wg_bar(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
+// bulk asynchronous copy of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from global to shared memory, completing on the barrier
+// (the temporal attention kernels' row runs, temporal_attention.cuh)
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"((uint32_t)__cvta_generic_to_shared(smem)),
+      "l"(gmem), "r"(bytes), "r"((uint32_t)__cvta_generic_to_shared(bar))
+      : "memory");
+}
+
 // bulk asynchronous copy of `bytes` (a multiple of 16) from shared to
 // global memory, in this thread's bulk group
 __device__ __forceinline__ void bulk_store(void* gmem, const void* smem, int bytes) {

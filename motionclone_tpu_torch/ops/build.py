@@ -41,6 +41,7 @@ SIGNATURES = {
     "mc_flash_smem": (_I, _I),
     "mc_temporal_fwd": (_P,) * 5 + (_I,) * 6 + (_F, _P),
     "mc_temporal_bwd": (_P,) * 8 + (_I,) * 6 + (_F, _P),
+    "mc_temporal_smem": (_I, _I, _I),
     # the fused modules: (pointer array, int array of dims, eps, stream)
     "mc_fused_resnet_block": (_P, _P, _F, _P),
     "mc_fused_temporal_module": (_P, _P, _F, _P),

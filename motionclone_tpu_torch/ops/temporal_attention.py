@@ -15,14 +15,16 @@ from ``temporal_attention`` there, whose k/v may carry more frames than q.
 
 The motion module runs thousands of tiny FQ x FK attentions, one per pixel
 and head.  On the H100 that is bound by memory (8 flops per byte at
-FQ = FK = 16), so the kernels read q/k/v (and dO) once in their natural
-layout through shared memory and write each output once; the small
-products run on the CUDA cores in f32.  The TPU kernel's block-diagonal
-packing with a cross-pixel mask exists only to fill a 128-wide MXU and is
-not carried over.  The saved log-sum-exp has the port's layout
-(B, S, heads, FQ): one contiguous FQ-vector per (pixel, head).  The backward
-recomputes P from it and forms delta = sum_j P_ij dP_ij without re-reading
-the forward's output.
+FQ = FK = 16).  The kernels stream tiles of (b, one pixel, 160 channels of
+whole heads) through a per-warp ring of bulk asynchronous copies, run the
+16 x 16 products on the tensor cores (``mma.sync``) and write each output
+once; :func:`tile_plan` mirrors their tiles and row runs.  The TPU kernel's
+block-diagonal packing with a cross-pixel mask exists only to fill a
+128-wide MXU and is not carried over.  The forward rounds P to bf16 before
+P @ V, as the TPU kernel does; the plain version rounds at the same point.
+The saved log-sum-exp has the port's layout (B, S, heads, FQ): one
+contiguous FQ-vector per (pixel, head).  The backward recomputes P from it
+and forms delta = sum_j P_ij dP_ij without re-reading the forward's output.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise.  There is no fallback from one to the other.  The square
@@ -31,8 +33,9 @@ and rectangular wrappers count their launches apart.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from motionclone_tpu_torch.ops.build import check, load_library
@@ -51,8 +54,11 @@ def temporal_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, FQ, S, heads*D), k and v (B, FK, S, heads*D) -> (out
-    (B, FQ, S, heads*D) in q's dtype, lse (B, S, heads, FQ) f32); f32 math,
-    differentiable by autograd."""
+    (B, FQ, S, heads*D) in q's dtype, lse (B, S, heads, FQ) f32); f32 math
+    with the probabilities rounded to q's dtype before P @ V (the kernels'
+    and the TPU kernel's rounding point; a no-op in f32), differentiable by
+    autograd, whose gradient passes the rounding unchanged, so the backward
+    stays in f32 math."""
     b, f, s, hd = q.shape
     fk = k.shape[1]
     d = hd // heads
@@ -62,6 +68,7 @@ def temporal_attention_plain(
     logits = torch.einsum("bfshd,bgshd->bshfg", qs, ks) * scale
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
+    probs = probs + (probs.to(q.dtype).float() - probs).detach()
     out = torch.einsum("bshfg,bgshd->bfshd", probs, vs).reshape(b, f, s, hd)
     return out.to(q.dtype), lse
 
@@ -76,6 +83,81 @@ def temporal_attention_bwd_plain(
         qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
         out, _ = temporal_attention_plain(qq, kk, vv, heads, scale)
         return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' tile plan (csrc/temporal_attention.cuh), mirrored on the CPU
+# ---------------------------------------------------------------------------
+
+TILE_CHANNELS = 160  # channels of a tile: 4 heads at D = 40, 2 at 80, 1 at 160
+TILE_PIXELS = 1      # pixels of a tile
+RING_STAGES = 2      # stages of a warp's ring
+ROW_PITCH = 2 * TILE_CHANNELS + 16  # bytes between a tile's rows in shared memory
+MAX_SMEM = 232448    # dynamic shared memory of a block
+
+
+def warps_per_block(d: int, q_frames: int, backward: bool) -> int:
+    """Warps of a block (``Plan::NW``): as many rings of the tile's rows
+    (q, k, v and, backward, dO) and their barriers as shared memory holds,
+    at most 16."""
+    rows = (2 * q_frames if backward else q_frames) + 2 * KERNEL_FRAMES
+    warp_bytes = RING_STAGES * (TILE_PIXELS * rows * ROW_PITCH + 8)
+    return min(16, MAX_SMEM // warp_bytes)
+
+
+def tile_plan(batch: int, q_frames: int, pixels: int, heads: int, d: int,
+              backward: bool = False, sms: int = 132) -> Dict[str, object]:
+    """The tiles of kernel 3/3r (forward) or 4/4r (backward) over q of
+    (batch, q_frames, pixels, heads*d), as the kernel walks them.
+
+    Returns numpy int64 arrays:
+      ``tiles``  (T, 5): b, first pixel, pixel end, first channel, channel
+                 end: the channels are ``TILE_CHANNELS // d`` whole heads
+                 (fewer in a last slice);
+      ``warp``, ``iteration`` (T,): the warp of the grid (block·NW + warp
+                 in block) that takes the tile, and at which step of its walk;
+      ``loads`` and ``stores``: tensor name -> (N, 6): tile, b, frame,
+                 pixel, first channel, channel end: one bulk copy of a row
+                 run each (loads q, k, v and, backward, dout; stores out,
+                 or dq, dk, dv);
+      ``lse``    (N, 5): tile, b, pixel, first head, head end: the FQ-vectors
+                 of lse a tile writes (forward) or reads (backward);
+      ``grid``   (blocks, warps per block).
+    """
+    fk = KERNEL_FRAMES
+    hs = TILE_CHANNELS // d
+    ns = -(-heads // hs)
+    sg = -(-pixels // TILE_PIXELS)
+    t = np.arange(batch * sg * ns, dtype=np.int64)
+    sl, u = t % ns, t // ns
+    b = u // sg
+    s0 = (u % sg) * TILE_PIXELS
+    s1 = np.minimum(s0 + TILE_PIXELS, pixels)
+    h0 = sl * hs
+    h1 = np.minimum(h0 + hs, heads)
+    tiles = np.stack([b, s0, s1, h0 * d, h1 * d], axis=1)
+    nw = warps_per_block(d, q_frames, backward)
+    blocks = min(sms, -(-len(t) // nw))
+    # (tile, pixel) pairs, then each pair's runs of a tensor's frames
+    npix = s1 - s0
+    tp = np.repeat(t, npix)
+    px = np.repeat(s0, npix) + np.arange(len(tp)) - np.repeat(np.cumsum(npix) - npix, npix)
+
+    def runs(frames: int) -> np.ndarray:
+        n = len(tp)
+        tile = np.repeat(tp, frames)
+        frame = np.tile(np.arange(frames), n)
+        return np.stack([tile, b[tile], frame, np.repeat(px, frames),
+                         tiles[tile, 3], tiles[tile, 4]], axis=1)
+
+    q_side = ("q", "dout") if backward else ("q",)
+    loads = {name: runs(q_frames) for name in q_side}
+    loads.update(k=runs(fk), v=runs(fk))
+    stores = ({"dq": runs(q_frames), "dk": runs(fk), "dv": runs(fk)} if backward
+              else {"out": runs(q_frames)})
+    lse = np.stack([tp, b[tp], px, h0[tp], h1[tp]], axis=1)
+    return dict(tiles=tiles, warp=t % (blocks * nw), iteration=t // (blocks * nw),
+                loads=loads, stores=stores, lse=lse, grid=(blocks, nw))
 
 
 # ---------------------------------------------------------------------------
