@@ -68,6 +68,22 @@ Phase 6  frame sharding: the main path of phase 3 (VAE decode on rank 0)
          control.  ``--sharded-only`` runs phases 0, 1 and 6 (with the
          unsharded run it compares with) and prints no kernels line.
 
+Phase 7  the t2v CLI: the port's ``cli.t2v_main`` on the card, as a user runs
+         it, from a model directory written to a temporary directory: phase
+         3's seeded random weights at SD1.5 + AnimateDiff v3 width saved in
+         bf16 (diffusers-layout UNet without motion modules, a motion-module
+         .ckpt with pos_encoder buffers, VAE, CLIP with Hugging Face keys),
+         SD1.5's config.json files, a byte-level tokenizer, the repo's
+         model_config.yaml and configs/t2v_camera.yaml with only its asset
+         paths changed (100 steps, 50 guided), and a 16-frame 512x512
+         reference clip as an mp4 (without cv2, the codec is stubbed in
+         memory and a line says so).  Every loaded parameter must equal what
+         was saved bit for bit, kernels 1, 2, 3, 4, 5, 7 and 8 must launch,
+         the output must be 16 x 512 x 512 x 3 uint8, not constant, with the
+         reference's name, and the motion representation's .npz must carry
+         its meta; a second run must reuse it.  Prints the phase times, peak
+         memory and seconds per video beside the card's name and power limit.
+
 The line before the last is the kernels JSON; the last line is the result
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.  On its way out, whatever the outcome,
@@ -1057,21 +1073,10 @@ def drive(pipe, ids, video, wrappers, decode: bool = True) -> dict:
                 peak_gb=peak_gb)
 
 
-def initial_latents(pipe, seed: int):
-    """The whole video's noise that ``sample_latents`` draws from ``seed``."""
-    cfg = pipe.infer_cfg
-    shape = (1, cfg.video_length, cfg.height // 8, cfg.width // 8, pipe.unet_cfg.in_channels)
-    gen = torch.Generator(device=pipe.device).manual_seed(seed)
-    return torch.randn(shape, generator=gen, device=pipe.device).to(pipe.dtype)
-
-
 def first_guided_loss(pipe, run) -> float:
     """The guidance loss of the first guided step from the sampling noise
     (the ranks' partials summed where the pipeline is sharded)."""
-    group = pipe.fns.frame_group
-    lat = initial_latents(pipe, seed=3)
-    if group is not None:
-        lat = group.local_frames(lat)
+    lat = pipe.initial_latents(seed=3)  # the rank's frames where sharded
     t, tp = (int(x) for x in pipe.fns.timesteps[:2])
     _, loss = pipe.fns.guided_step(lat, t, tp, 1.0, run["uncond"], run["cond"], run["rep"])
     return float(loss)
@@ -1090,8 +1095,10 @@ def rounding_control(pipe, ids, video, wrappers, run) -> dict:
     ctrl = drive(flash, ids, video, wrappers, decode=False)
     with torch.no_grad():
         lat = pipe.encode_video(video, seed=1).to(pipe.dtype)
-    gen = torch.Generator(device=pipe.device).manual_seed(2)  # extraction's noise
-    noise = torch.randn(lat.shape, generator=gen, device=pipe.device).to(pipe.dtype)
+    from motionclone_tpu_torch.utils import rng
+
+    # extraction's noise, as extract_motion_representation draws it from seed 2
+    noise = rng.draw_normal(lat.shape, 2, rng.EXTRACT_NOISE, pipe.device).to(pipe.dtype)
     two = lambda x: torch.cat([x, x])
     rep2 = pipe.fns.extract(two(lat), two(noise), two(run["uncond"]))
     return dict(latents=ctrl["full"].float().cpu(),
@@ -1466,6 +1473,258 @@ def check_agreement(got, reference) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the t2v CLI at SD1.5 width, from a model directory on disk
+# ---------------------------------------------------------------------------
+
+# the fused path's kernels, each of which the CLI run must launch: 1, 2, 3,
+# 4, 5, 7 and 8 (6 is the linear-projection models', 3r/4r the sharded path's)
+CLI_KERNELS = ("flash_fwd", "flash_bwd", "temporal_fwd", "temporal_bwd",
+               "fused_spatial_transformer", "fused_temporal_module", "fused_resnet_block")
+
+
+def diffusers_configs(unet_cfg, vae_cfg, clip_cfg) -> dict:
+    """The config.json of each subfolder, in diffusers' and transformers'
+    field names, for the given topologies (2D block classes, as a
+    Stable Diffusion checkpoint names them)."""
+    to_2d = lambda names: [n.replace("3D", "2D") for n in names]
+    return {
+        "unet": {"_class_name": "UNet2DConditionModel", "in_channels": unet_cfg.in_channels,
+                 "out_channels": unet_cfg.out_channels,
+                 "flip_sin_to_cos": unet_cfg.flip_sin_to_cos, "freq_shift": unet_cfg.freq_shift,
+                 "down_block_types": to_2d(unet_cfg.down_block_types),
+                 "up_block_types": to_2d(unet_cfg.up_block_types),
+                 "block_out_channels": list(unet_cfg.block_out_channels),
+                 "layers_per_block": unet_cfg.layers_per_block,
+                 "norm_num_groups": unet_cfg.norm_num_groups,
+                 "cross_attention_dim": unet_cfg.cross_attention_dim,
+                 "attention_head_dim": unet_cfg.attention_head_dim},
+        "vae": {"_class_name": "AutoencoderKL", "in_channels": vae_cfg.in_channels,
+                "out_channels": vae_cfg.out_channels, "latent_channels": vae_cfg.latent_channels,
+                "block_out_channels": list(vae_cfg.block_out_channels),
+                "layers_per_block": vae_cfg.layers_per_block,
+                "norm_num_groups": vae_cfg.norm_num_groups,
+                "scaling_factor": vae_cfg.scaling_factor},
+        "text_encoder": {"architectures": ["CLIPTextModel"], "vocab_size": clip_cfg.vocab_size,
+                         "hidden_size": clip_cfg.hidden_size,
+                         "intermediate_size": clip_cfg.intermediate_size,
+                         "num_hidden_layers": clip_cfg.num_layers,
+                         "num_attention_heads": clip_cfg.num_heads,
+                         "max_position_embeddings": clip_cfg.max_position_embeddings,
+                         "hidden_act": clip_cfg.hidden_act,
+                         "layer_norm_eps": clip_cfg.layer_norm_eps},
+    }
+
+
+def sd15_configs():
+    """SD1.5 + AnimateDiff v3: the UNet3D, the SD VAE and CLIP ViT-L/14."""
+    from motionclone_tpu_torch.config import UNet3DConfig
+    from motionclone_tpu_torch.models.clip_text import CLIPTextConfig
+    from motionclone_tpu_torch.models.vae import VAEConfig
+
+    return UNet3DConfig(), VAEConfig(), CLIPTextConfig()
+
+
+def write_model_dir(root: str, dev, cfgs) -> dict:
+    """A model directory for the topologies ``cfgs`` (UNet3D, VAE, CLIP;
+    phase 7 takes SD1.5 + AnimateDiff v3's) with seeded random weights (at
+    SD1.5 width, phase 3's), saved in bf16 with torch.save: ``sd/unet`` (no
+    motion modules), ``mm.ckpt`` (the motion modules, with the
+    ``pos_encoder.pe`` buffers real ones carry), ``sd/vae``,
+    ``sd/text_encoder`` (Hugging Face keys and the ``position_ids``
+    buffer), their config.json files, a byte-level tokenizer (ids inside
+    CLIP's 49408), ``model_config.yaml`` (the repo's) and ``t2v.yaml``
+    (configs/t2v_camera.yaml with only the asset paths changed).  Returns
+    the saved state dicts (CPU, bf16) by module, for the load check."""
+    from motionclone_tpu_torch.io.tokenizer import BOS, EOS, bytes_to_unicode
+    from motionclone_tpu_torch.models.clip_text import CLIPTextModel
+    from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
+    from motionclone_tpu_torch.models.vae import AutoencoderKL
+
+    gen = torch.Generator(device=dev).manual_seed(1234)  # phase 3's weights
+    saved = {}
+    for name, cls, cfg in zip(("unet", "vae", "text_encoder"),
+                              (UNet3DConditionModel, AutoencoderKL, CLIPTextModel), cfgs):
+        model = build_model(cls, cfg, dev, gen, torch.bfloat16)
+        saved[name] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model
+    torch.cuda.empty_cache()
+    sd = os.path.join(root, "sd")
+    unet = saved["unet"]
+    mm = {k: v for k, v in unet.items() if "motion_modules." in k}
+    for key, w in list(mm.items()):  # one table per temporal attention
+        if key.endswith(".to_q.weight"):
+            prefix = key[: -len("to_q.weight")]
+            mm[prefix + "pos_encoder.pe"] = torch.zeros(1, 24, w.shape[0], dtype=torch.bfloat16)
+    clip = dict(saved["text_encoder"])
+    clip["text_model.embeddings.position_ids"] = torch.arange(77)[None]
+    configs = diffusers_configs(*cfgs)
+    for sub, state, fname in (
+            ("unet", {k: v for k, v in unet.items() if "motion_modules." not in k},
+             "diffusion_pytorch_model.bin"),
+            ("vae", saved["vae"], "diffusion_pytorch_model.bin"),
+            ("text_encoder", clip, "pytorch_model.bin")):
+        os.makedirs(os.path.join(sd, sub))
+        torch.save(state, os.path.join(sd, sub, fname))
+        with open(os.path.join(sd, sub, "config.json"), "w") as fh:
+            json.dump(configs[sub], fh)
+    torch.save(mm, os.path.join(root, "mm.ckpt"))
+    os.makedirs(os.path.join(sd, "tokenizer"))
+    units = list(bytes_to_unicode().values())
+    vocab = {t: i for i, t in enumerate(units + [u + "</w>" for u in units] + [BOS, EOS])}
+    with open(os.path.join(sd, "tokenizer", "vocab.json"), "w", encoding="utf-8") as fh:
+        json.dump(vocab, fh, ensure_ascii=False)
+    with open(os.path.join(sd, "tokenizer", "merges.txt"), "w", encoding="utf-8") as fh:
+        fh.write("#version: 0.2\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "model_config", "model_config.yaml")) as fh:
+        model_config = fh.read()
+    with open(os.path.join(root, "model_config.yaml"), "w") as fh:
+        fh.write(model_config)
+    assets = {"motion_module": "mm.ckpt", "dreambooth_path": "", "model_config":
+              "model_config.yaml"}
+    lines = []
+    with open(os.path.join(here, "configs", "t2v_camera.yaml")) as fh:
+        for line in fh:
+            key = line.split(":", 1)[0]
+            lines.append(f'{key}: "{assets[key]}"\n' if key in assets else line)
+    with open(os.path.join(root, "t2v.yaml"), "w") as fh:
+        fh.writelines(lines)
+    return saved
+
+
+def reference_clip(frames: int, side: int):
+    """``frames`` frames of side x side RGB uint8: a seeded noise texture
+    that slides 8 pixels right and 4 down per frame (a camera pan)."""
+    import numpy as np
+
+    tex = np.random.default_rng(7).integers(0, 256, size=(side + 8 * frames,) * 2 + (3,),
+                                            dtype=np.uint8)
+    return np.stack([tex[4 * i:4 * i + side, 8 * i:8 * i + side] for i in range(frames)])
+
+
+def check_loaded(rt, saved: dict) -> None:
+    """Every parameter the CLI's runtime loaded equals what was saved, bit
+    for bit in bf16."""
+    pipe = rt.pipeline
+    for name, module in (("unet", pipe.unet), ("vae", pipe.vae),
+                         ("text_encoder", pipe.text_encoder)):
+        got = module.state_dict()
+        if sorted(got) != sorted(saved[name]):
+            raise AssertionError(f"t2v CLI: the loaded {name} has other keys than were saved")
+        for k, v in saved[name].items():
+            g = got[k]
+            if g.dtype != torch.bfloat16 or not torch.equal(g.cpu().view(torch.int16),
+                                                            v.view(torch.int16)):
+                raise AssertionError(f"t2v CLI: loaded {name} {k} differs from what was saved")
+
+
+def t2v_cli(dev, wrappers, card: str) -> None:
+    """Phase 7: the port's ``cli.t2v_main`` on ``dev``, from a model
+    directory written to a temporary directory at SD1.5 + AnimateDiff v3
+    width, on a reference clip of 16 frames of 512 x 512; then again, which
+    must reuse the cached motion representation."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    from motionclone_tpu_torch import cli
+    from motionclone_tpu_torch.diffusion.guidance import load_motion_representation_meta
+    from motionclone_tpu_torch.io import video as video_io
+    from motionclone_tpu_torch.pipeline import runner
+
+    side, frames = 512, 16
+    clip = reference_clip(frames, side)
+    stubbed = None
+    if importlib.util.find_spec("cv2") is None:
+        stubbed = {}
+        log("video codec: cv2 absent on this machine; decode/write stubbed")
+        video_io.read_video_frames = lambda path: (clip, 8.0)
+        runner.write_video = lambda path, video, fps=8: stubbed.__setitem__(path, video)
+    with tempfile.TemporaryDirectory(prefix="t2v_cli_") as root:
+        t0 = time.perf_counter()
+        saved = write_model_dir(root, dev, sd15_configs())
+        write_s = time.perf_counter() - t0
+        if stubbed is None:
+            video_io.write_video(os.path.join(root, "reference.mp4"), clip, fps=8)
+        with open(os.path.join(root, "examples.jsonl"), "w") as fh:
+            fh.write(json.dumps({"video_path": "reference.mp4",
+                                 "new_prompt": "Relics on the seabed", "seed": 42}) + "\n")
+        argv = ["--pretrained-model-path", os.path.join(root, "sd"),
+                "--inference_config", os.path.join(root, "t2v.yaml"),
+                "--examples", os.path.join(root, "examples.jsonl"),
+                "--motion-representation-save-dir", os.path.join(root, "reps"),
+                "--generated-videos-save-dir", os.path.join(root, "out"),
+                "--config-root", root, "--device", str(dev),
+                "--W", str(side), "--H", str(side), "--L", str(frames)]
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rt, paths = cli.t2v_main(argv)
+        torch.cuda.synchronize()
+        video_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {n: wrappers[n].launches for n in CLI_KERNELS}
+        cfg, timings = rt.infer_cfg, rt.timings
+        log(f"t2v CLI: schedule {cfg.inference_steps} steps, {cfg.guidance_steps} guided "
+            f"(configs/t2v_camera.yaml's), {side}x{side}x{frames}, bf16, random weights")
+        g, v = cfg.guidance_steps, cfg.inference_steps - cfg.guidance_steps
+        for name, n in launches.items():
+            ext, per_g, per_v = PREDICTED_LAUNCHES[name]
+            want = ext + g * per_g + v * per_v
+            log(f"t2v CLI launches {name:25s} measured {n:5d} predicted {want:5d}"
+                f"{'' if n == want else '  DIFFERS'}")
+        missing = [n for n, c in launches.items() if c <= 0]
+        if missing:
+            raise AssertionError(f"t2v CLI: kernels never launched: {missing}")
+        check_loaded(rt, saved)
+        del saved
+        name = "reference_" + (("Relics on the seabed" + cfg.positive_prompt).strip()
+                               .replace(" ", "_")) + "42_42.mp4"
+        if paths != [os.path.join(root, "out", name)]:
+            raise AssertionError(f"t2v CLI wrote {paths}, not {name}")
+        out = stubbed[paths[0]] if stubbed is not None else video_io.read_video_frames(
+            paths[0])[0]
+        if (out.shape != (frames, side, side, 3) or out.dtype.name != "uint8"
+                or int(out.max()) == 0 or int(out.min()) == int(out.max())):
+            raise AssertionError(f"t2v CLI output {out.shape} {out.dtype} is constant, "
+                                 f"all zero or of another shape")
+        rep_path = os.path.join(root, "reps", "reference.npz")
+        if load_motion_representation_meta(rep_path) != runner.motion_rep_meta(cfg, 42):
+            raise AssertionError("t2v CLI: the motion representation's meta is missing or wrong")
+        median = lambda ms: sorted(ms)[len(ms) // 2]
+        g, v = timings["guided_ms"], timings["vanilla_ms"]  # ms per step
+        for line in (
+                f"weights written in {write_s:.1f} s, loaded in {rt.load_seconds:.1f} s",
+                f"tokenizer + CLIP {timings['text']:.3f} s",
+                f"extraction {timings['extract']:.2f} s",
+                f"sampling {timings['sample']:.2f} s: ms per guided step median "
+                f"{median(g):.1f} (min {min(g):.1f}, max {max(g):.1f}, {len(g)} steps), "
+                f"per vanilla step median {median(v):.1f} (min {min(v):.1f}, "
+                f"max {max(v):.1f}, {len(v)} steps)",
+                f"decode + write {timings['decode_write']:.2f} s",
+                f"peak device memory {peak_gb:.2f} GB",
+                f"seconds per video from the CLI: {video_s:.1f} (weights load included), "
+                f"{video_s - rt.load_seconds:.1f} (excluded)"):
+            log(f"t2v CLI {line} [{card}]")
+        del rt
+        torch.cuda.empty_cache()
+
+        second = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(second):
+            cli.t2v_main(argv)
+        reuse = [ln for ln in second.getvalue().splitlines() if "motion representation" in ln]
+        log(f"t2v CLI second run: {time.perf_counter() - t0:.1f} s; " + "; ".join(reuse))
+        if not any("reused from" in ln and rep_path in ln for ln in reuse):
+            raise AssertionError("t2v CLI: the second run did not reuse the cached "
+                                 "motion representation")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1668,6 +1927,11 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded = sharded_path(dev, reference, args.shards, args.backend)
     log(f"phase sharded path: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # phase 7: the t2v CLI from a model directory on disk
+    t0 = time.perf_counter()
+    t2v_cli(dev, wrappers, card)
+    log(f"phase t2v CLI: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,0 +1,135 @@
+"""Command line of the port: ``python3 -m motionclone_tpu_torch.cli`` runs
+:func:`t2v_main`.
+
+Port of the t2v part of ``motionclone_tpu/cli.py``, with the same flags and
+defaults and one more, ``--device`` (``cuda`` by default; ``cpu`` runs the
+kernels' plain PyTorch versions).  Flags of the JAX package that the port
+does not have yet still parse: ``--frame-shard``, ``--frame-shard-mode``,
+``--cfg-pair``, ``--approx``, ``--resume`` and ``--weights-cache`` exit with
+a message naming their ``ROADMAP.md`` item when given another value than
+the default.  ``--attention-impl xla|chunked`` and ``--without-xformers``
+select the port's unfused ("flash") path and say so; ``--visible_gpu`` and
+``--compile-cache`` are accepted and print that they do nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Optional, Sequence
+
+import torch
+
+from motionclone_tpu_torch.config import load_examples, load_inference_config
+from motionclone_tpu_torch.pipeline.runner import MotionCloneRuntime
+
+# flag -> (its default, why the port refuses another value)
+UNPORTED = {
+    "frame_shard": (0, "frame sharding from the CLI (torchrun, one rank per GPU) is "
+                       "ROADMAP.md queue 1 item 7; parallel/frames.py has the library path"),
+    "frame_shard_mode": ("shardmap", "the GSPMD frame-sharding flavour is not ported "
+                                     "(ROADMAP.md queue 1, 'Do not port')"),
+    "cfg_pair": (False, "the cfg mesh axis is ROADMAP.md queue 1 item 7"),
+    "approx": ("", "the approx caches are ROADMAP.md queue 1 item 5"),
+    "resume": (False, "per-chunk resume is ROADMAP.md queue 1 item 6"),
+    "weights_cache": ("", "the converted-weights cache is ROADMAP.md queue 1 item 6"),
+}
+
+
+def build_parser(default_config: str, default_examples: str) -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="MotionClone text-to-video (PyTorch port)")
+    parser.add_argument("--pretrained-model-path", type=str, default="models/StableDiffusion")
+    parser.add_argument("--inference_config", type=str, default=default_config)
+    parser.add_argument("--examples", type=str, default=default_examples)
+    parser.add_argument("--motion-representation-save-dir", type=str,
+                        default="motion_representation/")
+    parser.add_argument("--generated-videos-save-dir", type=str, default="generated_videos")
+    parser.add_argument("--default-seed", type=int, default=2025)
+    parser.add_argument("--L", type=int, default=16)
+    parser.add_argument("--W", type=int, default=512)
+    parser.add_argument("--H", type=int, default=512)
+    parser.add_argument("--config-root", type=str, default=".")
+    parser.add_argument("--float32", action="store_true")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="where the pipeline runs: cuda (default) or cpu")
+    parser.add_argument("--visible_gpu", type=str, default=None,
+                        help="accepted for compatibility; does nothing (select the "
+                             "card with CUDA_VISIBLE_DEVICES or --device cuda:N)")
+    parser.add_argument("--without-xformers", action="store_true",
+                        help="alias of --attention-impl flash (the unfused path)")
+    parser.add_argument("--attention-impl", type=str, default="auto",
+                        choices=["auto", "xla", "chunked", "flash", "fused"],
+                        help="auto: fused kernels on CUDA, unfused on the CPU; "
+                             "flash: unfused (attention kernels only); fused; "
+                             "xla and chunked select flash")
+    parser.add_argument("--resume", action="store_true", help="not ported yet")
+    parser.add_argument("--frame-shard", type=int, default=0, metavar="N",
+                        help="not ported yet")
+    parser.add_argument("--frame-shard-mode", type=str, default="shardmap",
+                        choices=["shardmap", "gspmd"], help="not ported")
+    parser.add_argument("--cfg-pair", action="store_true", help="not ported yet")
+    parser.add_argument("--approx", type=str, default="", metavar="MODE[:K]",
+                        help="not ported yet")
+    parser.add_argument("--compile-cache", type=str, default="", metavar="DIR",
+                        help="accepted for compatibility; does nothing")
+    parser.add_argument("--weights-cache", type=str, default="", metavar="DIR",
+                        help="not ported yet")
+    return parser
+
+
+def _setup(args) -> MotionCloneRuntime:
+    for flag, (default, why) in UNPORTED.items():
+        if getattr(args, flag) != default:
+            raise SystemExit(f"--{flag.replace('_', '-')} is not available in the PyTorch "
+                             f"port: {why}")
+    if args.visible_gpu:
+        print("--visible_gpu does nothing here; select the card with "
+              "CUDA_VISIBLE_DEVICES or --device cuda:N")
+    if args.compile_cache:
+        print("--compile-cache does nothing here: the port compiles its CUDA kernels "
+              "once per process")
+    if args.without_xformers:
+        args.attention_impl = "xla"
+    if args.attention_impl in ("xla", "chunked"):
+        print(f"--attention-impl {args.attention_impl}: running the port's unfused "
+              f"path (flash)")
+        args.attention_impl = "flash"
+    cfg = load_inference_config(args.inference_config, width=args.W, height=args.H,
+                                video_length=args.L)
+    os.makedirs(args.generated_videos_save_dir, exist_ok=True)
+    with open(os.path.join(args.generated_videos_save_dir, "inference_config.json"), "w") as f:
+        json.dump({k: str(v) for k, v in vars(cfg).items()}, f, indent=2)
+    return MotionCloneRuntime(
+        args.pretrained_model_path, cfg, device=args.device,
+        dtype=torch.float32 if args.float32 else torch.bfloat16,
+        attention_impl=args.attention_impl, config_root=args.config_root,
+    )
+
+
+def run_serial(args):
+    """Every example of ``args.examples`` in turn; returns the runtime and
+    the mp4 paths."""
+    runtime = _setup(args)
+    paths = []
+    for example in load_examples(args.examples):
+        out_path = runtime.run_example(
+            example,
+            motion_rep_dir=args.motion_representation_save_dir,
+            output_dir=args.generated_videos_save_dir,
+            default_seed=args.default_seed,
+            config_root=args.config_root,
+        )
+        print(out_path, "is done")
+        paths.append(out_path)
+    return runtime, paths
+
+
+def t2v_main(argv: Optional[Sequence[str]] = None):
+    """The t2v CLI; returns (runtime, mp4 paths)."""
+    args = build_parser("configs/t2v_camera.yaml", "configs/t2v_camera.jsonl").parse_args(argv)
+    return run_serial(args)
+
+
+if __name__ == "__main__":
+    t2v_main()

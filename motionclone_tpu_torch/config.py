@@ -1,14 +1,18 @@
 """Typed, frozen configuration of the PyTorch port.
 
 The port's own copy of the topology, schedule and workload dataclasses of
-``motionclone_tpu/config.py`` (same fields, same defaults), plus the tiny test
-topologies.  YAML/JSONL loading is not ported yet.
+``motionclone_tpu/config.py`` (same fields, same defaults), their loaders
+from the reference-format YAML and JSONL files (YAML through the port's own
+``io/yaml_subset.py``), plus the tiny test topologies.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import json
+from typing import Any, Mapping, Optional, Tuple
+
+from motionclone_tpu_torch.io import yaml_subset
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +28,14 @@ class MotionModuleConfig:
     temporal_attention_dim_div: int = 1
     zero_initialize: bool = True
     norm_num_groups: int = 32
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "MotionModuleConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: v for k, v in d.items() if k in known}
+        if "attention_block_types" in kwargs:
+            kwargs["attention_block_types"] = tuple(kwargs["attention_block_types"])
+        return cls(**kwargs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +81,23 @@ class UNet3DConfig:
     def num_heads(self) -> int:
         return self.attention_head_dim
 
+    @classmethod
+    def from_unet_additional_kwargs(
+        cls, d: Mapping[str, Any], **overrides: Any
+    ) -> "UNet3DConfig":
+        """Build from the YAML ``unet_additional_kwargs`` block."""
+        kwargs: dict = {}
+        for key in ("use_inflated_groupnorm", "use_motion_module",
+                    "motion_module_mid_block", "motion_module_decoder_only"):
+            if key in d:
+                kwargs[key] = bool(d[key])
+        if "motion_module_resolutions" in d:
+            kwargs["motion_module_resolutions"] = tuple(d["motion_module_resolutions"])
+        if "motion_module_kwargs" in d:
+            kwargs["motion_module"] = MotionModuleConfig.from_dict(d["motion_module_kwargs"])
+        kwargs.update(overrides)
+        return cls(**kwargs)
+
 
 @dataclasses.dataclass(frozen=True)
 class NoiseScheduleConfig:
@@ -86,6 +115,11 @@ class NoiseScheduleConfig:
     thresholding: bool = False
     dynamic_thresholding_ratio: float = 0.995
     sample_max_value: float = 1.0
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "NoiseScheduleConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +167,99 @@ class InferenceConfig:
             )
         if self.height % 8 or self.width % 8:
             raise ValueError("height and width must be divisible by 8")
+
+
+@dataclasses.dataclass(frozen=True)
+class Example:
+    """One JSONL example (configs/t2v_camera.jsonl); the i2v fields are
+    parsed and carried, the t2v runtime does not use them."""
+
+    video_path: str
+    new_prompt: str
+    seed: Optional[int] = None
+    condition_image_paths: Tuple[str, ...] = ()
+    image_index: Tuple[int, ...] = (0,)
+    controlnet_scale: Optional[float] = None
+
+    @classmethod
+    def from_json(cls, d: Mapping[str, Any]) -> "Example":
+        return cls(
+            video_path=d["video_path"],
+            new_prompt=d["new_prompt"],
+            seed=d.get("seed"),
+            condition_image_paths=tuple(d.get("condition_image_paths", ())),
+            image_index=tuple(d.get("image_index", (0,))),
+            controlnet_scale=d.get("controlnet_scale"),
+        )
+
+
+def load_yaml(path: str) -> dict:
+    """A config YAML as a dict (an empty file gives {})."""
+    return yaml_subset.load(path) or {}
+
+
+# (YAML key, InferenceConfig field, cast); both spellings of the positive
+# prompt, the reference's "postive_prompt" first so that the corrected key
+# wins when both are present
+_INFERENCE_KEYS = (
+    ("motion_module", "motion_module", str),
+    ("dreambooth_path", "dreambooth_path", str),
+    ("model_config", "model_config", str),
+    ("cfg_scale", "cfg_scale", float),
+    ("negative_prompt", "negative_prompt", str),
+    ("postive_prompt", "positive_prompt", str),
+    ("positive_prompt", "positive_prompt", str),
+    ("inference_steps", "inference_steps", int),
+    ("guidance_scale", "guidance_fraction", float),
+    ("guidance_steps", "guidance_steps", int),
+    ("warm_up_steps", "warm_up_steps", int),
+    ("cool_up_steps", "cool_up_steps", int),
+    ("motion_guidance_weight", "motion_guidance_weight", float),
+    ("motion_guidance_blocks", "motion_guidance_blocks", tuple),
+    ("add_noise_step", "add_noise_step", int),
+    ("W", "width", int),
+    ("H", "height", int),
+    ("L", "video_length", int),
+    ("controlnet_path", "controlnet_path", str),
+    ("controlnet_config", "controlnet_config", str),
+    ("controlnet_scale", "controlnet_scale", float),
+    ("adapter_lora_path", "adapter_lora_path", str),
+    ("adapter_lora_scale", "adapter_lora_scale", float),
+)
+
+
+def load_inference_config(path: str, **overrides: Any) -> InferenceConfig:
+    """Parse a reference-format workload YAML into an :class:`InferenceConfig`.
+
+    ``overrides`` are fallback defaults: a key present in the YAML wins, as
+    the reference's ``config.get("W", args.W)`` (its YAML size keys override
+    the CLI flags)."""
+    raw = load_yaml(path)
+    kwargs = {field: cast(raw[key]) for key, field, cast in _INFERENCE_KEYS if key in raw}
+    for k, v in overrides.items():
+        kwargs.setdefault(k, v)
+    cfg = InferenceConfig(**kwargs)
+    cfg.validate()
+    return cfg
+
+
+def load_model_config(path: str) -> Tuple[UNet3DConfig, NoiseScheduleConfig]:
+    """Parse a reference-format model-config YAML (model_config.yaml)."""
+    raw = load_yaml(path)
+    unet_cfg = UNet3DConfig.from_unet_additional_kwargs(raw.get("unet_additional_kwargs", {}))
+    sched_cfg = NoiseScheduleConfig.from_dict(raw.get("noise_scheduler_kwargs", {}))
+    return unet_cfg, sched_cfg
+
+
+def load_examples(path: str) -> list:
+    """Parse a reference-format JSONL example stream (blank lines skipped)."""
+    examples = []
+    with open(path, "r") as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                examples.append(Example.from_json(json.loads(line)))
+    return examples
 
 
 def micro_unet_config() -> UNet3DConfig:

@@ -3,12 +3,21 @@
 Port of ``motionclone_tpu/diffusion/guidance.py``.  A motion representation
 maps a module name to ``(values, indices)``: the top-1 probability
 (float32 [..., frames, 1]) and its argmax position (uint8 [..., frames, 1])
-of each row of a temporal-attention probability map [..., frames, frames].
+of each row of a temporal-attention probability map [..., frames, frames],
+keyed by the attention module's dotted name
+(``up_blocks.1.motion_modules.0.temporal_transformer.transformer_blocks.0.attention_blocks.0``).
+
+On disk it is the JAX package's ``.npz`` (``name#values`` f32,
+``name#indices`` u8, an optional ``#meta`` JSON string), so a file written
+by one package loads in the other, or the reference's ``.pt`` payload
+``{name: [values, indices]}`` with (batch * pixels, heads, frames, 1)
+arrays.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+import json
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,3 +77,77 @@ def ramp_scales(
         if cool_up_steps > 0 and i > guidance_steps - cool_up_steps:
             scales[i] *= (guidance_steps - i) / cool_up_steps
     return scales
+
+
+# ---------------------------------------------------------------------------
+# persistence
+# ---------------------------------------------------------------------------
+
+
+def _numpy(x, dtype) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=dtype)
+
+
+def save_motion_representation(
+    path: str,
+    rep: Mapping[str, Tuple[Any, Any]],
+    meta: Optional[Mapping[str, Any]] = None,
+) -> None:
+    """Write {name: (values, indices)} (tensors or arrays) to an ``.npz``,
+    with ``meta`` (the settings it was extracted under) as JSON; a path
+    ending in ``.pt``/``.pth`` gets the reference's torch payload, which
+    carries no meta."""
+    if path.endswith((".pt", ".pth")):
+        payload = {}
+        for name, (values, indices) in rep.items():
+            v, i = _numpy(values, np.float32), _numpy(indices, np.uint8)
+            # (b, s, heads, f, 1) -> the reference's (b * s, heads, f, 1)
+            payload[name] = [torch.from_numpy(v.reshape((-1,) + v.shape[2:]).copy()),
+                             torch.from_numpy(i.reshape((-1,) + i.shape[2:]).copy())]
+        torch.save(payload, path)
+        return
+    flat = {}
+    for name, (values, indices) in rep.items():
+        flat[f"{name}#values"] = _numpy(values, np.float32)
+        flat[f"{name}#indices"] = _numpy(indices, np.uint8)
+    if meta is not None:
+        flat["#meta"] = np.asarray(json.dumps(dict(meta), sort_keys=True))
+    np.savez(path, **flat)
+
+
+def load_motion_representation(path: str) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """{name: (values f32, indices uint8)} CPU tensors from an ``.npz`` or
+    a reference ``.pt``/``.pth``, whose (pixels, heads, frames, 1) arrays
+    (batch 1, as in every reference flow) become (1, pixels, heads,
+    frames, 1)."""
+    rep: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+    if path.endswith((".pt", ".pth")):
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        for name, (values, indices) in payload.items():
+            v, i = values.to(torch.float32), indices.to(torch.uint8)
+            if v.ndim != 4 or v.shape[-1] != 1:
+                raise ValueError(
+                    f"{path}: module {name!r} has shape {tuple(v.shape)}; expected the "
+                    f"reference layout (pixels, heads, frames, 1)")
+            rep[name] = (v[None], i[None])
+        return rep
+    with np.load(path) as data:
+        for key in data.files:
+            if key.endswith("#values"):
+                name = key[: -len("#values")]
+                rep[name] = (torch.from_numpy(data[key].astype(np.float32)),
+                             torch.from_numpy(data[f"{name}#indices"].astype(np.uint8)))
+    return rep
+
+
+def load_motion_representation_meta(path: str) -> Optional[Dict[str, Any]]:
+    """The meta an ``.npz`` was saved with, or None (``.pt`` payloads and
+    files saved without meta)."""
+    if path.endswith((".pt", ".pth")):
+        return None
+    with np.load(path) as data:
+        if "#meta" not in data.files:
+            return None
+        return json.loads(str(data["#meta"]))

@@ -234,8 +234,8 @@ class AutoencoderKL(nn.Module):
 
 
 def sample_latents(mean: torch.Tensor, logvar: torch.Tensor,
-                   generator: torch.Generator) -> torch.Tensor:
-    """Reparameterised draw from the posterior (DiagonalGaussian.sample)."""
+                   eps: torch.Tensor) -> torch.Tensor:
+    """Reparameterised draw from the posterior (DiagonalGaussian.sample)
+    with the standard normal noise ``eps`` (float32, ``mean``'s shape)."""
     std = torch.exp(0.5 * logvar.float().clamp(-30.0, 20.0))
-    eps = torch.randn(mean.shape, generator=generator, device=mean.device)
     return (mean.float() + std * eps).to(mean.dtype)

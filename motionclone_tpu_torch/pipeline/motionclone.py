@@ -65,6 +65,7 @@ from motionclone_tpu_torch.diffusion.guidance import (
 )
 from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
 from motionclone_tpu_torch.parallel.frames import FrameGroup
+from motionclone_tpu_torch.utils import rng
 
 MotionRep = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -233,7 +234,10 @@ class MotionClonePipeline:
     ``unet`` (and the optional ``vae`` / ``text_encoder``) are moved to
     ``device`` and ``dtype``; the default is CUDA in bfloat16.
     ``attention_impl`` and ``frame_group`` are those of
-    :func:`make_sampling_fns`.  Under a frame group every rank draws the
+    :func:`make_sampling_fns`.  Every noise tensor is drawn by
+    ``utils.rng.draw_normal`` in its own domain of the seed (the VAE
+    posterior, the extraction noise, the initial latents), so one seed gives
+    three independent draws.  Under a frame group every rank draws the
     global noise from the seed and takes its frames, so sharded and
     unsharded runs start from the same tensors; the text encoder and the
     VAE run unsharded (:meth:`gather_latents` before the decode).
@@ -266,9 +270,6 @@ class MotionClonePipeline:
         self.fns = make_sampling_fns(self.unet, sched_cfg, infer_cfg, attention_impl,
                                      frame_group)
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
-
     @torch.no_grad()
     def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Token ids (B, 77) -> text embeddings (B, 77, hidden)."""
@@ -282,7 +283,8 @@ class MotionClonePipeline:
 
         x = video.to(device=self.device, dtype=self.dtype)[None]
         mean, logvar = self.vae.encode(x)
-        z = sample_latents(mean, logvar, self._generator(seed))
+        eps = rng.draw_normal(mean.shape, seed, rng.VAE_POSTERIOR, self.device)
+        z = sample_latents(mean, logvar, eps)
         return z * self.vae.cfg.scaling_factor
 
     @torch.no_grad()
@@ -302,10 +304,20 @@ class MotionClonePipeline:
     ) -> MotionRep:
         """One truncated forward on the full video's latents -> the sparse
         motion representation (the rank's query frames when sharded)."""
-        noise = torch.randn(video_latents.shape, generator=self._generator(seed),
-                            device=self.device)
+        noise = rng.draw_normal(video_latents.shape, seed, rng.EXTRACT_NOISE, self.device)
         return self.fns.extract(video_latents.to(self.dtype), noise.to(self.dtype),
                                 uncond_emb.to(self.dtype))
+
+    def initial_latents(self, seed: int) -> torch.Tensor:
+        """The initial latents drawn from ``seed``: the whole video's noise
+        (1, F, h, w, 4), or the rank's frames of it when sharded."""
+        cfg = self.infer_cfg
+        shape = (1, cfg.video_length, cfg.height // 8, cfg.width // 8,
+                 self.unet_cfg.in_channels)
+        latents = rng.draw_normal(shape, seed, rng.INIT_LATENTS, self.device).to(self.dtype)
+        if self.fns.frame_group is not None:
+            latents = self.fns.frame_group.local_frames(latents)
+        return latents
 
     def sample_latents(
         self, uncond_emb: torch.Tensor, cond_emb: torch.Tensor,
@@ -314,12 +326,6 @@ class MotionClonePipeline:
     ) -> torch.Tensor:
         """Guided DDIM sampling from seeded noise -> final latents (the
         rank's frames when sharded)."""
-        cfg = self.infer_cfg
-        shape = (1, cfg.video_length, cfg.height // 8, cfg.width // 8,
-                 self.unet_cfg.in_channels)
-        latents = torch.randn(shape, generator=self._generator(seed),
-                              device=self.device).to(self.dtype)
-        if self.fns.frame_group is not None:
-            latents = self.fns.frame_group.local_frames(latents)
+        latents = self.initial_latents(seed)
         return self.fns.sample(latents, uncond_emb.to(self.dtype),
                                cond_emb.to(self.dtype), motion_rep, on_step=on_step)

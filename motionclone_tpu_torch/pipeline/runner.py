@@ -1,0 +1,307 @@
+"""The t2v runtime: checkpoints -> prompts -> motion representation -> mp4.
+
+Port of the t2v part of ``motionclone_tpu/pipeline/runner.py``: model
+loading from a diffusers-layout directory plus the workload's motion
+module, DreamBooth checkpoint and adapter LoRA; prompt encoding; per
+example, extraction (cached on disk, with a meta record that invalidates
+entries extracted under other settings), guided sampling, the decode to
+uint8 on the device and the mp4, named as the reference names it.  The
+compute runs in :class:`~motionclone_tpu_torch.pipeline.motionclone.MotionClonePipeline`
+on ``device`` (CUDA unless the caller asks for the CPU).
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from motionclone_tpu_torch.config import Example, InferenceConfig, load_model_config
+from motionclone_tpu_torch.diffusion.guidance import (
+    load_motion_representation,
+    load_motion_representation_meta,
+    save_motion_representation,
+)
+from motionclone_tpu_torch.io.tokenizer import ClipTokenizer
+from motionclone_tpu_torch.io.video import preprocess_video, write_video
+from motionclone_tpu_torch.models.clip_text import CLIPTextModel
+from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
+from motionclone_tpu_torch.models.unet_blocks import match_guidance
+from motionclone_tpu_torch.models.vae import AutoencoderKL
+from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline, resolve_device
+from motionclone_tpu_torch.weights.load import (
+    apply_unet_diffusers_config,
+    assemble_pipeline_state_dicts,
+    clip_config_from_dir,
+    clip_state_dict,
+    load_into,
+    vae_config_from_dir,
+)
+
+
+def motion_rep_meta(cfg: InferenceConfig, seed_motion: int) -> dict:
+    """The settings a motion representation depends on: the disk cache's
+    validity record (saved into the .npz, compared before reuse)."""
+    return {
+        "height": cfg.height,
+        "width": cfg.width,
+        "video_length": cfg.video_length,
+        "guidance_blocks": list(cfg.motion_guidance_blocks),
+        "add_noise_step": cfg.add_noise_step,
+        "seed_motion": seed_motion,
+    }
+
+
+def locate_cached_rep(motion_rep_dir: str, stem: str, meta: dict
+                      ) -> Tuple[str, Optional[str]]:
+    """(save path, usable cached path or None) for a video stem.  An
+    ``.npz`` is reused only when its meta matches; a reference ``.pt`` /
+    ``.pth`` carries none and is trusted as it is (checked on load)."""
+    npz = os.path.join(motion_rep_dir, stem + ".npz")
+    if os.path.exists(npz):
+        return npz, (npz if load_motion_representation_meta(npz) == meta else None)
+    for ext in (".pt", ".pth"):
+        alt = os.path.join(motion_rep_dir, stem + ext)
+        if os.path.exists(alt):
+            return alt, alt
+    return npz, None
+
+
+def _validate_motion_representation(rep, path: str, cfg: InferenceConfig) -> None:
+    """Raise an actionable error when a representation file does not fit the
+    configuration (instead of a shape error deep in sampling)."""
+    if not rep:
+        raise ValueError(f"{path}: empty motion representation")
+    blocks = tuple(cfg.motion_guidance_blocks)
+    for name, (values, _indices) in rep.items():
+        if not match_guidance(name, blocks):
+            raise ValueError(
+                f"{path}: module {name!r} does not match the configured "
+                f"motion_guidance_blocks {list(blocks)}; re-extract the "
+                f"representation or fix the config")
+        if values.shape[-2] != cfg.video_length:
+            raise ValueError(
+                f"{path}: module {name!r} holds {values.shape[-2]} frames; "
+                f"the config expects video_length={cfg.video_length}")
+
+
+class MotionCloneRuntime:
+    """Loaded weights and the pipeline for one workload config.
+
+    ``device``: "cuda" (the default; raises on a machine without CUDA) or
+    "cpu"; ``dtype``: the modules' and latents' dtype (bf16 by default);
+    ``attention_impl``: that of :class:`MotionClonePipeline`.  Relative
+    asset paths of ``infer_cfg`` are resolved under ``config_root``.
+    ``load_seconds`` holds the time the weights took from files to modules
+    on the device."""
+
+    def __init__(
+        self,
+        pretrained_model_path: str,
+        infer_cfg: InferenceConfig,
+        *,
+        device="cuda",
+        dtype: torch.dtype = torch.bfloat16,
+        attention_impl: str = "auto",
+        config_root: str = ".",
+    ):
+        self.device = resolve_device(device)
+        self.infer_cfg = infer_cfg
+        self.dtype = dtype
+        t0 = time.perf_counter()
+        self.unet_cfg, self.sched_cfg = load_model_config(
+            os.path.join(config_root, infer_cfg.model_config))
+        self.unet_cfg = apply_unet_diffusers_config(self.unet_cfg, pretrained_model_path)
+        self.vae_cfg = vae_config_from_dir(pretrained_model_path)
+        self.clip_cfg = clip_config_from_dir(pretrained_model_path)
+
+        def j(p):
+            return os.path.join(config_root, p) if p else ""
+
+        sds = assemble_pipeline_state_dicts(
+            pretrained_model_path,
+            motion_module_path=j(infer_cfg.motion_module),
+            dreambooth_path=j(infer_cfg.dreambooth_path),
+            adapter_lora_path=j(infer_cfg.adapter_lora_path),
+            adapter_lora_scale=infer_cfg.adapter_lora_scale,
+        )
+        unet = load_into(lambda: UNet3DConditionModel(self.unet_cfg), sds["unet"], dtype, "unet")
+        vae = load_into(lambda: AutoencoderKL(self.vae_cfg), sds["vae"], dtype, "vae")
+        clip = load_into(lambda: CLIPTextModel(self.clip_cfg),
+                         clip_state_dict(sds["text_encoder"]), dtype, "text_encoder")
+        del sds
+        self.tokenizer = ClipTokenizer.from_pretrained(pretrained_model_path,
+                                                       subfolder="tokenizer")
+        self.pipeline = MotionClonePipeline(
+            self.unet_cfg, self.sched_cfg, infer_cfg, unet, vae=vae, text_encoder=clip,
+            device=self.device, dtype=dtype, attention_impl=attention_impl,
+        )
+        self._sync()
+        self.load_seconds = time.perf_counter() - t0
+        self.timings: Dict[str, object] = {}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- text -------------------------------------------------------------
+
+    def _tokenize(self, texts) -> torch.Tensor:
+        """One padded id batch (B, 77) for a str or a sequence of str."""
+        if isinstance(texts, str):
+            texts = [texts]
+        ids = np.concatenate([
+            self.tokenizer.encode_padded(t, max_length=self.tokenizer.model_max_length)
+            for t in texts
+        ])
+        return torch.from_numpy(ids.astype(np.int64))
+
+    def encode_prompt(self, prompt, negative_prompt="", num_videos_per_prompt: int = 1
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(uncond, cond) CLIP embeddings, each (B * num_videos, 77, hidden).
+        ``prompt``: a str or a list of str; ``negative_prompt``: a str (for
+        every prompt) or a list as long as the prompts; each embedding is
+        repeated ``num_videos_per_prompt`` times in a row."""
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        if isinstance(negative_prompt, str):
+            negatives = [negative_prompt] * len(prompts)
+        else:
+            negatives = list(negative_prompt)
+            if len(negatives) != len(prompts):
+                raise ValueError(
+                    f"negative_prompt has batch size {len(negatives)}, but prompt has "
+                    f"batch size {len(prompts)}: they must match")
+        cond = self.pipeline.encode_text(self._tokenize(prompts))
+        uncond = self.pipeline.encode_text(self._tokenize(negatives))
+        if num_videos_per_prompt > 1:
+            cond = cond.repeat_interleave(num_videos_per_prompt, dim=0)
+            uncond = uncond.repeat_interleave(num_videos_per_prompt, dim=0)
+        return uncond, cond
+
+    # -- latents ----------------------------------------------------------
+
+    def encode_video(self, video: np.ndarray, seed: int) -> torch.Tensor:
+        """Pixels (F, H, W, 3) in [-1, 1] -> scaled latents (1, F, h, w, 4)
+        with a posterior draw."""
+        return self.pipeline.encode_video(torch.from_numpy(np.ascontiguousarray(video)), seed)
+
+    @torch.no_grad()
+    def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
+        """Latents -> uint8 RGB frames (F, H, W, 3).  The [-1, 1] -> uint8
+        conversion runs on the device, so one byte per pixel is copied to
+        the host."""
+        video = self.pipeline.decode_latents(latents)
+        video01 = (video.float() / 2 + 0.5).clamp(0.0, 1.0)
+        return torch.round(video01 * 255.0).to(torch.uint8).cpu().numpy()
+
+    # -- one example ------------------------------------------------------
+
+    def run_example(
+        self,
+        example: Example,
+        *,
+        motion_rep_dir: str,
+        output_dir: str,
+        default_seed: int = 2025,
+        config_root: str = ".",
+        verbose: bool = True,
+    ) -> str:
+        """Extraction (or the cached representation), guided sampling,
+        decode and mp4 for one JSONL example; returns the mp4's path.
+        ``timings`` then holds the phases' wall seconds (``text``,
+        ``extract`` when it ran, ``sample``, ``decode_write``) and the
+        milliseconds of each guided and vanilla step (``guided_ms``,
+        ``vanilla_ms``; on a card, the time between CUDA events recorded
+        after each step, so sampling never waits on the host); with
+        ``verbose`` each phase prints a line."""
+        cfg = self.infer_cfg
+        timings: Dict[str, object] = {"text": 0.0}
+        self.timings = timings
+        os.makedirs(motion_rep_dir, exist_ok=True)
+        os.makedirs(output_dir, exist_ok=True)
+
+        def log(msg):
+            if verbose:
+                print(f"[{example.video_path}] {msg}", flush=True)
+
+        def encode_prompt(*args):
+            t = time.perf_counter()
+            out = self.encode_prompt(*args)
+            self._sync()
+            timings["text"] += time.perf_counter() - t
+            return out
+
+        seed_motion = example.seed if example.seed is not None else default_seed
+        video_path = os.path.join(config_root, example.video_path)
+        stem = os.path.splitext(os.path.basename(example.video_path))[0]
+        # the JAX runtime appends the positive prompt to every new prompt
+        new_prompt = example.new_prompt + cfg.positive_prompt
+
+        # 1. the motion representation, cached on disk under the video stem
+        rep_meta = motion_rep_meta(cfg, seed_motion)
+        rep_path, cached = locate_cached_rep(motion_rep_dir, stem, rep_meta)
+        if cached is None:
+            if os.path.exists(rep_path):
+                log(f"cached {os.path.basename(rep_path)} was extracted under "
+                    f"different settings; re-extracting")
+            t0 = time.perf_counter()
+            video = preprocess_video(video_path, cfg.height, cfg.width, cfg.video_length)
+            video_latents = self.encode_video(video, seed_motion)
+            uncond_emb, _ = encode_prompt("", "")
+            rep = self.pipeline.extract_motion_representation(
+                video_latents, uncond_emb, seed=seed_motion)
+            save_motion_representation(rep_path, rep, meta=rep_meta)
+            timings["extract"] = time.perf_counter() - t0
+            log(f"motion representation extracted: {timings['extract']:.1f}s")
+        else:
+            log(f"motion representation reused from {cached}")
+        rep = load_motion_representation(rep_path)
+        _validate_motion_representation(rep, rep_path, cfg)
+        rep = {k: (v.to(self.device), i.to(self.device)) for k, (v, i) in rep.items()}
+
+        # 2. guided sampling; the reference seeds it with seed_motion
+        seed = seed_motion
+        uncond_emb, cond_emb = encode_prompt(new_prompt, cfg.negative_prompt)
+        out_name = (stem + "_" + new_prompt.strip().replace(" ", "_")
+                    + str(seed_motion) + "_" + str(seed) + ".mp4")
+        out_path = os.path.join(output_dir, out_name)
+        # each step's end is marked without blocking the host: a CUDA event
+        # on the card, read after the one synchronisation at the end
+        cuda = self.device.type == "cuda"
+
+        def mark():
+            if not cuda:
+                return time.perf_counter()
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(torch.cuda.current_stream(self.device))
+            return event
+
+        marks = []
+        self._sync()
+        t0 = time.perf_counter()
+        start = mark()
+        latents = self.pipeline.sample_latents(
+            uncond_emb, cond_emb, rep, seed=seed,
+            on_step=lambda _i, guided: marks.append((guided, mark())))
+        self._sync()
+        timings["sample"] = time.perf_counter() - t0
+        steps = {True: [], False: []}
+        for guided, end in marks:
+            steps[guided].append(start.elapsed_time(end) if cuda else (end - start) * 1e3)
+            start = end
+        timings["guided_ms"], timings["vanilla_ms"] = steps[True], steps[False]
+        median = lambda ms: f"{statistics.median(ms):.1f}" if ms else "-"
+        log(f"guided sampling ({cfg.inference_steps} steps, {cfg.guidance_steps} guided): "
+            f"{timings['sample']:.1f}s; median ms per guided step {median(steps[True])}, "
+            f"per vanilla step {median(steps[False])}")
+
+        # 3. decode and write the video
+        t0 = time.perf_counter()
+        write_video(out_path, self.decode_latents(latents), fps=8)
+        timings["decode_write"] = time.perf_counter() - t0
+        log(f"decode + write: {timings['decode_write']:.1f}s")
+        return out_path

@@ -17,7 +17,11 @@
   sampling against JAX's (tests/test_torch_pipeline.py): with these random
   weights the guidance score drives latents to |x| ~ 70, where the two
   frameworks' f32 sums part by ~1e-3;
-* (d) the validations, the partial losses, and the launcher's failure path.
+* (d) the validations, the partial losses, and the launcher's failure path;
+* (e) the seed's noise draws: the VAE posterior, the extraction noise and
+  the initial latents are pairwise different for one seed and repeat for
+  the same seed, and each launched gloo rank's initial latents are its
+  frames of the unsharded draw.
 
 The ranks are gloo processes on the CPU (``parallel.frames.launch``, with a
 time limit); their bodies live in test_torch_frame_shard_ranks.py, which
@@ -47,7 +51,11 @@ from motionclone_tpu_torch.models.motion_module import VersatileAttention
 from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel as TUNet
 from motionclone_tpu_torch.ops import temporal_attention as ta
 from motionclone_tpu_torch.parallel.frames import FrameGroup, launch
-from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns as t_make_fns
+from motionclone_tpu_torch.pipeline.motionclone import (
+    MotionClonePipeline,
+    make_sampling_fns as t_make_fns,
+)
+from motionclone_tpu_torch.utils import rng as trng
 from motionclone_tpu_torch.weights.from_jax import state_dict_from_flax
 from test_torch_frame_shard_ranks import failing_rank, frame_shard_rank
 from test_torch_models import load_port, random_flax_params
@@ -56,6 +64,7 @@ RANKS = 4
 LAUNCH_TIMEOUT_S = 240.0
 GUIDANCE = ("up_blocks.1",)
 F_, HW = 8, 16  # frames and latent side of (b) and (c): 2 frames per rank
+DRAW_SEED = 7  # the seed of the ranks' initial latents in (e)
 
 
 def _t(x):
@@ -148,7 +157,7 @@ def sharded():
         state_dict=state_dict_from_flax(params), unet_cfg=tcfg.micro_unet_config(),
         sched_cfg=tcfg.NoiseScheduleConfig(), infer_cfg=_infer(tcfg),
         video_latents=_t(video_latents), noise=_t(noise), init=_t(init),
-        uncond=_t(uncond), cond=_t(cond),
+        uncond=_t(uncond), cond=_t(cond), draw_seed=DRAW_SEED,
     )
     results = launch(frame_shard_rank, RANKS, backend="gloo",
                      args=(module_case, pipeline_case), timeout=LAUNCH_TIMEOUT_S)
@@ -313,3 +322,60 @@ def test_launch_reports_a_failing_rank_without_waiting():
     with rank 1's traceback and stops rank 0 long before the time limit."""
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
         launch(failing_rank, 2, backend="gloo", timeout=LAUNCH_TIMEOUT_S)
+
+
+# ---------------------------------------------------------------------------
+# (e) the seed's three noise draws
+# ---------------------------------------------------------------------------
+
+
+def _draw_pipeline(frame_group=None):
+    from motionclone_tpu_torch.models.vae import AutoencoderKL, tiny_vae_config
+
+    torch.manual_seed(0)
+    return MotionClonePipeline(tcfg.micro_unet_config(), tcfg.NoiseScheduleConfig(),
+                               _infer(tcfg), TUNet(tcfg.micro_unet_config()),
+                               vae=AutoencoderKL(tiny_vae_config()), device="cpu",
+                               dtype=torch.float32, frame_group=frame_group)
+
+
+def test_seed_draws_are_domain_separated_and_repeat(monkeypatch):
+    """One seed through encode_video, extraction and the initial latents:
+    three draws of shape (1, F, h, w, 4), pairwise different; the same seed
+    gives the same three again, another seed three others."""
+    drawn = []
+    draw = trng.draw_normal
+    monkeypatch.setattr(trng, "draw_normal",
+                        lambda *a: drawn.append((a[2], draw(*a))) or drawn[-1][1])
+    pipe = _draw_pipeline()
+    video = torch.rand(F_, 2 * HW, 2 * HW, 3, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    empty = torch.zeros(1, 7, 16)
+
+    def draws(seed):
+        drawn.clear()
+        latents = pipe.encode_video(video, seed)
+        pipe.extract_motion_representation(latents, empty, seed)
+        pipe.initial_latents(seed)
+        return dict(drawn)
+
+    first = draws(2025)
+    assert sorted(first) == [trng.VAE_POSTERIOR, trng.EXTRACT_NOISE, trng.INIT_LATENTS]
+    tensors = list(first.values())
+    assert all(t.shape == (1, F_, HW, HW, 4) for t in tensors)
+    for i in range(3):
+        for j in range(i + 1, 3):
+            assert not torch.allclose(tensors[i], tensors[j])
+    again, other = draws(2025), draws(2026)
+    for domain, t in first.items():
+        assert torch.equal(again[domain], t)
+        assert not torch.allclose(other[domain], t)
+
+
+def test_each_rank_draws_its_frames_of_the_global_noise(sharded):
+    """Each of the launched ranks (torch's global generator seeded with the
+    rank) draws, for one seed, exactly its frames of the unsharded draw."""
+    whole = _draw_pipeline().initial_latents(DRAW_SEED)
+    parts = [res["pipeline"]["initial_latents"] for res in sharded["results"]]
+    assert len(parts) == RANKS
+    assert all(p.shape == (1, F_ // RANKS, HW, HW, 4) for p in parts)
+    torch.testing.assert_close(torch.cat(parts, dim=1), whole, rtol=0, atol=0)

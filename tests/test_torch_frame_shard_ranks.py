@@ -9,7 +9,7 @@ import torch
 from motionclone_tpu_torch.diffusion.guidance import motion_guidance_loss
 from motionclone_tpu_torch.models.motion_module import VanillaTemporalModule
 from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
-from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns
+from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline, make_sampling_fns
 
 
 def frame_shard_rank(group, module_case, pipeline_case):
@@ -32,11 +32,14 @@ def sharded_module(group, state_dict, cfg, x, w):
 
 
 def sharded_pipeline(group, state_dict, unet_cfg, sched_cfg, infer_cfg,
-                     video_latents, noise, init, uncond, cond):
+                     video_latents, noise, init, uncond, cond, draw_seed):
     """Extraction from the full latents and noise, ``sample`` from the
     rank's frames of ``init``, and the first guided step's loss: the rank's
     partial and the sum that ``guided_step`` returns.  The representation
-    and the latents come back gathered over the ranks."""
+    and the latents come back gathered over the ranks.  Also the rank's
+    own initial latents for ``draw_seed`` (``initial_latents``, drawn after
+    seeding torch's global generator with the rank, which the draw must
+    not depend on)."""
     unet = UNet3DConditionModel(unet_cfg)
     unet.load_state_dict(state_dict, strict=True)
     unet.eval()
@@ -50,7 +53,11 @@ def sharded_pipeline(group, state_dict, unet_cfg, sched_cfg, infer_cfg,
                         frame_group=group)
         partial = infer_cfg.motion_guidance_weight * motion_guidance_loss(probs, rep, group)
     _, loss = fns.guided_step(local, t, tp, 1.0, uncond, cond, rep)
+    torch.manual_seed(group.rank)
+    pipe = MotionClonePipeline(unet_cfg, sched_cfg, infer_cfg, unet, device="cpu",
+                               dtype=torch.float32, frame_group=group)
     return {
+        "initial_latents": pipe.initial_latents(draw_seed),
         "rep": {k: (group.gather_frames(v, dim=3), group.gather_frames(i, dim=3))
                 for k, (v, i) in rep.items()},
         "latents": group.gather_frames(latents),

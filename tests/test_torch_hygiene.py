@@ -1,4 +1,6 @@
-"""Hygiene of the PyTorch port: its imports, its device default, and the
+"""Hygiene of the PyTorch port: its imports (no JAX; none of the packages
+the card's machine lacks: yaml, regex, safetensors, PIL, transformers; cv2
+only inside io/video.py's codec functions), its device default, and the
 chip smoke script's refusal to run without CUDA.
 
 The import check reads the sources with ``ast``: the interpreter may have
@@ -20,6 +22,9 @@ from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline, reso
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "motionclone_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "motionclone_tpu"}
+# packages of the JAX runtime that the card's machine does not have
+NOT_ON_THE_CARD = {"yaml", "regex", "safetensors", "PIL", "transformers"}
+CODEC_FUNCTIONS = ("read_video_frames", "write_video")  # of io/video.py
 PORT_FILES = sorted(PORT.rglob("*.py"))
 
 
@@ -46,8 +51,10 @@ def test_no_jax_imports(path):
 
 def test_scan_covers_every_subpackage():
     found = {p.relative_to(PORT).parts[0] for p in PORT_FILES if p.parent != PORT}
-    assert found == {"diffusion", "models", "ops", "parallel", "pipeline", "weights"}
-    assert PORT / "parallel" / "frames.py" in PORT_FILES
+    assert found == {"diffusion", "io", "models", "ops", "parallel", "pipeline", "utils",
+                     "weights"}
+    for rel in ("parallel/frames.py", "cli.py", "io/video.py", "pipeline/runner.py"):
+        assert PORT / rel in PORT_FILES
 
 
 def test_scan_sees_forbidden_imports():
@@ -55,6 +62,75 @@ def test_scan_sees_forbidden_imports():
                      "from motionclone_tpu_torch import y\n")
     assert set(_imported_roots(tree)) == {"jax", "motionclone_tpu",
                                           "motionclone_tpu_torch"}
+
+
+def _import_faults(tree: ast.AST, is_video_module: bool) -> list:
+    """Imports of packages the card's machine lacks, and imports of cv2
+    anywhere but inside io/video.py's codec functions."""
+    faults = []
+
+    def visit(node, func):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            func = node.name
+        roots = []
+        if isinstance(node, ast.Import):
+            roots = [alias.name.split(".")[0] for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots = [node.module.split(".")[0]]
+        for root in roots:
+            if root in NOT_ON_THE_CARD:
+                faults.append(f"line {node.lineno} imports {root}")
+            if root == "cv2" and not (is_video_module and func in CODEC_FUNCTIONS):
+                faults.append(f"line {node.lineno} imports cv2 outside the codec functions")
+        for child in ast.iter_child_nodes(node):
+            visit(child, func)
+
+    visit(tree, None)
+    return faults
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_imports_the_card_lacks(path):
+    tree = ast.parse(path.read_text(), str(path))
+    assert _import_faults(tree, path == PORT / "io" / "video.py") == []
+
+
+def test_import_scan_sees_planted_imports():
+    planted = ("import yaml\nfrom safetensors.numpy import load_file\nimport cv2\n"
+               "def read_video_frames(p):\n    import cv2, regex\n"
+               "def other():\n    from PIL import Image\n    import cv2\n"
+               "class C:\n    import transformers\n")
+    assert _import_faults(ast.parse(planted), is_video_module=True) == [
+        "line 1 imports yaml", "line 2 imports safetensors",
+        "line 3 imports cv2 outside the codec functions", "line 5 imports regex",
+        "line 7 imports PIL", "line 8 imports cv2 outside the codec functions",
+        "line 10 imports transformers"]
+    assert _import_faults(ast.parse("def write_video():\n    import cv2\n"), False) == [
+        "line 2 imports cv2 outside the codec functions"]
+    assert _import_faults(ast.parse("def write_video():\n    import cv2\n"), True) == []
+
+
+def test_cli_defaults_to_cuda():
+    from motionclone_tpu_torch.cli import build_parser
+
+    args = build_parser("a.yaml", "b.jsonl").parse_args([])
+    assert args.device == "cuda"
+    assert build_parser("a.yaml", "b.jsonl").parse_args(["--device", "cpu"]).device == "cpu"
+
+
+def test_runtime_refuses_cuda_it_lacks_and_runs_on_cpu_when_asked(tmp_path):
+    """Without CUDA the runtime raises before it reads a file; with
+    device="cpu" it goes on to the files (here: none)."""
+    from motionclone_tpu_torch.pipeline.runner import MotionCloneRuntime
+
+    infer = tcfg.InferenceConfig(model_config="model_config.yaml")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MotionCloneRuntime(str(tmp_path / "absent"), infer, config_root=str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="model_config.yaml"):
+        MotionCloneRuntime(str(tmp_path / "absent"), infer, device="cpu",
+                           config_root=str(tmp_path))
 
 
 def _pipeline(**kw):

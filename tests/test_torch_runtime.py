@@ -1,0 +1,392 @@
+"""The port's t2v runtime against the JAX package, on the CPU in f32.
+
+One synthetic model directory (tests/test_cli_synthetic_e2e.py's
+``_build_model_dir``: diffusers-layout base weights with config.json files
+and a tokenizer, a DreamBooth LDM checkpoint, a motion-module ``.ckpt``
+with ``pos_encoder.pe`` buffers, an adapter LoRA, at a small SD1.5-shaped
+topology) serves every case:
+
+* ``assemble_pipeline_state_dicts`` equals the JAX package's key for key
+  and array for array (exact);
+* the runtime's loaded UNet, VAE and CLIP equal ``weights/from_jax.py`` of
+  the JAX package's loaded parameters (exact);
+* ``encode_prompt`` equals the JAX CLIP on the same ids (atol 1e-4), and
+  ``encode_video`` the JAX VAE encode with JAX's posterior noise put in
+  through the ``utils.rng.draw_normal`` seam (atol 1e-4);
+* motion-representation files (``.npz`` with meta, and the reference
+  ``.pt``) written by either package load in the other (exact);
+* the whole slice: ``t2v_main(... --device cpu --float32)`` writes the mp4
+  with the reference's name, the representation ``.npz`` and
+  ``inference_config.json``; its extraction and final latents equal
+  ``MotionClonePipeline`` driven by hand from the same modules, embeddings
+  and ``draw_normal`` noise (exact); a second run reuses the cached
+  representation;
+* every flag the port does not have yet exits with its ROADMAP.md item.
+
+No test runs the JAX CLI or the JAX sampling: tests/test_torch_pipeline.py
+holds the sampling against JAX."""
+
+import dataclasses
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from motionclone_tpu.config import load_model_config as j_load_model_config
+from motionclone_tpu.diffusion import guidance as jguid
+from motionclone_tpu.io.tokenizer import ClipTokenizer as JTokenizer
+from motionclone_tpu.models.clip_text import CLIPTextModel as JCLIP
+from motionclone_tpu.models.vae import AutoencoderKL as JVAE, sample_latents as j_sample_latents
+from motionclone_tpu.utils import rng as jrng
+from motionclone_tpu.weights import load as jload
+from motionclone_tpu_torch.cli import UNPORTED, build_parser, t2v_main
+from motionclone_tpu_torch.config import Example, load_inference_config
+from motionclone_tpu_torch.diffusion import guidance as tguid
+from motionclone_tpu_torch.io.video import preprocess_video, read_video_frames, write_video
+from motionclone_tpu_torch.pipeline import runner
+from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline
+from motionclone_tpu_torch.utils import rng as trng
+from motionclone_tpu_torch.weights import load as tload
+from motionclone_tpu_torch.weights.from_jax import clip_state_dict_from_flax, state_dict_from_flax
+from test_cli_synthetic_e2e import _build_model_dir
+
+SD = os.path.join("models", "SD")
+PROMPT = "a cat running"
+ARGS = ["--pretrained-model-path", SD, "--inference_config", "inference.yaml",
+        "--examples", "examples.jsonl", "--motion-representation-save-dir", "reps",
+        "--generated-videos-save-dir", "out", "--W", "64", "--H", "64", "--L", "4",
+        "--float32", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def model_dir(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("synthetic"))
+    _build_model_dir(root)
+    frames = np.random.default_rng(0).integers(0, 255, size=(6, 64, 64, 3), dtype=np.uint8)
+    write_video(os.path.join(root, "ref.mp4"), frames, fps=8)
+    with open(os.path.join(root, "examples.jsonl"), "w") as f:
+        f.write(json.dumps({"video_path": "ref.mp4", "new_prompt": PROMPT, "seed": 42}) + "\n")
+    return root
+
+
+@pytest.fixture(scope="module")
+def infer_cfg(model_dir):
+    return load_inference_config(os.path.join(model_dir, "inference.yaml"), width=64,
+                                 height=64, video_length=4)
+
+
+@pytest.fixture(scope="module")
+def runtime(model_dir, infer_cfg):
+    return runner.MotionCloneRuntime(os.path.join(model_dir, SD), infer_cfg, device="cpu",
+                                     dtype=torch.float32, config_root=model_dir)
+
+
+def _assets(root, cfg):
+    j = lambda p: os.path.join(root, p)
+    return dict(motion_module_path=j(cfg.motion_module), dreambooth_path=j(cfg.dreambooth_path),
+                adapter_lora_path=j(cfg.adapter_lora_path),
+                adapter_lora_scale=cfg.adapter_lora_scale)
+
+
+@pytest.fixture(scope="module")
+def jax_side(model_dir, infer_cfg):
+    """The JAX package's assembled state dicts, configs and parameters."""
+    sd_dir = os.path.join(model_dir, SD)
+    sds = jload.assemble_pipeline_state_dicts(sd_dir, **_assets(model_dir, infer_cfg))
+    unet_cfg = jload.apply_unet_diffusers_config(
+        j_load_model_config(os.path.join(model_dir, infer_cfg.model_config))[0], sd_dir)
+    vae_cfg, clip_cfg = jload.vae_config_from_dir(sd_dir), jload.clip_config_from_dir(sd_dir)
+    return dict(
+        sds=sds, vae_cfg=vae_cfg, clip_cfg=clip_cfg,
+        unet=jload.unet_params_from_state_dict(sds["unet"], unet_cfg),
+        vae=jload.vae_params_from_state_dict(sds["vae"], vae_cfg),
+        clip=jload.clip_params_from_state_dict(sds["text_encoder"], clip_cfg),
+    )
+
+
+# ---------------------------------------------------------------------------
+# loading
+# ---------------------------------------------------------------------------
+
+
+def test_assembled_state_dicts_equal_jax(model_dir, infer_cfg, jax_side):
+    got = tload.assemble_pipeline_state_dicts(os.path.join(model_dir, SD),
+                                              **_assets(model_dir, infer_cfg))
+    want = jax_side["sds"]
+    assert sorted(got) == sorted(want) == ["text_encoder", "unet", "vae"]
+    for sub in want:
+        assert sorted(got[sub]) == sorted(want[sub]), sub
+        for k, v in want[sub].items():
+            assert got[sub][k].dtype == torch.float32, k
+            np.testing.assert_array_equal(got[sub][k].numpy(), v, err_msg=f"{sub} {k}")
+    # the merge chain reached the UNet: motion modules, the .ckpt's
+    # pos_encoder buffer (dropped at the load), the DreamBooth layers
+    assert any("motion_modules." in k for k in got["unet"])
+    assert any(k.endswith("pos_encoder.pe") for k in got["unet"])
+
+
+def test_kohya_lora_merge_equals_jax(jax_side):
+    """``merge_kohya_lora`` on the assembled UNet and text encoder equals the
+    JAX package's merge, bit for bit: a linear and a 1x1-conv target, the
+    ``.alpha`` keys skipped, the other prefix's pairs left alone."""
+    from motionclone_tpu.weights.lora import merge_kohya_lora as j_merge
+    from motionclone_tpu_torch.weights.lora import merge_kohya_lora as t_merge
+
+    rng = np.random.default_rng(3)
+    lora = {}
+    for prefix, sub in (("lora_unet", "unet"), ("lora_te", "text_encoder")):
+        targets = [k for k, v in jax_side["sds"][sub].items()
+                   if k.endswith(".weight") and v.ndim in (2, 4) and v.shape[1] > 1][:2]
+        assert targets, sub
+        for k in targets:
+            w = jax_side["sds"][sub][k]
+            name = f"{prefix}_{k[:-len('.weight')].replace('.', '_')}"
+            tail = (1, 1) if w.ndim == 4 else ()
+            lora[name + ".lora_down.weight"] = rng.standard_normal((2, w.shape[1]) + tail,
+                                                                   dtype=np.float32)
+            lora[name + ".lora_up.weight"] = rng.standard_normal((w.shape[0], 2) + tail,
+                                                                 dtype=np.float32)
+            lora[name + ".alpha"] = np.float32(2.0)
+    t_lora = {k: torch.from_numpy(np.asarray(v)) for k, v in lora.items()}
+    for prefix, sub in (("lora_unet", "unet"), ("lora_te", "text_encoder")):
+        base = jax_side["sds"][sub]
+        want = j_merge(base, lora, alpha=0.8, prefix=prefix)
+        got = t_merge({k: torch.from_numpy(v) for k, v in base.items()}, t_lora,
+                      alpha=0.8, prefix=prefix)
+        assert sorted(got) == sorted(want)
+        changed = [k for k in want if not np.array_equal(want[k], base[k])]
+        assert len(changed) == 2, (sub, changed)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k].numpy(), v, err_msg=f"{sub} {k}")
+    with pytest.raises(KeyError, match="not found"):
+        t_merge({}, t_lora, prefix="lora_unet")
+
+
+def test_loaded_modules_equal_jax_params(runtime, jax_side):
+    pipe = runtime.pipeline
+    for module, want in ((pipe.unet, state_dict_from_flax(jax_side["unet"])),
+                         (pipe.vae, state_dict_from_flax(jax_side["vae"])),
+                         (pipe.text_encoder, clip_state_dict_from_flax(jax_side["clip"]))):
+        got = module.state_dict()
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert got[k].dtype == torch.float32 and got[k].device.type == "cpu", k
+            torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
+
+
+def test_load_into_is_strict():
+    from motionclone_tpu_torch.models.clip_text import CLIPTextModel, tiny_clip_config
+
+    sd = CLIPTextModel(tiny_clip_config()).state_dict()
+    make = lambda: CLIPTextModel(tiny_clip_config())
+    extra = dict(sd, **{"text_model.extra.weight": torch.zeros(1)})
+    with pytest.raises(ValueError, match="unexpected"):
+        tload.load_into(make, extra, torch.float32)
+    short = {k: v for k, v in sd.items() if "final_layer_norm" not in k}
+    with pytest.raises(ValueError, match="not covered"):
+        tload.load_into(make, short, torch.float32)
+    wrong = dict(sd, **{"text_model.final_layer_norm.weight": torch.zeros(3)})
+    with pytest.raises(ValueError, match="shape"):
+        tload.load_into(make, wrong, torch.float32)
+    loaded = tload.load_into(make, {k: v.bfloat16() for k, v in sd.items()}, torch.bfloat16)
+    assert all(p.dtype == torch.bfloat16 and p.device.type == "cpu"
+               for p in loaded.parameters())
+
+
+def test_missing_asset_raises_with_its_path(model_dir, infer_cfg):
+    cfg = dataclasses.replace(infer_cfg, motion_module="weights/absent_mm.ckpt")
+    with pytest.raises(FileNotFoundError, match="absent_mm.ckpt"):
+        runner.MotionCloneRuntime(os.path.join(model_dir, SD), cfg, device="cpu",
+                                  dtype=torch.float32, config_root=model_dir)
+
+
+# ---------------------------------------------------------------------------
+# text and the VAE
+# ---------------------------------------------------------------------------
+
+
+def test_encode_prompt_equals_jax_clip(model_dir, runtime, jax_side, infer_cfg):
+    prompts = [PROMPT + infer_cfg.positive_prompt, "a road in the mountain"]
+    uncond, cond = runtime.encode_prompt(prompts, infer_cfg.negative_prompt,
+                                         num_videos_per_prompt=2)
+    assert cond.shape == (4, 77, 16) and uncond.shape == (4, 77, 16)
+    tok = JTokenizer.from_pretrained(os.path.join(model_dir, SD))
+    clip = JCLIP(cfg=jax_side["clip_cfg"])
+    ids = lambda texts: jnp.asarray(np.concatenate([tok.encode_padded(t) for t in texts]))
+    want_cond = np.repeat(np.asarray(clip.apply(jax_side["clip"], ids(prompts))), 2, axis=0)
+    want_uncond = np.repeat(np.asarray(clip.apply(
+        jax_side["clip"], ids([infer_cfg.negative_prompt] * 2))), 2, axis=0)
+    np.testing.assert_allclose(cond.numpy(), want_cond, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(uncond.numpy(), want_uncond, atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="batch size"):
+        runtime.encode_prompt(prompts, ["only one"])
+
+
+def _jax_draw(shape, seed, domain, device):
+    """JAX's noise for (seed, domain), through the port's draw seam."""
+    noise = jax.random.normal(jrng.seed_key(seed, domain), tuple(shape), dtype=jnp.float32)
+    return torch.from_numpy(np.array(noise)).to(device)
+
+
+def test_encode_video_equals_jax_vae_on_jax_noise(model_dir, runtime, jax_side, monkeypatch):
+    video = preprocess_video(os.path.join(model_dir, "ref.mp4"), 64, 64, 4)
+    monkeypatch.setattr(trng, "draw_normal", _jax_draw)
+    got = runtime.encode_video(video, seed=42)
+    vae = JVAE(cfg=jax_side["vae_cfg"])
+    mean, logvar = vae.apply(jax_side["vae"], jnp.asarray(video)[None], method=vae.encode)
+    want = j_sample_latents(mean, logvar, jrng.seed_key(42, jrng.VAE_POSTERIOR))
+    want = np.asarray(want) * jax_side["vae_cfg"].scaling_factor
+    assert got.shape == (1, 4, 8, 8, 4)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+def test_decode_is_uint8_on_the_device(runtime):
+    lat = torch.randn(1, 2, 8, 8, 4, generator=torch.Generator().manual_seed(5))
+    frames = runtime.decode_latents(lat)
+    pixels = runtime.pipeline.decode_latents(lat).numpy()
+    assert frames.dtype == np.uint8 and frames.shape == (2, 64, 64, 3)
+    want = np.round(np.clip(pixels.astype(np.float32) / 2 + 0.5, 0, 1) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(frames, want)
+
+
+# ---------------------------------------------------------------------------
+# motion representation files
+# ---------------------------------------------------------------------------
+
+
+def _rep(seed=6):
+    r = np.random.default_rng(seed)
+    name = ("up_blocks.1.motion_modules.{}.temporal_transformer.transformer_blocks.0."
+            "attention_blocks.{}")
+    return {name.format(m, a): (r.random((1, 16, 2, 4, 1)).astype(np.float32),
+                                r.integers(0, 4, size=(1, 16, 2, 4, 1)).astype(np.uint8))
+            for m in range(3) for a in range(2)}
+
+
+@pytest.mark.parametrize("ext", [".npz", ".pt"])
+def test_motion_rep_files_load_in_both_packages(tmp_path, ext):
+    rep = _rep()
+    meta = {"height": 64, "seed_motion": 42, "guidance_blocks": ["up_blocks.1"]}
+    wrote = {"jax": str(tmp_path / f"jax{ext}"), "port": str(tmp_path / f"port{ext}")}
+    jguid.save_motion_representation(wrote["jax"], rep, meta=meta)
+    tguid.save_motion_representation(wrote["port"], {k: (torch.from_numpy(v), torch.from_numpy(i))
+                                                     for k, (v, i) in rep.items()}, meta=meta)
+    for who, path in wrote.items():
+        got_t, got_j = tguid.load_motion_representation(path), jguid.load_motion_representation(path)
+        assert sorted(got_t) == sorted(got_j) == sorted(rep), who
+        for k, (v, i) in rep.items():
+            assert got_t[k][0].dtype == torch.float32 and got_t[k][1].dtype == torch.uint8
+            np.testing.assert_array_equal(got_t[k][0].numpy(), v)
+            np.testing.assert_array_equal(got_t[k][1].numpy(), i)
+            np.testing.assert_array_equal(np.asarray(got_j[k][0]), v)
+            np.testing.assert_array_equal(np.asarray(got_j[k][1]), i)
+        want_meta = meta if ext == ".npz" else None
+        assert tguid.load_motion_representation_meta(path) == want_meta
+        assert jguid.load_motion_representation_meta(path) == want_meta
+
+
+def test_rep_cache_lookup_and_validation(tmp_path, infer_cfg):
+    meta = runner.motion_rep_meta(infer_cfg, 42)
+    d = str(tmp_path)
+    assert runner.locate_cached_rep(d, "v", meta) == (os.path.join(d, "v.npz"), None)
+    tguid.save_motion_representation(os.path.join(d, "v.npz"), _rep(), meta=meta)
+    assert runner.locate_cached_rep(d, "v", meta)[1] == os.path.join(d, "v.npz")
+    assert runner.locate_cached_rep(d, "v", dict(meta, seed_motion=7))[1] is None
+    tguid.save_motion_representation(os.path.join(d, "w.pt"), _rep())
+    assert runner.locate_cached_rep(d, "w", meta) == (os.path.join(d, "w.pt"),) * 2
+    rep = tguid.load_motion_representation(os.path.join(d, "v.npz"))
+    runner._validate_motion_representation(rep, "v.npz", infer_cfg)
+    with pytest.raises(ValueError, match="frames"):
+        runner._validate_motion_representation(
+            rep, "v.npz", dataclasses.replace(infer_cfg, video_length=8))
+    with pytest.raises(ValueError, match="motion_guidance_blocks"):
+        runner._validate_motion_representation(
+            rep, "v.npz", dataclasses.replace(infer_cfg, motion_guidance_blocks=("up_blocks.2",)))
+
+
+# ---------------------------------------------------------------------------
+# the whole slice through the CLI
+# ---------------------------------------------------------------------------
+
+
+def test_t2v_main_runs_the_slice_to_an_mp4(model_dir, monkeypatch, capsys):
+    monkeypatch.chdir(model_dir)
+    seen = {}
+    sample, extract = MotionClonePipeline.sample_latents, \
+        MotionClonePipeline.extract_motion_representation
+
+    def spy_sample(self, *args, **kwargs):
+        seen["latents"] = sample(self, *args, **kwargs)
+        return seen["latents"]
+
+    def spy_extract(self, *args, **kwargs):
+        seen["rep"] = extract(self, *args, **kwargs)
+        return seen["rep"]
+
+    monkeypatch.setattr(MotionClonePipeline, "sample_latents", spy_sample)
+    monkeypatch.setattr(MotionClonePipeline, "extract_motion_representation", spy_extract)
+    rt, paths = t2v_main(ARGS)
+    cfg = rt.infer_cfg
+    new_prompt = PROMPT + cfg.positive_prompt
+    name = "ref_" + new_prompt.strip().replace(" ", "_") + "42_42.mp4"
+    assert name == "ref_a_cat_running8k,_high_detail42_42.mp4"
+    assert paths == [os.path.join("out", name)]
+    frames, _ = read_video_frames(paths[0])
+    assert frames.shape == (4, 64, 64, 3) and frames.dtype == np.uint8
+    assert os.path.exists(os.path.join("out", "inference_config.json"))
+    assert tguid.load_motion_representation_meta(os.path.join("reps", "ref.npz")) == \
+        runner.motion_rep_meta(cfg, 42)
+    assert sorted(rt.timings) == ["decode_write", "extract", "guided_ms", "sample", "text",
+                                  "vanilla_ms"]
+    assert (len(rt.timings["guided_ms"]), len(rt.timings["vanilla_ms"])) == (2, 2)
+
+    # by hand: the same modules, embeddings and draw_normal noise
+    pipe = MotionClonePipeline(rt.unet_cfg, rt.sched_cfg, cfg, rt.pipeline.unet,
+                               vae=rt.pipeline.vae, device="cpu", dtype=torch.float32)
+    video = torch.from_numpy(preprocess_video("ref.mp4", 64, 64, 4))
+    empty, _ = rt.encode_prompt("", "")
+    latents = pipe.encode_video(video, seed=42)
+    noise = trng.draw_normal(latents.shape, 42, trng.EXTRACT_NOISE, "cpu")
+    rep = pipe.fns.extract(latents, noise, empty)
+    assert sorted(rep) == sorted(seen["rep"])
+    for k, (v, i) in rep.items():
+        assert torch.equal(v, seen["rep"][k][0]) and torch.equal(i, seen["rep"][k][1])
+    uncond, cond = rt.encode_prompt(new_prompt, cfg.negative_prompt)
+    init = trng.draw_normal((1, 4, 8, 8, 4), 42, trng.INIT_LATENTS, "cpu")
+    want = pipe.fns.sample(init, uncond, cond, rep)
+    assert torch.equal(seen["latents"], want)
+    capsys.readouterr()
+
+    # a second run takes the cached representation, with the aliases of
+    # the JAX CLI's flags accepted and reported
+    seen.clear()
+    t2v_main(ARGS + ["--attention-impl", "xla", "--visible_gpu", "0", "--compile-cache", "cc"])
+    out = capsys.readouterr().out
+    assert "motion representation reused from reps/ref.npz" in out
+    assert "unfused path" in out and "--visible_gpu" in out and "--compile-cache" in out
+    assert "rep" not in seen and torch.equal(seen["latents"], want)
+
+
+_UNPORTED_ARGV = {"frame_shard": ["--frame-shard", "2"],
+                  "frame_shard_mode": ["--frame-shard-mode", "gspmd"],
+                  "cfg_pair": ["--cfg-pair"], "approx": ["--approx", "step-extrap:3"],
+                  "resume": ["--resume"], "weights_cache": ["--weights-cache", "wc"]}
+
+
+@pytest.mark.parametrize("flag", sorted(UNPORTED))
+def test_unported_flags_exit_with_their_roadmap_item(flag, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # exits before it reads a file
+    defaults = build_parser("a.yaml", "b.jsonl").parse_args([])
+    assert getattr(defaults, flag) == UNPORTED[flag][0]
+    with pytest.raises(SystemExit, match="ROADMAP.md"):
+        t2v_main(ARGS + _UNPORTED_ARGV[flag])
+    assert not os.listdir(tmp_path)
+
+
+def test_example_from_json():
+    e = Example.from_json({"video_path": "v.mp4", "new_prompt": "p"})
+    assert (e.seed, e.condition_image_paths, e.image_index) == (None, (), (0,))
