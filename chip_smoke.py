@@ -34,7 +34,12 @@ Phase 2  kernels: each kernel at every shape the main path gives it (the
          3x3 convolution on that product (4-D tensor map over the video) at
          every distinct (M, Cout, 9·Cin, epilogue) of the main path, the
          same way, timed beside torch.nn.functional.conv2d (cuDNN) on the
-         same operands.
+         same operands.  Last, kernel 7 with one attention block and a
+         32-row positional table (the SparseCtrl controlnet's motion
+         modules) at the controlnet's four (S, C) where the kernel takes
+         them, B = 1 and 2, against its plain version, beside the unfused
+         module; the controlnet's products and convolutions are shapes
+         the lists above already hold.
 Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          width, 512x512x16 frames, random weights from a seed: CLIP on random
          token ids for the CFG pair, VAE encode of a random video,
@@ -52,7 +57,12 @@ Phase 4  reference: the port on the card (bf16, kernels), on its default
          fused path and on its "flash" path, against the port on the CPU
          (f32, plain versions, unfused) at reduced depth and size; and one
          linear-projection Transformer3DModel, whose block is the fused
-         transformer block, on the card against the CPU.
+         transformer block, on the card against the CPU.  Then the i2v
+         slice at the same depth for both SparseCtrl flavours (RGB: latent
+         condition; sketch: pixel condition through the conv stack): the
+         controlnet's residuals on the CFG pair, the conditioned
+         extraction, one guided and one vanilla step, the card's fused
+         path against the CPU.
 Phase 5  only with ``--profile DIR``: one guided and one vanilla step of the
          main path's pipeline under torch.profiler: wall time, the device's
          busy and idle share, device time by category and the top kernels,
@@ -83,6 +93,24 @@ Phase 7  the t2v CLI: the port's ``cli.t2v_main`` on the card, as a user runs
          reference's name, and the motion representation's .npz must carry
          its meta; a second run must reuse it.  Prints the phase times, peak
          memory and seconds per video beside the card's name and power limit.
+Phase 8  the i2v CLI: ``cli.i2v_main`` on the card for both SparseCtrl
+         flavours, from phase 7's model directory plus a random adapter
+         LoRA (diffusers naming, every spatial q/k/v/out projection), a
+         controlnet ``.ckpt`` per flavour at SD1.5 width (seeded random
+         weights, pos_encoder buffers, an ``animatediff_config`` entry),
+         configs/sparsectrl's YAMLs and a 512x512 condition PNG (the
+         reference clip's first frame; image_index [0]); i2v_rgb with
+         configs/i2v_rgb.yaml's full schedule (100 steps, 40 guided),
+         i2v_sketch with configs/i2v_sketch.yaml's cut from 200 steps (120
+         guided) to I2V_SKETCH_CUT, a line saying so.  Each run's launches
+         must equal PREDICTED_I2V_LAUNCHES, the controlnet must run once in
+         extraction and once per step with finite, non-zero residuals, the
+         loaded controlnet must equal what was saved bit for bit and the
+         adapter LoRA must have moved every target, and the output must be
+         16 x 512 x 512 x 3 uint8, not constant, with the reference's name.
+         Prints the phase times, ms per guided and vanilla step, peak
+         memory and seconds per video beside the card's name and power
+         limit.
 
 The line before the last is the kernels JSON; the last line is the result
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -138,6 +166,28 @@ PREDICTED_LAUNCHES = {
     "flash_bwd": (0, 10, 0), "temporal_fwd": (22, 42, 20), "temporal_bwd": (0, 22, 0),
     "fused_transformer_block": (0, 0, 0),
     "temporal_fwd_rect": (0, 0, 0), "temporal_bwd_rect": (0, 0, 0),
+}
+# one pass of the SparseCtrl controlnet at SD1.5 width, 512x512, 16 frames,
+# at batch 1 (extraction) or 2 (the CFG pair of every sampling step), on
+# the fused path: the UNet's down and mid half, so its modules route as the
+# UNet's down blocks do (fused_resnet.supported / device_supported,
+# fused_block.supported, fused_temporal.supported: C <= 640).  Kernel 5: the
+# spatial transformers of down_blocks.0 and .1 (4); kernel 7 with one
+# attention block: their motion modules (4); kernel 8: the resnets at
+# (64, 320->320) x 2, (32, 320->640), (32, 640->640), (16, 640->1280) (5);
+# the unfused transformers of down_blocks.2 and the mid block run kernel 1
+# for their self-attention (3); the unfused motion modules of down_blocks.2
+# and .3 run kernel 3 once each, one attention block (4).  The mid block has
+# no motion module (motion_module_mid_block: false).
+PREDICTED_CONTROLNET_LAUNCHES = {
+    "fused_spatial_transformer": 4, "fused_temporal_module": 4, "fused_resnet_block": 5,
+    "flash_fwd": 3, "temporal_fwd": 4,
+}
+# the i2v CLI's launches (extraction / per guided step / per vanilla step):
+# the t2v path's plus one controlnet pass in extraction and in every step
+PREDICTED_I2V_LAUNCHES = {
+    name: tuple(n + PREDICTED_CONTROLNET_LAUNCHES.get(name, 0) for n in counts)
+    for name, counts in PREDICTED_LAUNCHES.items()
 }
 # the same per rank of the frame-sharded path (phase 6), whatever the number
 # of shards: every temporal attention is rectangular, and the fused motion
@@ -594,15 +644,19 @@ def main_path_products() -> list:
     """Every distinct product (M, N, K and epilogue) kernels 5 and 7 launch
     on the main path: B·F = 16 and 32 at the levels the fused route takes
     (64x64 and 32x32; the 16x16 and 8x8 levels, at 1280 channels, are not
-    fused), in the order the modules launch them."""
+    fused), in the order the modules launch them; the SparseCtrl controlnet,
+    the UNet's down and mid half at B·F = 16 and 32, adds none."""
     from motionclone_tpu_torch.ops import fused_block as fb
     from motionclone_tpu_torch.ops import fused_temporal as ft
 
     seen, out = set(), []
     for hw, c in FUSED_SHAPES:
         for b in (1, 2):
+            # the controlnet's motion modules (one attention block) launch a
+            # subset of the UNet's (two blocks): no shape of their own
             for p in (fb.products(b * FRAMES, hw * hw, c, b, TEXT_TOKENS, 768)
-                      + ft.products(b, FRAMES, hw * hw, c)):
+                      + ft.products(b, FRAMES, hw * hw, c)
+                      + ft.products(b, FRAMES, hw * hw, c, n_attn=1)):
                 key = p[1:]
                 if key not in seen:
                     seen.add(key)
@@ -893,6 +947,56 @@ def check_fused_kernels(dev) -> dict:
                     2 * 2 * m_rows * c + 2 * 22 * c * c, True)
                 del x, x5
     return rows
+
+
+# (H = W, C) of the controlnet's motion modules at 512x512: kernel 7 with one
+# attention block takes the first two on the main path (fused_temporal.
+# supported: C <= 640); neither the routing nor the kernel's own shape rule
+# takes the other two (C = 1280), which run unfused
+CONTROLNET_TEMPORAL_SHAPES = ((64, 320), (32, 640), (16, 1280), (8, 1280))
+
+
+def check_controlnet_temporal(dev) -> None:
+    """Kernel 7 with one attention block and a 32-row positional table (the
+    SparseCtrl controlnet's motion modules) at the controlnet's four (S, C)
+    at B = 1 (extraction) and 2 (the CFG pair), F = 16, against its plain
+    version over the whole batch, two launches bit for bit, timed beside
+    the port's unfused module on the same input."""
+    from motionclone_tpu_torch.config import MotionModuleConfig
+    from motionclone_tpu_torch.models.motion_module import TemporalTransformer3D
+    from motionclone_tpu_torch.ops import fused_temporal as ft
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf16 = torch.bfloat16
+    cfg = MotionModuleConfig(attention_block_types=("Temporal_Self",),
+                             temporal_position_encoding_max_len=32)
+    with torch.no_grad():
+        for hw, c in CONTROLNET_TEMPORAL_SHAPES:
+            s = hw * hw
+            if not (ft.supported(FRAMES, s, c, HEADS) and ft.device_supported(s, c, 1)):
+                log(f"kernel fused_temporal_module (1 attention block) at S={s}, C={c}: "
+                    f"not a shape the kernel takes (LayerNorm rows of at most "
+                    f"{ft.LN_MAX_CHANNELS} channels) nor one the routing fuses "
+                    f"(C > {ft.MAX_CHANNELS}): the controlnet runs it unfused")
+                continue
+            mc = module_on_card(lambda: TemporalTransformer3D(c, cfg), dev, gen)
+            for b in (1, 2):
+                x = torch.randn(b, FRAMES, s, c, generator=gen, device=dev).to(bf16)
+                x5 = x.view(b, FRAMES, hw, hw, c)
+                wm = mc.fused_weights(x5)
+                assert len(wm.attn) == 1 and wm.pe.shape[0] == 32
+                m_rows = b * FRAMES * s
+                check_fused(
+                    {}, "fused_temporal_module[1 attn]", (b, FRAMES, s, c),
+                    lambda: ft.fused_temporal_kernel(x, wm, heads=HEADS, groups=32),
+                    lambda sl: ft.fused_temporal_module_plain(x[sl], wm, heads=HEADS,
+                                                              groups=32),
+                    [slice(0, b)], lambda: mc(x5),
+                    36 * m_rows * c * c + 4 * b * s * FRAMES * FRAMES * c,
+                    2 * 2 * m_rows * c + 2 * 18 * c * c, False, same_bits=True)
+                del x, x5
+            del mc
+            torch.cuda.empty_cache()
 
 
 def check_resnet_kernels(dev) -> dict:
@@ -1254,6 +1358,118 @@ def profile_steps(out_dir: str, steps: dict) -> None:
         prof.export_chrome_trace(os.path.join(out_dir, label.replace(" ", "_") + ".json"))
 
 
+def reference_unet_config():
+    """Phase 4's reduced depth: SD1.5's first two levels (320 and 640
+    channels, 8 heads), one layer per block."""
+    from motionclone_tpu_torch.config import UNet3DConfig
+
+    return UNet3DConfig(
+        down_block_types=("CrossAttnDownBlock3D", "DownBlock3D"),
+        up_block_types=("UpBlock3D", "CrossAttnUpBlock3D"),
+        block_out_channels=(320, 640), layers_per_block=1,
+    )
+
+
+def controlnet_config(unet_cfg, flavour: str):
+    """The SparseCtrl controlnet of ``flavour`` ("rgb": configs/sparsectrl/
+    latent_condition.yaml, "sketch": image_condition.yaml) on the topology
+    of ``unet_cfg``."""
+    import dataclasses
+
+    from motionclone_tpu_torch.config import load_yaml
+    from motionclone_tpu_torch.models.sparse_controlnet import SparseControlNetConfig
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    name = {"rgb": "latent_condition.yaml", "sketch": "image_condition.yaml"}[flavour]
+    d = load_yaml(os.path.join(here, "configs", "sparsectrl", name))
+    cfg = SparseControlNetConfig.from_yaml_dict(d["controlnet_additional_kwargs"], unet_cfg)
+    return dataclasses.replace(cfg, down_block_types=unet_cfg.down_block_types)
+
+
+def reference_check_i2v(dev, wrappers) -> None:
+    """The i2v slice on the card (bf16, the default fused path) against the
+    port on the CPU (f32, plain, unfused) at phase 4's reduced depth, for
+    both flavours: a controlnet with seeded random weights (no zero head) on
+    a condition scattered to frames 0 and 8, its residuals on the CFG pair,
+    then the conditioned extraction, one guided and one vanilla step."""
+    from motionclone_tpu_torch.config import NoiseScheduleConfig
+    from motionclone_tpu_torch.models.sparse_controlnet import (
+        SparseControlNetModel,
+        scatter_condition,
+    )
+    from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
+    from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns
+
+    cfg = reference_unet_config()
+    infer = t2v_config(width=128, height=128)
+    gen = torch.Generator().manual_seed(98)
+    ref = UNet3DConditionModel(cfg)
+    init_scaled_(ref, gen)
+    card = UNet3DConditionModel(cfg)
+    card.load_state_dict(ref.state_dict())
+    card = card.to(device=dev, dtype=torch.bfloat16)
+    shape = (1, 16, 16, 16, 4)
+    lat, noise = torch.randn(shape, generator=gen), torch.randn(shape, generator=gen)
+    uncond, cond = torch.randn(1, 77, 768, generator=gen), torch.randn(1, 77, 768, generator=gen)
+    for flavour in ("rgb", "sketch"):
+        cn_cfg = controlnet_config(cfg, flavour)
+        cn_ref = SparseControlNetModel(cn_cfg)
+        init_scaled_(cn_ref, gen)
+        cn_card = SparseControlNetModel(cn_cfg)
+        cn_card.load_state_dict(cn_ref.state_dict())
+        cn_card = cn_card.to(device=dev, dtype=torch.bfloat16).eval()
+        side = 16 * cn_cfg.condition_downscale
+        frames = torch.rand(1, 2, side, side, cn_cfg.conditioning_channels, generator=gen)
+        c, m = scatter_condition(frames, (0, 8), 16)
+        results, launches = {}, {}
+        for name, unet, cn, d in (("cpu", ref, cn_ref.eval(), "cpu"),
+                                  ("card fused", card, cn_card, dev)):
+            for w in wrappers.values():
+                w.launches = 0
+            fns = make_sampling_fns(unet, NoiseScheduleConfig(), infer, controlnet=cn)
+            mv = lambda x: x.to(device=d)
+            cn_cond = (mv(c), mv(m), 0.9)
+            t, tp = (int(x) for x in fns.timesteps[:2])
+            impl = "fused" if d != "cpu" else "flash"
+            with torch.no_grad():
+                down, mid = cn(mv(torch.cat([lat, lat])), t, mv(torch.cat([uncond, cond])),
+                               mv(torch.cat([c, c])), mv(torch.cat([m, m])), 0.9, impl=impl)
+            rep = fns.extract(mv(lat), mv(noise), mv(uncond), cn_cond)
+            guided, loss = fns.guided_step(mv(lat), t, tp, 1.0, mv(uncond), mv(cond), rep,
+                                           cn_cond)
+            t, tp = int(fns.timesteps[2]), int(fns.timesteps[3])
+            vanilla = fns.vanilla_step(mv(lat), t, tp, mv(uncond), mv(cond), cn_cond)
+            launches[name] = {n: w.launches for n, w in wrappers.items()}
+            results[name] = {
+                "residuals": torch.cat([r.flatten() for r in down + (mid,)]),
+                "rep_values": torch.cat([v.flatten() for v, _ in rep.values()]),
+                "guided_update": guided - mv(lat), "vanilla_update": vanilla - mv(lat),
+                "loss": loss.reshape(1),
+            }
+        log(f"reference i2v {flavour} launches, card fused path: {launches['card fused']}")
+        for name in ("fused_spatial_transformer", "fused_temporal_module",
+                     "fused_resnet_block"):
+            if launches["card fused"][name] <= 0:
+                raise AssertionError(f"reference i2v {flavour}: {name} never launched")
+        if not results["cpu"]["residuals"].abs().max() > 0:
+            raise AssertionError(f"reference i2v {flavour}: the residuals are zero")
+        # phase 4's tolerances; the residuals pass through the controlnet's
+        # depth once, as the noise prediction through the UNet's
+        tols = {"residuals": 3e-2, "rep_values": 3e-2, "guided_update": 1e-1,
+                "vanilla_update": 1e-1, "loss": 1e-1}
+        for key, tol in tols.items():
+            a = results["cpu"][key].float()
+            b = results["card fused"][key].float().cpu()
+            rel = ((a - b).norm() / a.norm()).item()
+            ok = bool(torch.isfinite(b).all()) and rel <= tol
+            log(f"reference i2v {flavour} card fused {key}: relative L2 error {rel:.3e} "
+                f"(tol {tol:.0e}) {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"reference i2v check {flavour} {key}: {rel}")
+        del cn_card, cn_ref
+    torch.cuda.empty_cache()
+
+
 def reference_check(dev, wrappers) -> None:
     """The port on the card (bf16, kernels) against the port on the CPU
     (f32, plain versions, unfused) at a reduced depth that keeps the card's
@@ -1262,16 +1478,12 @@ def reference_check(dev, wrappers) -> None:
     inputs, on the card's default (fused) path and on its "flash" path.
     Then one linear-projection Transformer3DModel (320 channels, 8 heads),
     whose block takes kernel 6 on the fused path."""
-    from motionclone_tpu_torch.config import NoiseScheduleConfig, UNet3DConfig
+    from motionclone_tpu_torch.config import NoiseScheduleConfig
     from motionclone_tpu_torch.models.attention import Transformer3DModel
     from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
     from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns, resolve_impl
 
-    cfg = UNet3DConfig(
-        down_block_types=("CrossAttnDownBlock3D", "DownBlock3D"),
-        up_block_types=("UpBlock3D", "CrossAttnUpBlock3D"),
-        block_out_channels=(320, 640), layers_per_block=1,
-    )
+    cfg = reference_unet_config()
     infer = t2v_config(width=128, height=128)
     gen = torch.Generator().manual_seed(99)
     ref = UNet3DConditionModel(cfg)
@@ -1725,6 +1937,286 @@ def t2v_cli(dev, wrappers, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the i2v CLI at SD1.5 width, both SparseCtrl flavours
+# ---------------------------------------------------------------------------
+
+# i2v_sketch's schedule, cut from configs/i2v_sketch.yaml's 200 steps (120
+# guided) so that the script stays well inside its time; i2v_rgb runs its
+# full 100 steps (40 guided)
+I2V_SKETCH_CUT = {"inference_steps": 50, "guidance_steps": 30}
+# the reference workloads' prompts (configs/i2v_{rgb,sketch}.jsonl), no seed:
+# the CLI's default seed (76739) applies
+I2V_PROMPTS = {"rgb": "Dog, lying on the grass", "sketch": "Lion, walks in the forest"}
+
+
+def write_png(path: str, rgb) -> None:
+    """An 8-bit RGB PNG of a uint8 (H, W, 3) array (zlib, no row filter)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        crc = zlib.crc32(tag + data) & 0xFFFFFFFF
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def write_controlnet(root: str, dev, unet_cfg, flavour: str) -> dict:
+    """A SparseCtrl-shaped ``.ckpt`` of ``flavour`` at the width of
+    ``unet_cfg`` with seeded random weights (init_scaled_: no zero head),
+    saved in bf16 with the ``pos_encoder.pe`` buffers (32 rows) and the
+    ``animatediff_config`` entry a SparseCtrl checkpoint carries; the
+    flavour's sparsectrl YAML beside it.  Returns the saved state dict."""
+    import shutil
+
+    from motionclone_tpu_torch.models.sparse_controlnet import SparseControlNetModel
+
+    gen = torch.Generator(device=dev).manual_seed({"rgb": 4321, "sketch": 8765}[flavour])
+    model = build_model(SparseControlNetModel, controlnet_config(unet_cfg, flavour), dev, gen,
+                        torch.bfloat16)
+    saved = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    ckpt = dict(saved)
+    for key, w in saved.items():
+        if key.endswith(".to_q.weight") and "motion_modules." in key:
+            ckpt[key[: -len("to_q.weight")] + "pos_encoder.pe"] = torch.zeros(
+                1, 32, w.shape[0], dtype=torch.bfloat16)
+    ckpt["animatediff_config"] = {"controlnet": flavour, "note": "not a tensor"}
+    torch.save(ckpt, os.path.join(root, f"sparsectrl_{flavour}.ckpt"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    name = {"rgb": "latent_condition.yaml", "sketch": "image_condition.yaml"}[flavour]
+    shutil.copy(os.path.join(here, "configs", "sparsectrl", name),
+                os.path.join(root, f"sparsectrl_{flavour}.yaml"))
+    torch.cuda.empty_cache()
+    return saved
+
+
+def write_adapter_lora(root: str, unet_sd: dict, rank: int = 32) -> list:
+    """A diffusers-format adapter LoRA (``processor.to_q_lora.down.weight``
+    naming, as AnimateDiff v3's adapter) on every q, k, v and out
+    projection of the UNet's spatial attentions, seeded random float32
+    weights; returns the merged targets' keys."""
+    import re
+
+    gen = torch.Generator().manual_seed(99)
+    lora, targets = {}, []
+    for key, w in unet_sd.items():
+        m = re.fullmatch(r"(.*\.attn[12])\.(to_q|to_k|to_v|to_out\.0)\.weight", key)
+        if m is None or "motion_modules." in key:
+            continue
+        proj = m.group(2).replace(".0", "")
+        out_ch, in_ch = w.shape
+        prefix = f"{m.group(1)}.processor.{proj}_lora"
+        lora[prefix + ".down.weight"] = torch.randn(rank, in_ch, generator=gen) * in_ch ** -0.5
+        lora[prefix + ".up.weight"] = torch.randn(out_ch, rank, generator=gen) * 0.01
+        targets.append(key)
+    torch.save(lora, os.path.join(root, "adapter_lora.ckpt"))
+    return targets
+
+
+def write_i2v_config(root: str, flavour: str) -> str:
+    """configs/i2v_{flavour}.yaml with only its asset paths changed (and,
+    for the sketch flavour, the schedule cut to I2V_SKETCH_CUT)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    assets = {"motion_module": "mm.ckpt", "dreambooth_path": "",
+              "model_config": "model_config.yaml",
+              "controlnet_path": f"sparsectrl_{flavour}.ckpt",
+              "controlnet_config": f"sparsectrl_{flavour}.yaml",
+              "adapter_lora_path": "adapter_lora.ckpt"}
+    cut = I2V_SKETCH_CUT if flavour == "sketch" else {}
+    lines = []
+    with open(os.path.join(here, "configs", f"i2v_{flavour}.yaml")) as fh:
+        for line in fh:
+            key = line.split(":", 1)[0]
+            if key in assets:
+                line = f'{key}: "{assets[key]}"\n'
+            elif key in cut:
+                line = f"{key}: {cut[key]}\n"
+            lines.append(line)
+    path = os.path.join(root, f"i2v_{flavour}.yaml")
+    with open(path, "w") as fh:
+        fh.writelines(lines)
+    return path
+
+
+def i2v_cli(dev, wrappers, card: str) -> dict:
+    """Phase 8: the port's ``cli.i2v_main`` on ``dev`` for both SparseCtrl
+    flavours, from a model directory written to a temporary directory at
+    SD1.5 + AnimateDiff v3 width (phase 7's, plus an adapter LoRA, a
+    controlnet per flavour and a 512 x 512 condition PNG, the reference
+    clip's first frame), at image_index [0].  Returns each flavour's
+    launches."""
+    import importlib.util
+    import tempfile
+
+    from motionclone_tpu_torch.io import video as video_io
+    from motionclone_tpu_torch.pipeline import runner
+
+    side, frames = 512, 16
+    clip = reference_clip(frames, side)
+    stubbed = None
+    if importlib.util.find_spec("cv2") is None:
+        stubbed = {}
+        log("video and image codec: cv2 absent on this machine; decode/write stubbed")
+        video_io.read_video_frames = lambda path: (clip, 8.0)
+        video_io.read_image_rgb = lambda path: clip[0]
+        runner.write_video = lambda path, video, fps=8: stubbed.__setitem__(path, video)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="i2v_cli_") as root:
+        t0 = time.perf_counter()
+        unet_cfg, vae_cfg, clip_cfg = sd15_configs()
+        saved = write_model_dir(root, dev, (unet_cfg, vae_cfg, clip_cfg))
+        lora_targets = write_adapter_lora(root, saved["unet"])
+        saved_cn = {f: write_controlnet(root, dev, unet_cfg, f) for f in ("rgb", "sketch")}
+        if stubbed is None:
+            video_io.write_video(os.path.join(root, "reference.mp4"), clip, fps=8)
+            write_png(os.path.join(root, "condition.png"), clip[0])
+        write_s = time.perf_counter() - t0
+        log(f"i2v CLI: model directory written in {write_s:.1f} s (adapter LoRA on "
+            f"{len(lora_targets)} projections)")
+        for flavour in ("rgb", "sketch"):
+            out[flavour] = i2v_cli_run(root, flavour, dev, wrappers, card, saved,
+                                       saved_cn[flavour], lora_targets, stubbed)
+        del saved, saved_cn
+    torch.cuda.empty_cache()
+    return out
+
+
+def i2v_cli_run(root, flavour, dev, wrappers, card, saved, saved_cn, lora_targets,
+                stubbed) -> dict:
+    """One flavour of phase 8: ``cli.i2v_main`` with the launch counts set
+    to 0 just before and read just after."""
+    from motionclone_tpu_torch import cli
+    from motionclone_tpu_torch.io import video as video_io
+    from motionclone_tpu_torch.models.sparse_controlnet import SparseControlNetModel
+
+    side, frames, prompt = 512, 16, I2V_PROMPTS[flavour]
+    with open(os.path.join(root, f"examples_{flavour}.jsonl"), "w") as fh:
+        fh.write(json.dumps({"video_path": "reference.mp4", "new_prompt": prompt,
+                             "condition_image_paths": ["condition.png"],
+                             "image_index": [0]}) + "\n")
+    argv = ["--pretrained-model-path", os.path.join(root, "sd"),
+            "--inference_config", write_i2v_config(root, flavour),
+            "--examples", os.path.join(root, f"examples_{flavour}.jsonl"),
+            "--motion-representation-save-dir", os.path.join(root, f"reps_{flavour}"),
+            "--generated-videos-save-dir", os.path.join(root, f"out_{flavour}"),
+            "--config-root", root, "--device", str(dev),
+            "--W", str(side), "--H", str(side), "--L", str(frames)]
+    # the controlnet's passes: how many, and the first one's residuals
+    passes = []
+    forward = SparseControlNetModel.forward
+
+    def spy(self, *args, **kwargs):
+        res = forward(self, *args, **kwargs)
+        passes.append(res if not passes else None)
+        return res
+
+    SparseControlNetModel.forward = spy
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rt, paths = cli.i2v_main(argv)
+        torch.cuda.synchronize()
+        video_s = time.perf_counter() - t0
+        launches = {n: wrappers[n].launches for n in CLI_KERNELS}
+    finally:
+        SparseControlNetModel.forward = forward
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, timings = rt.infer_cfg, rt.timings
+    tag = f"i2v_{flavour} CLI"
+    cut = (f"; schedule cut from configs/i2v_sketch.yaml's 200 steps (120 guided) to "
+           f"{cfg.inference_steps} ({cfg.guidance_steps} guided)" if flavour == "sketch"
+           else " (configs/i2v_rgb.yaml's)")
+    log(f"{tag}: schedule {cfg.inference_steps} steps, {cfg.guidance_steps} guided{cut}; "
+        f"{side}x{side}x{frames}, bf16, random weights, controlnet scale "
+        f"{cfg.controlnet_scale}")
+    g, v = cfg.guidance_steps, cfg.inference_steps - cfg.guidance_steps
+    differs = []
+    for name, n in launches.items():
+        ext, per_g, per_v = PREDICTED_I2V_LAUNCHES[name]
+        want = ext + g * per_g + v * per_v
+        log(f"{tag} launches {name:25s} measured {n:5d} predicted {want:5d}"
+            f"{'' if n == want else '  DIFFERS'}")
+        if n != want:
+            differs.append(name)
+    if differs:
+        raise AssertionError(f"{tag}: launches differ from the prediction: {differs}")
+    if len(passes) != 1 + cfg.inference_steps:
+        raise AssertionError(f"{tag}: {len(passes)} controlnet passes, not "
+                             f"1 + {cfg.inference_steps}")
+    down, mid = passes[0]
+    for r in down + (mid,):
+        if not bool(torch.isfinite(r.float()).all()) or not float(r.abs().max()) > 0:
+            raise AssertionError(f"{tag}: a residual is non-finite or zero")
+    # the loaded controlnet equals what was saved, bit for bit; the adapter
+    # LoRA moved its targets and nothing else of the UNet
+    cn = rt.pipeline.controlnet.state_dict()
+    if sorted(cn) != sorted(saved_cn):
+        raise AssertionError(f"{tag}: the loaded controlnet has other keys than were saved")
+    for k, want in saved_cn.items():
+        got = cn[k]
+        if got.dtype != torch.bfloat16 or not torch.equal(got.cpu().view(torch.int16),
+                                                          want.view(torch.int16)):
+            raise AssertionError(f"{tag}: loaded controlnet {k} differs from what was saved")
+    unet = rt.pipeline.unet.state_dict()
+    moved = [k for k in lora_targets if not torch.equal(unet[k].cpu(), saved["unet"][k])]
+    if len(moved) != len(lora_targets):
+        raise AssertionError(f"{tag}: the adapter LoRA moved {len(moved)} of "
+                             f"{len(lora_targets)} targets")
+    name = "reference_" + (prompt + cfg.positive_prompt).strip().replace(" ", "_") \
+        + "76739_76739.mp4"
+    if paths != [os.path.join(root, f"out_{flavour}", name)]:
+        raise AssertionError(f"{tag} wrote {paths}, not {name}")
+    video = stubbed[paths[0]] if stubbed is not None else video_io.read_video_frames(
+        paths[0])[0]
+    if (video.shape != (frames, side, side, 3) or video.dtype.name != "uint8"
+            or int(video.max()) == 0 or int(video.min()) == int(video.max())):
+        raise AssertionError(f"{tag} output {video.shape} {video.dtype} is constant, all "
+                             f"zero or of another shape")
+    # one controlnet pass alone on the CFG pair, as every step runs it
+    from motionclone_tpu_torch.config import load_examples
+
+    example = load_examples(os.path.join(root, f"examples_{flavour}.jsonl"))[0]
+    cond, mask, scale = rt.sampling_condition(example, 76739, cfg.controlnet_scale, root)
+    uncond, cond_emb = rt.encode_prompt(prompt, cfg.negative_prompt)
+    lat2 = torch.randn(2, frames, side // 8, side // 8, 4, device=dev, dtype=torch.bfloat16)
+    args = (lat2, 500, torch.cat([uncond, cond_emb]), torch.cat([cond, cond]).to(dev),
+            torch.cat([mask, mask]).to(dev), scale)
+    with torch.no_grad():
+        pass_ms = time_ms(lambda: rt.pipeline.controlnet(*args, impl="fused"), reps=5)
+    del args, lat2, cond, mask
+    median = lambda ms: sorted(ms)[len(ms) // 2]
+    gm, vm = timings["guided_ms"], timings["vanilla_ms"]
+    for line in (
+            f"weights loaded in {rt.load_seconds:.1f} s (controlnet and adapter LoRA "
+            f"included)",
+            f"one controlnet pass on the CFG pair (B·F = 32, fused) {pass_ms:.1f} ms",
+            f"tokenizer + CLIP {timings['text']:.3f} s",
+            f"extraction {timings['extract']:.2f} s (controlnet pass included)",
+            f"condition image {timings['condition']:.3f} s",
+            f"sampling {timings['sample']:.2f} s: ms per guided step median "
+            f"{median(gm):.1f} (min {min(gm):.1f}, max {max(gm):.1f}, {len(gm)} steps), "
+            f"per vanilla step median {median(vm):.1f} (min {min(vm):.1f}, "
+            f"max {max(vm):.1f}, {len(vm)} steps)",
+            f"decode + write {timings['decode_write']:.2f} s",
+            f"peak device memory {peak_gb:.2f} GB",
+            f"seconds per video from the CLI: {video_s:.1f} (weights load included), "
+            f"{video_s - rt.load_seconds:.1f} (excluded)"):
+        log(f"{tag} {line} [{card}]")
+    del rt, passes, down, mid
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1910,6 +2402,7 @@ def main() -> int:
     rows = check_kernels(dev)
     rows.update(check_fused_kernels(dev))
     rows.update(check_resnet_kernels(dev))
+    check_controlnet_temporal(dev)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the main path (with phase 6, the only windows the launch
@@ -1921,6 +2414,7 @@ def main() -> int:
     # phase 4: the card against the CPU at a reduced depth
     t0 = time.perf_counter()
     reference_check(dev, wrappers)
+    reference_check_i2v(dev, wrappers)
     log(f"phase reference: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     # phase 6: the frame-sharded main path, against phase 3's run
@@ -1932,6 +2426,11 @@ def main() -> int:
     t0 = time.perf_counter()
     t2v_cli(dev, wrappers, card)
     log(f"phase t2v CLI: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # phase 8: the i2v CLI, both SparseCtrl flavours
+    t0 = time.perf_counter()
+    i2v_cli(dev, wrappers, card)
+    log(f"phase i2v CLI: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,9 +1,9 @@
 """Command line of the port: ``python3 -m motionclone_tpu_torch.cli`` runs
-:func:`t2v_main`.
+:func:`t2v_main`, ``python3 -m motionclone_tpu_torch.i2v`` :func:`i2v_main`.
 
-Port of the t2v part of ``motionclone_tpu/cli.py``, with the same flags and
-defaults and one more, ``--device`` (``cuda`` by default; ``cpu`` runs the
-kernels' plain PyTorch versions).  Flags of the JAX package that the port
+Port of the t2v and i2v entry points of ``motionclone_tpu/cli.py``, with
+the same flags and defaults and one more, ``--device`` (``cuda`` by
+default; ``cpu`` runs the kernels' plain PyTorch versions).  Flags of the JAX package that the port
 does not have yet still parse: ``--frame-shard``, ``--frame-shard-mode``,
 ``--cfg-pair``, ``--approx``, ``--resume`` and ``--weights-cache`` exit with
 a message naming their ``ROADMAP.md`` item when given another value than
@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from motionclone_tpu_torch.config import load_examples, load_inference_config
+from motionclone_tpu_torch.config import InferenceConfig, load_examples, load_inference_config
 from motionclone_tpu_torch.pipeline.runner import MotionCloneRuntime
 
 # flag -> (its default, why the port refuses another value)
@@ -37,15 +37,16 @@ UNPORTED = {
 }
 
 
-def build_parser(default_config: str, default_examples: str) -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="MotionClone text-to-video (PyTorch port)")
+def build_parser(default_config: str, default_examples: str,
+                 default_seed: int = 2025) -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="MotionClone (PyTorch port)")
     parser.add_argument("--pretrained-model-path", type=str, default="models/StableDiffusion")
     parser.add_argument("--inference_config", type=str, default=default_config)
     parser.add_argument("--examples", type=str, default=default_examples)
     parser.add_argument("--motion-representation-save-dir", type=str,
                         default="motion_representation/")
     parser.add_argument("--generated-videos-save-dir", type=str, default="generated_videos")
-    parser.add_argument("--default-seed", type=int, default=2025)
+    parser.add_argument("--default-seed", type=int, default=default_seed)
     parser.add_argument("--L", type=int, default=16)
     parser.add_argument("--W", type=int, default=512)
     parser.add_argument("--H", type=int, default=512)
@@ -78,11 +79,19 @@ def build_parser(default_config: str, default_examples: str) -> argparse.Argumen
     return parser
 
 
-def _setup(args) -> MotionCloneRuntime:
+def _refuse_unported(args) -> None:
     for flag, (default, why) in UNPORTED.items():
         if getattr(args, flag) != default:
             raise SystemExit(f"--{flag.replace('_', '-')} is not available in the PyTorch "
                              f"port: {why}")
+
+
+def _load_config(args) -> InferenceConfig:
+    return load_inference_config(args.inference_config, width=args.W, height=args.H,
+                                 video_length=args.L)
+
+
+def _setup(args, cfg: Optional[InferenceConfig] = None) -> MotionCloneRuntime:
     if args.visible_gpu:
         print("--visible_gpu does nothing here; select the card with "
               "CUDA_VISIBLE_DEVICES or --device cuda:N")
@@ -95,8 +104,8 @@ def _setup(args) -> MotionCloneRuntime:
         print(f"--attention-impl {args.attention_impl}: running the port's unfused "
               f"path (flash)")
         args.attention_impl = "flash"
-    cfg = load_inference_config(args.inference_config, width=args.W, height=args.H,
-                                video_length=args.L)
+    if cfg is None:
+        cfg = _load_config(args)
     os.makedirs(args.generated_videos_save_dir, exist_ok=True)
     with open(os.path.join(args.generated_videos_save_dir, "inference_config.json"), "w") as f:
         json.dump({k: str(v) for k, v in vars(cfg).items()}, f, indent=2)
@@ -107,12 +116,12 @@ def _setup(args) -> MotionCloneRuntime:
     )
 
 
-def run_serial(args):
-    """Every example of ``args.examples`` in turn; returns the runtime and
-    the mp4 paths."""
-    runtime = _setup(args)
+def run_serial(args, cfg: Optional[InferenceConfig] = None, examples=None):
+    """Every example of ``args.examples`` (or ``examples``) in turn; returns
+    the runtime and the mp4 paths."""
+    runtime = _setup(args, cfg)
     paths = []
-    for example in load_examples(args.examples):
+    for example in load_examples(args.examples) if examples is None else examples:
         out_path = runtime.run_example(
             example,
             motion_rep_dir=args.motion_representation_save_dir,
@@ -128,7 +137,30 @@ def run_serial(args):
 def t2v_main(argv: Optional[Sequence[str]] = None):
     """The t2v CLI; returns (runtime, mp4 paths)."""
     args = build_parser("configs/t2v_camera.yaml", "configs/t2v_camera.jsonl").parse_args(argv)
+    _refuse_unported(args)
     return run_serial(args)
+
+
+def i2v_main(argv: Optional[Sequence[str]] = None):
+    """The i2v CLI (SparseCtrl conditioning; the sketch workload and seed
+    76739 by default); returns (runtime, mp4 paths).  Raises before any
+    weight is read when the config names no controlnet or an example's
+    condition images do not pair with its ``image_index``."""
+    args = build_parser("configs/i2v_sketch.yaml", "configs/i2v_sketch.jsonl",
+                        default_seed=76739).parse_args(argv)
+    _refuse_unported(args)
+    cfg = _load_config(args)
+    if not cfg.controlnet_path or not cfg.controlnet_config:
+        raise ValueError("i2v requires controlnet_path and controlnet_config in the YAML")
+    examples = load_examples(args.examples)
+    for example in examples:
+        if not example.condition_image_paths:
+            raise ValueError(f"i2v example missing condition_image_paths: {example}")
+        if len(example.image_index) != len(example.condition_image_paths):
+            raise ValueError(
+                f"i2v example has {len(example.condition_image_paths)} condition images "
+                f"but {len(example.image_index)} image_index entries: {example}")
+    return run_serial(args, cfg, examples)
 
 
 if __name__ == "__main__":

@@ -171,8 +171,9 @@ class InferenceConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Example:
-    """One JSONL example (configs/t2v_camera.jsonl); the i2v fields are
-    parsed and carried, the t2v runtime does not use them."""
+    """One JSONL example (configs/t2v_camera.jsonl); the i2v fields
+    (condition images, their frame indices, the conditioning scale) are
+    read by a runtime with a controlnet (configs/i2v_rgb.jsonl)."""
 
     video_path: str
     new_prompt: str

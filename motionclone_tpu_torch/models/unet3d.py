@@ -1,7 +1,7 @@
 """UNet3DConditionModel: the AnimateDiff SD1.5 UNet.
 
-Port of ``motionclone_tpu/models/unet3d.py`` without the controlnet
-residuals.  Submodule names follow the diffusers keys.  Activations are
+Port of ``motionclone_tpu/models/unet3d.py``.  Submodule names follow the
+diffusers keys.  Activations are
 channels-last video tensors (B, F, H, W, C); latents are (B, F, 64, 64, 4)
 at 512x512.
 
@@ -15,6 +15,9 @@ at 512x512.
   probabilities emitted at or before the cut, so this changes no value and
   no gradient; it keeps autograd from storing the tail's activations (the
   reference's no-grad split after the last guidance block).
+* ``down_block_residuals`` / ``mid_block_residual``: a controlnet's
+  residuals (``models/sparse_controlnet.py``), added to the skips after the
+  down blocks and to the mid block's output, cast to the activation dtype.
 * ``frame_group``: frame-sharded sampling (``parallel/frames.py``): the
   sample holds the rank's frames and every motion module gathers its keys
   and values over the group; everything else works per frame.
@@ -142,6 +145,8 @@ class UNet3DConditionModel(nn.Module):
         encoder_hidden_states: torch.Tensor,  # (B, L, cross_attention_dim)
         *,
         guidance_blocks: Tuple[str, ...] = (),
+        down_block_residuals: Optional[Tuple[torch.Tensor, ...]] = None,
+        mid_block_residual: Optional[torch.Tensor] = None,
         max_up_block: Optional[int] = None,
         post_guidance_cut: Optional[int] = None,
         attention_impl: str = "flash",
@@ -177,9 +182,16 @@ class UNet3DConditionModel(nn.Module):
                 x, block_skips, p = block(x, temb, guidance_blocks, impl, frame_group)
             skips.extend(block_skips)
             probs.update(p)
+        if down_block_residuals is not None:
+            if len(down_block_residuals) != len(skips):
+                raise ValueError(f"{len(down_block_residuals)} down-block residuals for "
+                                 f"{len(skips)} skips")
+            skips = [s + r.to(s.dtype) for s, r in zip(skips, down_block_residuals)]
 
         x, p = self.mid_block(x, temb, context, guidance_blocks, impl, frame_group)
         probs.update(p)
+        if mid_block_residual is not None:
+            x = x + mid_block_residual.to(x.dtype)
 
         for i, block in enumerate(self.up_blocks):
             if max_up_block is not None and i > max_up_block:

@@ -100,12 +100,18 @@ def products(b: int, f: int, s: int, c: int, n_attn: int = 2) -> list:
     ]
 
 
+# the widest row csrc/fused_common.cuh's LayerNorm holds (ln_rows_kernel:
+# 32 lanes x 8 channels x kRowChunks = 4)
+LN_MAX_CHANNELS = 1024
+
+
 def device_supported(s: int, c: int, n_attn: int = 2) -> bool:
     """Whether kernel 7 takes S pixels of C channels with ``n_attn``
-    attention blocks: every product of :func:`products` passes
-    ``fused_common.product_takes``.  A pure function of the shapes; no
-    device is needed."""
-    return all(fc.product_takes(p) for p in products(1, 1, s, c, n_attn))
+    attention blocks: C fits the LayerNorm's row (``LN_MAX_CHANNELS``) and
+    every product of :func:`products` passes ``fused_common.product_takes``.
+    A pure function of the shapes; no device is needed."""
+    return c <= LN_MAX_CHANNELS and all(
+        fc.product_takes(p) for p in products(1, 1, s, c, n_attn))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,17 @@
-"""The t2v runtime: checkpoints -> prompts -> motion representation -> mp4.
+"""The runtime: checkpoints -> prompts -> motion representation -> mp4.
 
-Port of the t2v part of ``motionclone_tpu/pipeline/runner.py``: model
-loading from a diffusers-layout directory plus the workload's motion
-module, DreamBooth checkpoint and adapter LoRA; prompt encoding; per
-example, extraction (cached on disk, with a meta record that invalidates
-entries extracted under other settings), guided sampling, the decode to
-uint8 on the device and the mp4, named as the reference names it.  The
+Port of ``motionclone_tpu/pipeline/runner.py``: model loading from a
+diffusers-layout directory plus the workload's motion module, DreamBooth
+checkpoint, adapter LoRA and, for the i2v workloads (``controlnet_path``
+set), the SparseCtrl controlnet; prompt encoding; per example, extraction
+(cached on disk, with a meta record that invalidates entries extracted
+under other settings), guided sampling, the decode to uint8 on the device
+and the mp4, named as the reference names it.  With a controlnet both
+extraction and sampling are conditioned: extraction on the reference
+video's own frames at ``image_index`` (their latents for the RGB flavour,
+their pixels in [0, 1] for the sketch flavour), sampling on the example's
+condition images (VAE-encoded with the ``CN_IMAGE_POSTERIOR`` draw of the
+seed for the RGB flavour, pixels for the sketch flavour).  The
 compute runs in :class:`~motionclone_tpu_torch.pipeline.motionclone.MotionClonePipeline`
 on ``device`` (CUDA unless the caller asks for the CPU).
 """
@@ -20,27 +26,35 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from motionclone_tpu_torch.config import Example, InferenceConfig, load_model_config
+from motionclone_tpu_torch.config import Example, InferenceConfig, load_model_config, load_yaml
 from motionclone_tpu_torch.diffusion.guidance import (
     load_motion_representation,
     load_motion_representation_meta,
     save_motion_representation,
 )
 from motionclone_tpu_torch.io.tokenizer import ClipTokenizer
-from motionclone_tpu_torch.io.video import preprocess_video, write_video
+from motionclone_tpu_torch.io.video import load_condition_images, preprocess_video, write_video
 from motionclone_tpu_torch.models.clip_text import CLIPTextModel
+from motionclone_tpu_torch.models.sparse_controlnet import (
+    SparseControlNetConfig,
+    SparseControlNetModel,
+    scatter_condition,
+)
 from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
 from motionclone_tpu_torch.models.unet_blocks import match_guidance
 from motionclone_tpu_torch.models.vae import AutoencoderKL
 from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline, resolve_device
+from motionclone_tpu_torch.utils import rng
 from motionclone_tpu_torch.weights.load import (
     apply_unet_diffusers_config,
     assemble_pipeline_state_dicts,
     clip_config_from_dir,
     clip_state_dict,
+    controlnet_state_dict,
     load_into,
     vae_config_from_dir,
 )
+from motionclone_tpu_torch.weights.io import load_state_dict
 
 
 def motion_rep_meta(cfg: InferenceConfig, seed_motion: int) -> dict:
@@ -95,7 +109,9 @@ class MotionCloneRuntime:
     ``device``: "cuda" (the default; raises on a machine without CUDA) or
     "cpu"; ``dtype``: the modules' and latents' dtype (bf16 by default);
     ``attention_impl``: that of :class:`MotionClonePipeline`.  Relative
-    asset paths of ``infer_cfg`` are resolved under ``config_root``.
+    asset paths of ``infer_cfg`` are resolved under ``config_root``.  A
+    ``controlnet_path`` builds the SparseCtrl controlnet of
+    ``controlnet_config`` (``cn_cfg``; None without one).
     ``load_seconds`` holds the time the weights took from files to modules
     on the device."""
 
@@ -134,11 +150,24 @@ class MotionCloneRuntime:
         clip = load_into(lambda: CLIPTextModel(self.clip_cfg),
                          clip_state_dict(sds["text_encoder"]), dtype, "text_encoder")
         del sds
+        controlnet, self.cn_cfg = None, None
+        if infer_cfg.controlnet_path:
+            if not infer_cfg.controlnet_config:
+                raise ValueError("controlnet_path is set but controlnet_config is not: "
+                                 "the controlnet's YAML gives its topology")
+            cn_yaml = load_yaml(j(infer_cfg.controlnet_config))
+            self.cn_cfg = SparseControlNetConfig.from_yaml_dict(
+                cn_yaml.get("controlnet_additional_kwargs", {}), self.unet_cfg)
+            controlnet = load_into(
+                lambda: SparseControlNetModel(self.cn_cfg),
+                controlnet_state_dict(load_state_dict(j(infer_cfg.controlnet_path))),
+                dtype, "controlnet")
         self.tokenizer = ClipTokenizer.from_pretrained(pretrained_model_path,
                                                        subfolder="tokenizer")
         self.pipeline = MotionClonePipeline(
             self.unet_cfg, self.sched_cfg, infer_cfg, unet, vae=vae, text_encoder=clip,
             device=self.device, dtype=dtype, attention_impl=attention_impl,
+            controlnet=controlnet,
         )
         self._sync()
         self.load_seconds = time.perf_counter() - t0
@@ -184,10 +213,45 @@ class MotionCloneRuntime:
 
     # -- latents ----------------------------------------------------------
 
-    def encode_video(self, video: np.ndarray, seed: int) -> torch.Tensor:
+    def encode_video(self, video: np.ndarray, seed: int,
+                     domain: int = rng.VAE_POSTERIOR) -> torch.Tensor:
         """Pixels (F, H, W, 3) in [-1, 1] -> scaled latents (1, F, h, w, 4)
-        with a posterior draw."""
-        return self.pipeline.encode_video(torch.from_numpy(np.ascontiguousarray(video)), seed)
+        with a posterior draw in ``domain`` of ``seed``."""
+        return self.pipeline.encode_video(torch.from_numpy(np.ascontiguousarray(video)), seed,
+                                          domain)
+
+    def _condition(self, frames: torch.Tensor, image_index, scale: float):
+        """``cn_cond`` for the pipeline: condition frames (1, N, H', W', C)
+        scattered to ``image_index`` of the video, with their mask."""
+        cond, mask = scatter_condition(frames.to(self.dtype), tuple(image_index),
+                                       self.infer_cfg.video_length)
+        return cond, mask, float(scale)
+
+    def sampling_condition(self, example: Example, seed: int, scale: float,
+                           config_root: str = "."):
+        """``cn_cond`` for sampling: the example's condition images at the
+        video's size, VAE-encoded with the seed's ``CN_IMAGE_POSTERIOR``
+        draw (the simplified, RGB embedding) or as pixels in [0, 1]."""
+        cfg = self.infer_cfg
+        paths = [os.path.join(config_root, p) for p in example.condition_image_paths]
+        imgs01 = load_condition_images(paths, cfg.height, cfg.width)
+        if self.cn_cfg.use_simplified_condition_embedding:
+            frames = self.encode_video(imgs01 * 2.0 - 1.0, seed, rng.CN_IMAGE_POSTERIOR)
+        else:
+            frames = torch.from_numpy(imgs01)[None]
+        return self._condition(frames, example.image_index, scale)
+
+    def extraction_condition(self, example: Example, video: np.ndarray,
+                             video_latents: torch.Tensor, scale: float):
+        """``cn_cond`` for extraction, from the reference video itself: its
+        latents at ``image_index`` (the simplified, RGB embedding) or its
+        pixels there in [0, 1]."""
+        idx = list(example.image_index)
+        if self.cn_cfg.use_simplified_condition_embedding:
+            frames = video_latents[:, idx]
+        else:
+            frames = torch.from_numpy((video[None, idx] + 1.0) / 2.0)
+        return self._condition(frames, idx, scale)
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
@@ -213,7 +277,8 @@ class MotionCloneRuntime:
         """Extraction (or the cached representation), guided sampling,
         decode and mp4 for one JSONL example; returns the mp4's path.
         ``timings`` then holds the phases' wall seconds (``text``,
-        ``extract`` when it ran, ``sample``, ``decode_write``) and the
+        ``extract`` when it ran, ``condition`` with a controlnet, ``sample``,
+        ``decode_write``) and the
         milliseconds of each guided and vanilla step (``guided_ms``,
         ``vanilla_ms``; on a card, the time between CUDA events recorded
         after each step, so sampling never waits on the host); with
@@ -240,6 +305,12 @@ class MotionCloneRuntime:
         stem = os.path.splitext(os.path.basename(example.video_path))[0]
         # the JAX runtime appends the positive prompt to every new prompt
         new_prompt = example.new_prompt + cfg.positive_prompt
+        conditioned = self.cn_cfg is not None
+        if conditioned and not example.condition_image_paths:
+            raise ValueError(f"{example.video_path}: the workload has a controlnet but the "
+                             f"example has no condition_image_paths")
+        cn_scale = (example.controlnet_scale if example.controlnet_scale is not None
+                    else cfg.controlnet_scale)
 
         # 1. the motion representation, cached on disk under the video stem
         rep_meta = motion_rep_meta(cfg, seed_motion)
@@ -252,8 +323,10 @@ class MotionCloneRuntime:
             video = preprocess_video(video_path, cfg.height, cfg.width, cfg.video_length)
             video_latents = self.encode_video(video, seed_motion)
             uncond_emb, _ = encode_prompt("", "")
+            cn_cond = (self.extraction_condition(example, video, video_latents, cn_scale)
+                       if conditioned else None)
             rep = self.pipeline.extract_motion_representation(
-                video_latents, uncond_emb, seed=seed_motion)
+                video_latents, uncond_emb, seed=seed_motion, cn_cond=cn_cond)
             save_motion_representation(rep_path, rep, meta=rep_meta)
             timings["extract"] = time.perf_counter() - t0
             log(f"motion representation extracted: {timings['extract']:.1f}s")
@@ -266,6 +339,13 @@ class MotionCloneRuntime:
         # 2. guided sampling; the reference seeds it with seed_motion
         seed = seed_motion
         uncond_emb, cond_emb = encode_prompt(new_prompt, cfg.negative_prompt)
+        cn_cond = None
+        if conditioned:
+            t0 = time.perf_counter()
+            cn_cond = self.sampling_condition(example, seed, cn_scale, config_root)
+            self._sync()
+            timings["condition"] = time.perf_counter() - t0
+            log(f"condition images: {timings['condition']:.2f}s")
         out_name = (stem + "_" + new_prompt.strip().replace(" ", "_")
                     + str(seed_motion) + "_" + str(seed) + ".mp4")
         out_path = os.path.join(output_dir, out_name)
@@ -286,7 +366,7 @@ class MotionCloneRuntime:
         start = mark()
         latents = self.pipeline.sample_latents(
             uncond_emb, cond_emb, rep, seed=seed,
-            on_step=lambda _i, guided: marks.append((guided, mark())))
+            on_step=lambda _i, guided: marks.append((guided, mark())), cn_cond=cn_cond)
         self._sync()
         timings["sample"] = time.perf_counter() - t0
         steps = {True: [], False: []}

@@ -2,7 +2,8 @@
 
 Takes a flax parameter tree whose leaves are numpy arrays (``{"params":
 {...}}`` or the bare tree) and returns a state dict for the port's
-``UNet3DConditionModel``, ``AutoencoderKL`` or ``CLIPTextModel``:
+``UNet3DConditionModel``, ``SparseControlNetModel``, ``AutoencoderKL`` or
+``CLIPTextModel``:
 
 * flax path -> diffusers key, the inverse of ``torch_key_to_path`` in
   ``motionclone_tpu/weights/convert.py``: a segment ``name_N`` (N digits)
@@ -60,7 +61,8 @@ def _leaf_value(leaf: str, arr: np.ndarray) -> np.ndarray:
 
 
 def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """UNet or VAE flax tree -> the port module's state dict (float32)."""
+    """UNet, controlnet or VAE flax tree -> the port module's state dict
+    (float32)."""
     tree = params.get("params", params)
     sd = {}
     for path, arr in _flatten(tree).items():

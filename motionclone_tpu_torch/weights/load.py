@@ -1,6 +1,6 @@
 """From checkpoint files to loaded modules.
 
-Port of ``motionclone_tpu/weights/load.py`` (t2v part):
+Port of ``motionclone_tpu/weights/load.py``:
 
 1. base SD1.5 weights from a diffusers-layout directory (``unet``, ``vae``,
    ``text_encoder``; the 2D UNet holds no motion modules);
@@ -11,7 +11,9 @@ Port of ``motionclone_tpu/weights/load.py`` (t2v part):
 5. :func:`load_into`: the buffers the modules compute themselves dropped
    (``pos_encoder.pe``; CLIP's ``position_ids`` and ``text_projection*``),
    a strict check of keys and shapes, then the tensors become the module's
-   parameters in the requested dtype.
+   parameters in the requested dtype;
+6. the i2v workloads' SparseCtrl checkpoint: :func:`controlnet_state_dict`,
+   then :func:`load_into`.
 
 The port's module keys are the diffusers / Hugging Face keys, so nothing is
 transposed.  The ``config.json`` of each subfolder sets the topology, as
@@ -208,6 +210,15 @@ def clip_state_dict(sd: Mapping[str, torch.Tensor]) -> StateDict:
             continue
         out["text_model." + key] = v
     return out
+
+
+def controlnet_state_dict(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """A SparseCtrl checkpoint's state dict for ``SparseControlNetModel``:
+    the ``pos_encoder.pe`` buffers (the model computes its own table) and
+    the ``animatediff_config`` entry dropped; :func:`load_into` then checks
+    the keys and shapes strictly."""
+    return {k: v for k, v in sd.items()
+            if "pos_encoder.pe" not in k and k != "animatediff_config"}
 
 
 def load_into(module_fn: Callable[[], torch.nn.Module], sd: Mapping[str, torch.Tensor],

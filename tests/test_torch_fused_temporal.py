@@ -4,7 +4,8 @@
   on the module's own weights in the kernel's layout, GroupNorm statistics
   included) against JAX's ``folded_groupnorm_affine`` + the kernel function
   ``fused_temporal_module`` in Pallas interpret mode, at the sizes of
-  tests/test_fused_temporal.py, f32, atol 1e-4;
+  tests/test_fused_temporal.py, f32, atol 1e-4, with two attention blocks
+  (the UNet's motion modules) and with one (the SparseCtrl controlnet's);
 * the port's module with ``impl="fused"`` against the JAX module with
   ``attention_impl="fused"`` and ``"xla"``, checking that the fused route
   was taken, and that requested probabilities keep the unfused route;
@@ -43,10 +44,10 @@ def data():
     return dict(x=x, params=params, tm=tm)
 
 
-def test_plain_matches_jax_kernel(data):
-    p = data["params"]["params"]["temporal_transformer"]
+def _plain_matches_jax_kernel(x_np, params, tm, n_attn, max_len):
+    p = params["params"]["temporal_transformer"]
     blk = p["transformer_blocks_0"]
-    xs = jnp.asarray(data["x"]).reshape(B, F, H * W, C)
+    xs = jnp.asarray(x_np).reshape(B, F, H * W, C)
     gw, gb = jft.folded_groupnorm_affine(xs, GROUPS, 1e-6, p["norm"]["scale"],
                                          p["norm"]["bias"])
     attn = tuple(
@@ -58,10 +59,10 @@ def test_plain_matches_jax_kernel(data):
             wo=blk[f"attention_blocks_{i}"]["to_out_0"]["kernel"],
             bo=blk[f"attention_blocks_{i}"]["to_out_0"]["bias"],
         )
-        for i in range(2)
+        for i in range(n_attn)
     )
     w = jft.TemporalModuleWeights(
-        gn_w=gw, gn_b=gb, pe=temporal_positional_encoding(C, 24)[:F],
+        gn_w=gw, gn_b=gb, pe=temporal_positional_encoding(C, max_len)[:F],
         win=p["proj_in"]["kernel"], bin=p["proj_in"]["bias"], attn=attn,
         ffln_scale=blk["ff_norm"]["scale"], ffln_bias=blk["ff_norm"]["bias"],
         wff1=blk["ff"]["net_0"]["proj"]["kernel"], bff1=blk["ff"]["net_0"]["proj"]["bias"],
@@ -69,10 +70,31 @@ def test_plain_matches_jax_kernel(data):
         wout=p["proj_out"]["kernel"], bout=p["proj_out"]["bias"],
     )
     want = jft.fused_temporal_module(xs, w, heads=HEADS)
-    x = torch.from_numpy(data["x"])
-    tt = data["tm"].temporal_transformer
+    x = torch.from_numpy(x_np)
+    tt = tm.temporal_transformer
     got = tft.fused_temporal_module_plain(
         x.reshape(B, F, H * W, C), tt.fused_weights(x), heads=HEADS, groups=GROUPS)
+    assert len(tt.fused_weights(x).attn) == n_attn
+    close(got, want)
+
+
+def test_plain_matches_jax_kernel(data):
+    _plain_matches_jax_kernel(data["x"], data["params"], data["tm"], 2, 24)
+
+
+def test_plain_matches_jax_kernel_with_one_attention_block(data):
+    """The SparseCtrl controlnet's motion modules: one temporal attention
+    block, a positional-encoding table of 32 rows."""
+    cfg = dict(CFG, attention_block_types=("Temporal_Self",),
+               temporal_position_encoding_max_len=32)
+    jm = jmm.VanillaTemporalModule(cfg=jcfg.MotionModuleConfig(**cfg), attention_impl="xla")
+    params = random_flax_params(jm, data["x"], seed=2)
+    tm = load_port(tmm.VanillaTemporalModule(C, tcfg.MotionModuleConfig(**cfg)), params)
+    _plain_matches_jax_kernel(data["x"], params, tm, 1, 32)
+    # the module's fused route, with one block, against the JAX module
+    want, _ = jm.apply(params, data["x"])
+    with torch.no_grad():
+        got, _ = tm(torch.from_numpy(data["x"]), impl="fused")
     close(got, want)
 
 
@@ -159,6 +181,21 @@ def test_kernel_wrapper_refuses_unsupported_shapes_before_launch():
 @pytest.mark.parametrize("s,c", [(4096, 320), (1024, 640)])  # the levels that fuse
 def test_device_predicate_holds_at_sd15_levels(s, c):
     assert tft.supported(16, s, c, 8) and tft.device_supported(s, c)
+
+
+@pytest.mark.parametrize("n_attn", [1, 2])
+def test_device_predicate_refuses_rows_the_layer_norm_cannot_hold(n_attn):
+    """C = 1280 (the 16x16 and 8x8 levels): every product fits the wgmma
+    product, but the kernel's LayerNorm holds rows of at most 1024 channels
+    (its C entry returns "no kernel for this shape"); the JAX predicate
+    already leaves these levels unfused (C > 640)."""
+    from motionclone_tpu_torch.ops import fused_common as fc
+
+    assert all(fc.product_takes(p) for p in tft.products(1, 16, 256, 1280, n_attn))
+    assert not tft.device_supported(256, 1280, n_attn)
+    assert not tft.device_supported(64, 1280, n_attn)
+    assert tft.device_supported(4096, 320, n_attn) and tft.device_supported(1024, 640, n_attn)
+    assert not tft.supported(16, 256, 1280, 8)
 
 
 @pytest.mark.parametrize("f,s,c,heads", [(8, 64, 80, 2), (16, 256, 80, 2), (8, 64, 240, 3),

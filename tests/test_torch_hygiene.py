@@ -1,7 +1,8 @@
 """Hygiene of the PyTorch port: its imports (no JAX; none of the packages
 the card's machine lacks: yaml, regex, safetensors, PIL, transformers; cv2
-only inside io/video.py's codec functions), its device default, and the
-chip smoke script's refusal to run without CUDA.
+only inside io/video.py's codec functions, the image decoder among them),
+its device default, and the chip smoke script's refusal to run without
+CUDA.
 
 The import check reads the sources with ``ast``: the interpreter may have
 imported jax before any test runs, so ``sys.modules`` proves nothing."""
@@ -24,7 +25,7 @@ PORT = ROOT / "motionclone_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "motionclone_tpu"}
 # packages of the JAX runtime that the card's machine does not have
 NOT_ON_THE_CARD = {"yaml", "regex", "safetensors", "PIL", "transformers"}
-CODEC_FUNCTIONS = ("read_video_frames", "write_video")  # of io/video.py
+CODEC_FUNCTIONS = ("read_video_frames", "write_video", "read_image_rgb")  # of io/video.py
 PORT_FILES = sorted(PORT.rglob("*.py"))
 
 
@@ -53,7 +54,8 @@ def test_scan_covers_every_subpackage():
     found = {p.relative_to(PORT).parts[0] for p in PORT_FILES if p.parent != PORT}
     assert found == {"diffusion", "io", "models", "ops", "parallel", "pipeline", "utils",
                      "weights"}
-    for rel in ("parallel/frames.py", "cli.py", "io/video.py", "pipeline/runner.py"):
+    for rel in ("parallel/frames.py", "cli.py", "i2v.py", "io/video.py", "pipeline/runner.py",
+                "models/sparse_controlnet.py"):
         assert PORT / rel in PORT_FILES
 
 

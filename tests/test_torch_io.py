@@ -16,7 +16,12 @@ replaces, on the CPU.
   bit for bit;
 * video: frame sampling and the align-corners resize equal the JAX
   package's numpy path, and an mp4 written by the port decodes as the JAX
-  package decodes it.
+  package decodes it;
+* i2v condition images: ``load_condition_images`` (cv2 decode, Pillow's
+  bilinear resample in numpy) equals the JAX package's (Pillow) bit for bit
+  on RGB, RGBA, grey, grey + alpha and palette PNGs (with and without a
+  transparent entry), downscaled, upscaled and non-square; the numpy
+  resample equals Pillow's on random sizes.
 
 All comparisons are exact unless a tolerance is stated."""
 
@@ -296,3 +301,61 @@ def test_codec_without_cv2_names_it(monkeypatch, tmp_path):
         tvideo.read_video_frames(str(tmp_path / "x.mp4"))
     with pytest.raises(ImportError, match="cv2"):
         tvideo.write_video(str(tmp_path / "x.mp4"), np.zeros((1, 8, 8, 3), np.uint8))
+    with pytest.raises(ImportError, match="cv2"):
+        tvideo.read_image_rgb(str(tmp_path / "x.png"))
+
+
+# ---------------------------------------------------------------------------
+# i2v condition images
+# ---------------------------------------------------------------------------
+
+IMAGE_MODES = ("RGB", "RGBA", "L", "LA", "P", "P-transparent")
+
+
+def _save_png(path, mode, seed=4):
+    from PIL import Image
+
+    base = np.random.default_rng(seed).integers(0, 256, size=(75, 100, 4), dtype=np.uint8)
+    if mode in ("RGB", "RGBA", "L", "LA"):
+        img = Image.fromarray(base[..., :len(mode)] if len(mode) > 1 else base[..., 0],
+                              mode)
+    else:
+        img = Image.fromarray(base[..., :3]).quantize(48)
+        if mode == "P-transparent":
+            img.info["transparency"] = 5
+    img.save(path)
+    return path
+
+
+@pytest.mark.parametrize("mode", IMAGE_MODES)
+def test_condition_images_equal_jax_bit_for_bit(mode, tmp_path):
+    paths = [_save_png(str(tmp_path / "a.png"), mode),
+             _save_png(str(tmp_path / "b.png"), mode, seed=5)]
+    # downscaled (antialiased), upscaled, non-square both ways, unchanged
+    for hw in ((64, 64), (160, 240), (48, 80), (120, 40), (75, 100)):
+        want = jvideo.load_condition_images(paths, *hw)
+        got = tvideo.load_condition_images(paths, *hw)
+        assert got.dtype == np.float32 and got.shape == (2,) + hw + (3,)
+        np.testing.assert_array_equal(got, want, err_msg=f"{mode} {hw}")
+
+
+def test_pillow_bilinear_resample_is_bit_exact():
+    from PIL import Image
+
+    r = np.random.default_rng(6)
+    for _ in range(30):
+        h, w, oh, ow = (int(v) for v in r.integers(1, 260, size=4))
+        img = r.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        want = np.asarray(Image.fromarray(img).resize((ow, oh), Image.BILINEAR))
+        np.testing.assert_array_equal(tvideo.resize_bilinear_pil(img, oh, ow), want,
+                                      err_msg=f"{(h, w)} -> {(oh, ow)}")
+
+
+def test_condition_image_errors(tmp_path):
+    with pytest.raises(FileNotFoundError, match="absent.png"):
+        tvideo.load_condition_images([str(tmp_path / "absent.png")], 8, 8)
+    (tmp_path / "junk.png").write_bytes(b"not an image")
+    with pytest.raises(IOError, match="junk.png"):
+        tvideo.read_image_rgb(str(tmp_path / "junk.png"))
+    with pytest.raises(ValueError, match="no condition images"):
+        tvideo.load_condition_images([], 8, 8)

@@ -21,7 +21,18 @@ topology) serves every case:
   ``MotionClonePipeline`` driven by hand from the same modules, embeddings
   and ``draw_normal`` noise (exact); a second run reuses the cached
   representation;
-* every flag the port does not have yet exits with its ROADMAP.md item.
+* every flag the port does not have yet exits with its ROADMAP.md item;
+* i2v, on the same directory plus tests/test_cli_synthetic_e2e.py's
+  SparseCtrl checkpoints (both flavours) and a condition PNG: the
+  controlnet checkpoint loads strictly and equals the JAX package's load
+  carried across (exact), a missing key raises; a runtime built from an
+  i2v YAML holds the controlnet and its guided step differs from the
+  unconditioned one; the RGB flavour's condition latents equal the JAX VAE
+  encode with JAX's ``CN_IMAGE_POSTERIOR`` noise through the
+  ``draw_normal`` seam (atol 1e-4); ``i2v_main(... --device cpu
+  --float32)`` writes the mp4 with the reference's name, its extraction and
+  final latents equal the pipeline driven by hand with the same conditions
+  (exact); ``i2v_main``'s refusals.
 
 No test runs the JAX CLI or the JAX sampling: tests/test_torch_pipeline.py
 holds the sampling against JAX."""
@@ -43,16 +54,17 @@ from motionclone_tpu.models.clip_text import CLIPTextModel as JCLIP
 from motionclone_tpu.models.vae import AutoencoderKL as JVAE, sample_latents as j_sample_latents
 from motionclone_tpu.utils import rng as jrng
 from motionclone_tpu.weights import load as jload
-from motionclone_tpu_torch.cli import UNPORTED, build_parser, t2v_main
-from motionclone_tpu_torch.config import Example, load_inference_config
+from motionclone_tpu_torch.cli import UNPORTED, build_parser, i2v_main, t2v_main
+from motionclone_tpu_torch.config import Example, load_examples, load_inference_config
 from motionclone_tpu_torch.diffusion import guidance as tguid
 from motionclone_tpu_torch.io.video import preprocess_video, read_video_frames, write_video
+from motionclone_tpu_torch.models.sparse_controlnet import scatter_condition
 from motionclone_tpu_torch.pipeline import runner
 from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline
 from motionclone_tpu_torch.utils import rng as trng
 from motionclone_tpu_torch.weights import load as tload
 from motionclone_tpu_torch.weights.from_jax import clip_state_dict_from_flax, state_dict_from_flax
-from test_cli_synthetic_e2e import _build_model_dir
+from test_cli_synthetic_e2e import _build_controlnet, _build_model_dir
 
 SD = os.path.join("models", "SD")
 PROMPT = "a cat running"
@@ -390,3 +402,224 @@ def test_unported_flags_exit_with_their_roadmap_item(flag, tmp_path, monkeypatch
 def test_example_from_json():
     e = Example.from_json({"video_path": "v.mp4", "new_prompt": "p"})
     assert (e.seed, e.condition_image_paths, e.image_index) == (None, (), (0,))
+
+
+# ---------------------------------------------------------------------------
+# i2v: SparseCtrl on the same model directory
+# ---------------------------------------------------------------------------
+
+FLAVOURS = ("latent", "pixel")  # configs/i2v_rgb.yaml, configs/i2v_sketch.yaml
+
+
+@pytest.fixture(scope="module")
+def i2v_dir(model_dir):
+    """``model_dir`` plus a SparseCtrl checkpoint and YAML per flavour
+    (with the ``pos_encoder.pe`` buffer real checkpoints carry), an i2v
+    inference YAML per flavour, a 48x64 RGB condition PNG and its
+    examples.jsonl (the condition at frame 1)."""
+    import yaml
+    from PIL import Image
+
+    from motionclone_tpu.config import load_yaml as j_load_yaml
+
+    for flavour in FLAVOURS:
+        path = _build_controlnet(model_dir, flavour)
+        infer = j_load_yaml(os.path.join(model_dir, "inference.yaml"))
+        infer.update(controlnet_path=os.path.relpath(path, model_dir),
+                     controlnet_config=f"sparsectrl_{flavour}.yaml", controlnet_scale=0.9)
+        with open(os.path.join(model_dir, f"inference_{flavour}.yaml"), "w") as f:
+            yaml.safe_dump(infer, f)
+    img = np.random.default_rng(1).integers(0, 255, size=(48, 64, 3), dtype=np.uint8)
+    Image.fromarray(img).save(os.path.join(model_dir, "cond.png"))
+    with open(os.path.join(model_dir, "examples_i2v.jsonl"), "w") as f:
+        f.write(json.dumps({"video_path": "ref.mp4", "new_prompt": PROMPT, "seed": 42,
+                            "condition_image_paths": ["cond.png"], "image_index": [1]})
+                + "\n")
+    return model_dir
+
+
+def _i2v_cfg(root, flavour):
+    return load_inference_config(os.path.join(root, f"inference_{flavour}.yaml"), width=64,
+                                 height=64, video_length=4)
+
+
+@pytest.fixture(scope="module")
+def i2v_runtimes(i2v_dir):
+    return {flavour: runner.MotionCloneRuntime(
+        os.path.join(i2v_dir, SD), _i2v_cfg(i2v_dir, flavour), device="cpu",
+        dtype=torch.float32, config_root=i2v_dir) for flavour in FLAVOURS}
+
+
+def _i2v_argv(flavour):
+    argv = list(ARGS)
+    argv[argv.index("inference.yaml")] = f"inference_{flavour}.yaml"
+    argv[argv.index("examples.jsonl")] = "examples_i2v.jsonl"
+    return argv
+
+
+@pytest.mark.parametrize("flavour", FLAVOURS)
+def test_controlnet_checkpoint_loads_strictly_and_equals_jax(i2v_dir, i2v_runtimes, flavour):
+    """The runtime's controlnet equals the JAX package's load of the same
+    ``.ckpt`` carried across by ``state_dict_from_flax``, exactly; the
+    loader drops the ``pos_encoder.pe`` buffers and refuses a short one."""
+    from motionclone_tpu.config import load_yaml as j_load_yaml
+    from motionclone_tpu.models.sparse_controlnet import SparseControlNetConfig as JCnConfig
+    from motionclone_tpu.weights.io import load_state_dict as j_load_state_dict
+    from motionclone_tpu_torch.models.sparse_controlnet import SparseControlNetModel
+    from motionclone_tpu_torch.weights.io import load_state_dict
+
+    rt = i2v_runtimes[flavour]
+    path = os.path.join(i2v_dir, rt.infer_cfg.controlnet_path)
+    kwargs = j_load_yaml(os.path.join(i2v_dir, rt.infer_cfg.controlnet_config))[
+        "controlnet_additional_kwargs"]
+    sd_dir = os.path.join(i2v_dir, SD)
+    j_unet_cfg = jload.apply_unet_diffusers_config(
+        j_load_model_config(os.path.join(i2v_dir, rt.infer_cfg.model_config))[0], sd_dir)
+    want = state_dict_from_flax(jload.controlnet_params_from_state_dict(
+        j_load_state_dict(path), JCnConfig.from_yaml_dict(kwargs, j_unet_cfg)))
+    got = rt.pipeline.controlnet.state_dict()
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
+    raw = load_state_dict(path)
+    assert any(k.endswith("pos_encoder.pe") for k in raw)
+    short = {k: v for k, v in tload.controlnet_state_dict(raw).items()
+             if not k.startswith("controlnet_mid_block")}
+    with pytest.raises(ValueError, match="not covered"):
+        tload.load_into(lambda: SparseControlNetModel(rt.cn_cfg), short, torch.float32,
+                        "controlnet")
+
+
+def test_i2v_runtime_conditions_the_guided_step(i2v_dir, i2v_runtimes):
+    """An i2v YAML never gives an unconditioned video: the runtime holds the
+    controlnet, and the first guided step with the example's condition
+    differs from the same step without it."""
+    rt = i2v_runtimes["pixel"]
+    assert rt.cn_cfg is not None and rt.pipeline.controlnet is not None
+    assert not rt.cn_cfg.use_simplified_condition_embedding
+    example = load_examples(os.path.join(i2v_dir, "examples_i2v.jsonl"))[0]
+    cn_cond = rt.sampling_condition(example, 42, 0.9, config_root=i2v_dir)
+    cond, mask, scale = cn_cond
+    assert cond.shape == (1, 4, 64, 64, 3) and scale == 0.9
+    assert mask[0, :, 0, 0, 0].tolist() == [0.0, 1.0, 0.0, 0.0]
+    fns = rt.pipeline.fns
+    r = np.random.default_rng(8)
+    lat = torch.from_numpy(r.standard_normal((1, 4, 8, 8, 4)).astype(np.float32))
+    uncond, emb = rt.encode_prompt(PROMPT)
+    rep = fns.extract(lat, lat, uncond)
+    t, tp = (int(x) for x in fns.timesteps[:2])
+    plain, _ = fns.guided_step(lat, t, tp, 1.0, uncond, emb, rep)
+    conditioned, _ = fns.guided_step(lat, t, tp, 1.0, uncond, emb, rep, cn_cond)
+    assert (plain - conditioned).abs().max() > 1e-4
+    # the runtime without the controlnet entries is the t2v runtime
+    assert runner.MotionCloneRuntime(
+        os.path.join(i2v_dir, SD), load_inference_config(
+            os.path.join(i2v_dir, "inference.yaml"), width=64, height=64, video_length=4),
+        device="cpu", dtype=torch.float32, config_root=i2v_dir).pipeline.controlnet is None
+
+
+def test_rgb_condition_equals_jax_vae_on_jax_noise(i2v_dir, i2v_runtimes, jax_side,
+                                                    monkeypatch):
+    """The RGB flavour's sampling condition: the condition image (Pillow's
+    resize, bit for bit) VAE-encoded with the seed's CN_IMAGE_POSTERIOR
+    draw and scaled, scattered to frame 1; JAX's noise through the seam."""
+    from motionclone_tpu.io.video import load_condition_images as j_load_images
+
+    rt = i2v_runtimes["latent"]
+    example = load_examples(os.path.join(i2v_dir, "examples_i2v.jsonl"))[0]
+    monkeypatch.setattr(trng, "draw_normal", _jax_draw)
+    cond, mask, _ = rt.sampling_condition(example, 42, 0.9, config_root=i2v_dir)
+    imgs = j_load_images([os.path.join(i2v_dir, "cond.png")], 64, 64)
+    vae = JVAE(cfg=jax_side["vae_cfg"])
+    mean, logvar = vae.apply(jax_side["vae"], jnp.asarray(imgs * 2.0 - 1.0)[None],
+                             method=vae.encode)
+    want = j_sample_latents(mean, logvar, jrng.seed_key(42, jrng.CN_IMAGE_POSTERIOR))
+    want = np.asarray(want) * jax_side["vae_cfg"].scaling_factor
+    assert cond.shape == (1, 4, 8, 8, 4)
+    np.testing.assert_allclose(cond[:, 1:2].numpy(), want, atol=1e-4, rtol=0)
+    assert not cond[:, [0, 2, 3]].any() and mask[:, 1].all() and not mask[:, 0].any()
+
+
+@pytest.mark.parametrize("flavour", FLAVOURS)
+def test_i2v_main_runs_the_slice_to_an_mp4(i2v_dir, flavour, monkeypatch):
+    monkeypatch.chdir(i2v_dir)
+    seen = {}
+    sample, extract = MotionClonePipeline.sample_latents, \
+        MotionClonePipeline.extract_motion_representation
+
+    def spy_sample(self, *args, **kwargs):
+        seen["latents"] = sample(self, *args, **kwargs)
+        return seen["latents"]
+
+    def spy_extract(self, *args, **kwargs):
+        seen["rep"] = extract(self, *args, **kwargs)
+        return seen["rep"]
+
+    monkeypatch.setattr(MotionClonePipeline, "sample_latents", spy_sample)
+    monkeypatch.setattr(MotionClonePipeline, "extract_motion_representation", spy_extract)
+    argv = _i2v_argv(flavour) + ["--motion-representation-save-dir", f"reps_{flavour}",
+                                 "--generated-videos-save-dir", f"out_{flavour}"]
+    rt, paths = i2v_main(argv)
+    cfg = rt.infer_cfg
+    name = "ref_" + (PROMPT + cfg.positive_prompt).strip().replace(" ", "_") + "42_42.mp4"
+    assert paths == [os.path.join(f"out_{flavour}", name)]
+    frames, _ = read_video_frames(paths[0])
+    assert frames.shape == (4, 64, 64, 3) and frames.dtype == np.uint8
+    assert "condition" in rt.timings
+
+    # by hand: the same modules, the reference's frame 1 for extraction, the
+    # condition image for sampling
+    pipe = rt.pipeline
+    video = preprocess_video("ref.mp4", 64, 64, 4)
+    empty, _ = rt.encode_prompt("", "")
+    latents = pipe.encode_video(torch.from_numpy(video), seed=42)
+    frames1 = (latents[:, [1]] if flavour == "latent"
+               else torch.from_numpy((video[None, [1]] + 1.0) / 2.0))
+    cond, mask = scatter_condition(frames1, (1,), 4)
+    noise = trng.draw_normal(latents.shape, 42, trng.EXTRACT_NOISE, "cpu")
+    rep = pipe.fns.extract(latents, noise, empty, (cond, mask, 0.9))
+    assert sorted(rep) == sorted(seen["rep"])
+    for k, (v, i) in rep.items():
+        assert torch.equal(v, seen["rep"][k][0]) and torch.equal(i, seen["rep"][k][1])
+    example = load_examples("examples_i2v.jsonl")[0]
+    cn_cond = rt.sampling_condition(example, 42, 0.9)
+    uncond, cond_emb = rt.encode_prompt(PROMPT + cfg.positive_prompt, cfg.negative_prompt)
+    init = trng.draw_normal((1, 4, 8, 8, 4), 42, trng.INIT_LATENTS, "cpu")
+    want = pipe.fns.sample(init, uncond, cond_emb, rep, cn_cond=cn_cond)
+    assert torch.equal(seen["latents"], want)
+    assert not torch.equal(want, pipe.fns.sample(init, uncond, cond_emb, rep))
+
+
+@pytest.mark.parametrize("flag", sorted(UNPORTED))
+def test_i2v_unported_flags_exit_with_their_roadmap_item(flag, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # exits before it reads a file
+    with pytest.raises(SystemExit, match="ROADMAP.md"):
+        i2v_main(_i2v_argv("latent") + _UNPORTED_ARGV[flag])
+    assert not os.listdir(tmp_path)
+
+
+def test_i2v_main_refusals(i2v_dir, i2v_runtimes, monkeypatch, tmp_path):
+    """Without the controlnet entries, without condition images, with a
+    count that differs from image_index, and with an unported flag, before
+    any weight is read."""
+    monkeypatch.chdir(i2v_dir)
+    with pytest.raises(ValueError, match="controlnet_path and controlnet_config"):
+        i2v_main(ARGS)  # the t2v YAML
+    bad = {"none": {"video_path": "ref.mp4", "new_prompt": "p"},
+           "count": {"video_path": "ref.mp4", "new_prompt": "p",
+                     "condition_image_paths": ["cond.png"], "image_index": [0, 2]}}
+    for what, example in bad.items():
+        path = str(tmp_path / f"{what}.jsonl")
+        with open(path, "w") as f:
+            f.write(json.dumps(example) + "\n")
+        argv = _i2v_argv("pixel")
+        argv[argv.index("examples_i2v.jsonl")] = path
+        with pytest.raises(ValueError, match="condition_image_paths" if what == "none"
+                           else "image_index"):
+            i2v_main(argv)
+    defaults = build_parser("a", "b", default_seed=76739).parse_args([])
+    assert defaults.default_seed == 76739
+    example = Example(video_path="ref.mp4", new_prompt="p")
+    with pytest.raises(ValueError, match="no condition_image_paths"):
+        i2v_runtimes["pixel"].run_example(example, motion_rep_dir=str(tmp_path / "r"),
+                                          output_dir=str(tmp_path / "o"))
