@@ -111,6 +111,29 @@ Phase 8  the i2v CLI: ``cli.i2v_main`` on the card for both SparseCtrl
          Prints the phase times, ms per guided and vanilla step, peak
          memory and seconds per video beside the card's name and power
          limit.
+Phase 9  the approx caches, the weights cache and resume through the CLIs,
+         on phases 7's and 8's model directory: (a) ``cli.t2v_main`` with
+         ``--approx step-extrap:3 --weights-cache DIR --resume`` at the full
+         t2v_camera schedule (a miss), (b) with ``--approx
+         uncond-extrap:3,guidance-cache:2`` (a hit: every parameter equal to
+         phase 7's bit for bit), (d) (a)'s flags interrupted after the
+         guided chunk and run again, which must end on (a)'s latents, (c)
+         ``cli.i2v_main`` i2v_rgb with ``--approx step-extrap:3
+         --weights-cache DIR`` twice (a miss, then a hit: the controlnet
+         equal to phase 8's), one controlnet pass per full step and none per
+         skip step.  Each run's launches must equal ``predicted_launches``
+         from its schedule's flags (a skip step launches nothing), its video
+         be 16 x 512 x 512 x 3 uint8 and not constant; (a) and (b) print
+         their latents' relative L2 and their frames' PSNR against phase
+         7's exact run (random weights: no quality figure).  (e), run inside
+         phase 3: phase 3's exact sampling and the build with every cache
+         on and every override at 1, each against the exact steps driven
+         one at a time.  (d) and (e) must be bit for bit,
+         or within RERUN_TOL where the card's kernels give other bits for
+         the same inputs, which a line then says.  Prints the load seconds
+         without the cache, cold and warm, and per run the seconds per
+         video, the full and skip step medians and peak memory beside the
+         card's name and power limit.
 
 The line before the last is the kernels JSON; the last line is the result
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -131,6 +154,7 @@ import sys
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -1250,6 +1274,7 @@ def main_path(dev, wrappers, profile_dir=None) -> dict:
             f"(extraction {counts_after_extract[name]} / {ext})"
             f"{'' if launches[name] == want else '  DIFFERS'}")
     reference = unsharded_reference(pipe, ids, video, wrappers, run)
+    approx_identity(pipe, run)
     uncond, cond, rep = run["uncond"], run["cond"], run["rep"]
     lat = run["out"].to(pipe.dtype)
     steady_steps(pipe, rep, uncond, cond, lat)
@@ -1830,15 +1855,93 @@ def check_loaded(rt, saved: dict) -> None:
                 raise AssertionError(f"t2v CLI: loaded {name} {k} differs from what was saved")
 
 
-def t2v_cli(dev, wrappers, card: str) -> None:
-    """Phase 7: the port's ``cli.t2v_main`` on ``dev``, from a model
-    directory written to a temporary directory at SD1.5 + AnimateDiff v3
-    width, on a reference clip of 16 frames of 512 x 512; then again, which
-    must reuse the cached motion representation."""
-    import contextlib
+def stub_codec(clip) -> dict:
+    """Where cv2 is absent: the reference clip and its first frame stand for
+    what the CLIs decode, and the videos they write land in the returned
+    dict by path (None where cv2 is present)."""
     import importlib.util
+
+    from motionclone_tpu_torch.io import video as video_io
+    from motionclone_tpu_torch.pipeline import runner
+
+    if importlib.util.find_spec("cv2") is not None:
+        return None
+    stubbed = {}
+    log("video and image codec: cv2 absent on this machine; decode/write stubbed")
+    video_io.read_video_frames = lambda path: (clip, 8.0)
+    video_io.read_image_rgb = lambda path: clip[0]
+    runner.write_video = lambda path, video, fps=8: stubbed.__setitem__(path, video)
+    return stubbed
+
+
+def read_output(paths, stubbed):
+    """The one video a CLI run wrote, as uint8 frames."""
+    from motionclone_tpu_torch.io import video as video_io
+
+    return stubbed[paths[0]] if stubbed is not None else video_io.read_video_frames(
+        paths[0])[0]
+
+
+def check_video(tag: str, video, frames: int, side: int) -> None:
+    if (video.shape != (frames, side, side, 3) or video.dtype.name != "uint8"
+            or int(video.max()) == 0 or int(video.min()) == int(video.max())):
+        raise AssertionError(f"{tag} output {video.shape} {video.dtype} is constant, all "
+                             f"zero or of another shape")
+
+
+def run_cli(main, argv, wrappers, on_chunk=None) -> dict:
+    """``main(argv)`` with every launch count set to 0 just before and read
+    just after; the final latents (CPU, f32) are kept from
+    ``MotionClonePipeline.sample_latents``, to which ``on_chunk`` is
+    passed.  Returns the runtime, the paths, the launches, the latents,
+    the seconds of the call and the peak device memory."""
+    from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline
+
+    sample, seen = MotionClonePipeline.sample_latents, []
+
+    def spy(self, *args, **kwargs):
+        if on_chunk is not None:
+            kwargs["on_chunk"] = on_chunk
+        out = sample(self, *args, **kwargs)
+        seen.append(out.float().cpu())
+        return out
+
+    MotionClonePipeline.sample_latents = spy
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rt, paths = main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: wrappers[n].launches for n in CLI_KERNELS}
+    finally:
+        MotionClonePipeline.sample_latents = sample
+    return dict(rt=rt, paths=paths, launches=launches, latents=seen[-1], seconds=seconds,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def t2v_argv(root: str, dev, out: str = "out") -> list:
+    side, frames = 512, 16
+    return ["--pretrained-model-path", os.path.join(root, "sd"),
+            "--inference_config", os.path.join(root, "t2v.yaml"),
+            "--examples", os.path.join(root, "examples.jsonl"),
+            "--motion-representation-save-dir", os.path.join(root, "reps"),
+            "--generated-videos-save-dir", os.path.join(root, out),
+            "--config-root", root, "--device", str(dev),
+            "--W", str(side), "--H", str(side), "--L", str(frames)]
+
+
+def t2v_cli(dev, wrappers, card: str, root: str) -> dict:
+    """Phase 7: the port's ``cli.t2v_main`` on ``dev``, from a model
+    directory written to ``root`` at SD1.5 + AnimateDiff v3 width, on a
+    reference clip of 16 frames of 512 x 512; then again, which must reuse
+    the cached motion representation.  Returns what phases 8 and 9 build
+    on: the saved state dicts, the run's final latents and video."""
+    import contextlib
     import io
-    import tempfile
 
     from motionclone_tpu_torch import cli
     from motionclone_tpu_torch.diffusion.guidance import load_motion_representation_meta
@@ -1847,93 +1950,73 @@ def t2v_cli(dev, wrappers, card: str) -> None:
 
     side, frames = 512, 16
     clip = reference_clip(frames, side)
-    stubbed = None
-    if importlib.util.find_spec("cv2") is None:
-        stubbed = {}
-        log("video codec: cv2 absent on this machine; decode/write stubbed")
-        video_io.read_video_frames = lambda path: (clip, 8.0)
-        runner.write_video = lambda path, video, fps=8: stubbed.__setitem__(path, video)
-    with tempfile.TemporaryDirectory(prefix="t2v_cli_") as root:
-        t0 = time.perf_counter()
-        saved = write_model_dir(root, dev, sd15_configs())
-        write_s = time.perf_counter() - t0
-        if stubbed is None:
-            video_io.write_video(os.path.join(root, "reference.mp4"), clip, fps=8)
-        with open(os.path.join(root, "examples.jsonl"), "w") as fh:
-            fh.write(json.dumps({"video_path": "reference.mp4",
-                                 "new_prompt": "Relics on the seabed", "seed": 42}) + "\n")
-        argv = ["--pretrained-model-path", os.path.join(root, "sd"),
-                "--inference_config", os.path.join(root, "t2v.yaml"),
-                "--examples", os.path.join(root, "examples.jsonl"),
-                "--motion-representation-save-dir", os.path.join(root, "reps"),
-                "--generated-videos-save-dir", os.path.join(root, "out"),
-                "--config-root", root, "--device", str(dev),
-                "--W", str(side), "--H", str(side), "--L", str(frames)]
-        for w in wrappers.values():
-            w.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        rt, paths = cli.t2v_main(argv)
-        torch.cuda.synchronize()
-        video_s = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        launches = {n: wrappers[n].launches for n in CLI_KERNELS}
-        cfg, timings = rt.infer_cfg, rt.timings
-        log(f"t2v CLI: schedule {cfg.inference_steps} steps, {cfg.guidance_steps} guided "
-            f"(configs/t2v_camera.yaml's), {side}x{side}x{frames}, bf16, random weights")
-        g, v = cfg.guidance_steps, cfg.inference_steps - cfg.guidance_steps
-        for name, n in launches.items():
-            ext, per_g, per_v = PREDICTED_LAUNCHES[name]
-            want = ext + g * per_g + v * per_v
-            log(f"t2v CLI launches {name:25s} measured {n:5d} predicted {want:5d}"
-                f"{'' if n == want else '  DIFFERS'}")
-        missing = [n for n, c in launches.items() if c <= 0]
-        if missing:
-            raise AssertionError(f"t2v CLI: kernels never launched: {missing}")
-        check_loaded(rt, saved)
-        del saved
-        name = "reference_" + (("Relics on the seabed" + cfg.positive_prompt).strip()
-                               .replace(" ", "_")) + "42_42.mp4"
-        if paths != [os.path.join(root, "out", name)]:
-            raise AssertionError(f"t2v CLI wrote {paths}, not {name}")
-        out = stubbed[paths[0]] if stubbed is not None else video_io.read_video_frames(
-            paths[0])[0]
-        if (out.shape != (frames, side, side, 3) or out.dtype.name != "uint8"
-                or int(out.max()) == 0 or int(out.min()) == int(out.max())):
-            raise AssertionError(f"t2v CLI output {out.shape} {out.dtype} is constant, "
-                                 f"all zero or of another shape")
-        rep_path = os.path.join(root, "reps", "reference.npz")
-        if load_motion_representation_meta(rep_path) != runner.motion_rep_meta(cfg, 42):
-            raise AssertionError("t2v CLI: the motion representation's meta is missing or wrong")
-        median = lambda ms: sorted(ms)[len(ms) // 2]
-        g, v = timings["guided_ms"], timings["vanilla_ms"]  # ms per step
-        for line in (
-                f"weights written in {write_s:.1f} s, loaded in {rt.load_seconds:.1f} s",
-                f"tokenizer + CLIP {timings['text']:.3f} s",
-                f"extraction {timings['extract']:.2f} s",
-                f"sampling {timings['sample']:.2f} s: ms per guided step median "
-                f"{median(g):.1f} (min {min(g):.1f}, max {max(g):.1f}, {len(g)} steps), "
-                f"per vanilla step median {median(v):.1f} (min {min(v):.1f}, "
-                f"max {max(v):.1f}, {len(v)} steps)",
-                f"decode + write {timings['decode_write']:.2f} s",
-                f"peak device memory {peak_gb:.2f} GB",
-                f"seconds per video from the CLI: {video_s:.1f} (weights load included), "
-                f"{video_s - rt.load_seconds:.1f} (excluded)"):
-            log(f"t2v CLI {line} [{card}]")
-        del rt
-        torch.cuda.empty_cache()
-
-        second = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(second):
-            cli.t2v_main(argv)
-        reuse = [ln for ln in second.getvalue().splitlines() if "motion representation" in ln]
-        log(f"t2v CLI second run: {time.perf_counter() - t0:.1f} s; " + "; ".join(reuse))
-        if not any("reused from" in ln and rep_path in ln for ln in reuse):
-            raise AssertionError("t2v CLI: the second run did not reuse the cached "
-                                 "motion representation")
+    stubbed = stub_codec(clip)
+    t0 = time.perf_counter()
+    saved = write_model_dir(root, dev, sd15_configs())
+    write_s = time.perf_counter() - t0
+    if stubbed is None:
+        video_io.write_video(os.path.join(root, "reference.mp4"), clip, fps=8)
+    with open(os.path.join(root, "examples.jsonl"), "w") as fh:
+        fh.write(json.dumps({"video_path": "reference.mp4",
+                             "new_prompt": "Relics on the seabed", "seed": 42}) + "\n")
+    argv = t2v_argv(root, dev)
+    run = run_cli(cli.t2v_main, argv, wrappers)
+    rt, paths, launches, video_s, peak_gb = (run[k] for k in ("rt", "paths", "launches",
+                                                               "seconds", "peak_gb"))
+    cfg, timings = rt.infer_cfg, rt.timings
+    log(f"t2v CLI: schedule {cfg.inference_steps} steps, {cfg.guidance_steps} guided "
+        f"(configs/t2v_camera.yaml's), {side}x{side}x{frames}, bf16, random weights")
+    g, v = cfg.guidance_steps, cfg.inference_steps - cfg.guidance_steps
+    for name, n in launches.items():
+        ext, per_g, per_v = PREDICTED_LAUNCHES[name]
+        want = ext + g * per_g + v * per_v
+        log(f"t2v CLI launches {name:25s} measured {n:5d} predicted {want:5d}"
+            f"{'' if n == want else '  DIFFERS'}")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"t2v CLI: kernels never launched: {missing}")
+    check_loaded(rt, saved)
+    name = "reference_" + (("Relics on the seabed" + cfg.positive_prompt).strip()
+                           .replace(" ", "_")) + "42_42.mp4"
+    if paths != [os.path.join(root, "out", name)]:
+        raise AssertionError(f"t2v CLI wrote {paths}, not {name}")
+    out = read_output(paths, stubbed)
+    check_video("t2v CLI", out, frames, side)
+    rep_path = os.path.join(root, "reps", "reference.npz")
+    if load_motion_representation_meta(rep_path) != runner.motion_rep_meta(cfg, 42):
+        raise AssertionError("t2v CLI: the motion representation's meta is missing or wrong")
+    median = lambda ms: sorted(ms)[len(ms) // 2]
+    g, v = timings["guided_ms"], timings["vanilla_ms"]  # ms per step
+    for line in (
+            f"weights written in {write_s:.1f} s, loaded in {rt.load_seconds:.1f} s",
+            f"tokenizer + CLIP {timings['text']:.3f} s",
+            f"extraction {timings['extract']:.2f} s",
+            f"sampling {timings['sample']:.2f} s: ms per guided step median "
+            f"{median(g):.1f} (min {min(g):.1f}, max {max(g):.1f}, {len(g)} steps), "
+            f"per vanilla step median {median(v):.1f} (min {min(v):.1f}, "
+            f"max {max(v):.1f}, {len(v)} steps)",
+            f"decode + write {timings['decode_write']:.2f} s",
+            f"peak device memory {peak_gb:.2f} GB",
+            f"seconds per video from the CLI: {video_s:.1f} (weights load included), "
+            f"{video_s - rt.load_seconds:.1f} (excluded)"):
+        log(f"t2v CLI {line} [{card}]")
+    result = dict(saved=saved, latents=run["latents"], video=out, seconds=video_s,
+                  load_seconds=rt.load_seconds, sample_seconds=timings["sample"],
+                  guidance_steps=cfg.guidance_steps)
+    del rt, run
     torch.cuda.empty_cache()
+
+    second = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(second):
+        cli.t2v_main(argv)
+    reuse = [ln for ln in second.getvalue().splitlines() if "motion representation" in ln]
+    log(f"t2v CLI second run: {time.perf_counter() - t0:.1f} s; " + "; ".join(reuse))
+    if not any("reused from" in ln and rep_path in ln for ln in reuse):
+        raise AssertionError("t2v CLI: the second run did not reuse the cached "
+                             "motion representation")
+    torch.cuda.empty_cache()
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -2044,47 +2127,43 @@ def write_i2v_config(root: str, flavour: str) -> str:
     return path
 
 
-def i2v_cli(dev, wrappers, card: str) -> dict:
+def i2v_cli(dev, wrappers, card: str, root: str, saved: dict) -> dict:
     """Phase 8: the port's ``cli.i2v_main`` on ``dev`` for both SparseCtrl
-    flavours, from a model directory written to a temporary directory at
-    SD1.5 + AnimateDiff v3 width (phase 7's, plus an adapter LoRA, a
-    controlnet per flavour and a 512 x 512 condition PNG, the reference
-    clip's first frame), at image_index [0].  Returns each flavour's
-    launches."""
-    import importlib.util
-    import tempfile
-
-    from motionclone_tpu_torch.io import video as video_io
-    from motionclone_tpu_torch.pipeline import runner
-
+    flavours, from phase 7's model directory in ``root`` (its saved state
+    dicts ``saved``) plus an adapter LoRA, a controlnet per flavour and a
+    512 x 512 condition PNG, the reference clip's first frame, at
+    image_index [0].  Returns each flavour's launches and the saved RGB
+    controlnet."""
     side, frames = 512, 16
     clip = reference_clip(frames, side)
-    stubbed = None
-    if importlib.util.find_spec("cv2") is None:
-        stubbed = {}
-        log("video and image codec: cv2 absent on this machine; decode/write stubbed")
-        video_io.read_video_frames = lambda path: (clip, 8.0)
-        video_io.read_image_rgb = lambda path: clip[0]
-        runner.write_video = lambda path, video, fps=8: stubbed.__setitem__(path, video)
+    stubbed = stub_codec(clip)
     out = {}
-    with tempfile.TemporaryDirectory(prefix="i2v_cli_") as root:
-        t0 = time.perf_counter()
-        unet_cfg, vae_cfg, clip_cfg = sd15_configs()
-        saved = write_model_dir(root, dev, (unet_cfg, vae_cfg, clip_cfg))
-        lora_targets = write_adapter_lora(root, saved["unet"])
-        saved_cn = {f: write_controlnet(root, dev, unet_cfg, f) for f in ("rgb", "sketch")}
-        if stubbed is None:
-            video_io.write_video(os.path.join(root, "reference.mp4"), clip, fps=8)
-            write_png(os.path.join(root, "condition.png"), clip[0])
-        write_s = time.perf_counter() - t0
-        log(f"i2v CLI: model directory written in {write_s:.1f} s (adapter LoRA on "
-            f"{len(lora_targets)} projections)")
-        for flavour in ("rgb", "sketch"):
-            out[flavour] = i2v_cli_run(root, flavour, dev, wrappers, card, saved,
-                                       saved_cn[flavour], lora_targets, stubbed)
-        del saved, saved_cn
+    t0 = time.perf_counter()
+    unet_cfg = sd15_configs()[0]
+    lora_targets = write_adapter_lora(root, saved["unet"])
+    saved_cn = {f: write_controlnet(root, dev, unet_cfg, f) for f in ("rgb", "sketch")}
+    if stubbed is None:
+        write_png(os.path.join(root, "condition.png"), clip[0])
+    write_s = time.perf_counter() - t0
+    log(f"i2v CLI: adapter LoRA (on {len(lora_targets)} projections) and controlnets "
+        f"written beside phase 7's model directory in {write_s:.1f} s")
+    for flavour in ("rgb", "sketch"):
+        out[flavour] = i2v_cli_run(root, flavour, dev, wrappers, card, saved,
+                                   saved_cn[flavour], lora_targets, stubbed)
+    out["saved_rgb_controlnet"] = saved_cn["rgb"]
     torch.cuda.empty_cache()
     return out
+
+
+def i2v_argv(root: str, flavour: str, dev, out: str) -> list:
+    side, frames = 512, 16
+    return ["--pretrained-model-path", os.path.join(root, "sd"),
+            "--inference_config", os.path.join(root, f"i2v_{flavour}.yaml"),
+            "--examples", os.path.join(root, f"examples_{flavour}.jsonl"),
+            "--motion-representation-save-dir", os.path.join(root, f"reps_{flavour}"),
+            "--generated-videos-save-dir", os.path.join(root, out),
+            "--config-root", root, "--device", str(dev),
+            "--W", str(side), "--H", str(side), "--L", str(frames)]
 
 
 def i2v_cli_run(root, flavour, dev, wrappers, card, saved, saved_cn, lora_targets,
@@ -2092,7 +2171,6 @@ def i2v_cli_run(root, flavour, dev, wrappers, card, saved, saved_cn, lora_target
     """One flavour of phase 8: ``cli.i2v_main`` with the launch counts set
     to 0 just before and read just after."""
     from motionclone_tpu_torch import cli
-    from motionclone_tpu_torch.io import video as video_io
     from motionclone_tpu_torch.models.sparse_controlnet import SparseControlNetModel
 
     side, frames, prompt = 512, 16, I2V_PROMPTS[flavour]
@@ -2100,13 +2178,8 @@ def i2v_cli_run(root, flavour, dev, wrappers, card, saved, saved_cn, lora_target
         fh.write(json.dumps({"video_path": "reference.mp4", "new_prompt": prompt,
                              "condition_image_paths": ["condition.png"],
                              "image_index": [0]}) + "\n")
-    argv = ["--pretrained-model-path", os.path.join(root, "sd"),
-            "--inference_config", write_i2v_config(root, flavour),
-            "--examples", os.path.join(root, f"examples_{flavour}.jsonl"),
-            "--motion-representation-save-dir", os.path.join(root, f"reps_{flavour}"),
-            "--generated-videos-save-dir", os.path.join(root, f"out_{flavour}"),
-            "--config-root", root, "--device", str(dev),
-            "--W", str(side), "--H", str(side), "--L", str(frames)]
+    write_i2v_config(root, flavour)
+    argv = i2v_argv(root, flavour, dev, f"out_{flavour}")
     # the controlnet's passes: how many, and the first one's residuals
     passes = []
     forward = SparseControlNetModel.forward
@@ -2118,18 +2191,11 @@ def i2v_cli_run(root, flavour, dev, wrappers, card, saved, saved_cn, lora_target
 
     SparseControlNetModel.forward = spy
     try:
-        for w in wrappers.values():
-            w.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        rt, paths = cli.i2v_main(argv)
-        torch.cuda.synchronize()
-        video_s = time.perf_counter() - t0
-        launches = {n: wrappers[n].launches for n in CLI_KERNELS}
+        run = run_cli(cli.i2v_main, argv, wrappers)
     finally:
         SparseControlNetModel.forward = forward
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rt, paths, launches, video_s, peak_gb = (run.pop(k) for k in ("rt", "paths", "launches",
+                                                                   "seconds", "peak_gb"))
     cfg, timings = rt.infer_cfg, rt.timings
     tag = f"i2v_{flavour} CLI"
     cut = (f"; schedule cut from configs/i2v_sketch.yaml's 200 steps (120 guided) to "
@@ -2175,12 +2241,7 @@ def i2v_cli_run(root, flavour, dev, wrappers, card, saved, saved_cn, lora_target
         + "76739_76739.mp4"
     if paths != [os.path.join(root, f"out_{flavour}", name)]:
         raise AssertionError(f"{tag} wrote {paths}, not {name}")
-    video = stubbed[paths[0]] if stubbed is not None else video_io.read_video_frames(
-        paths[0])[0]
-    if (video.shape != (frames, side, side, 3) or video.dtype.name != "uint8"
-            or int(video.max()) == 0 or int(video.min()) == int(video.max())):
-        raise AssertionError(f"{tag} output {video.shape} {video.dtype} is constant, all "
-                             f"zero or of another shape")
+    check_video(tag, read_output(paths, stubbed), frames, side)
     # one controlnet pass alone on the CFG pair, as every step runs it
     from motionclone_tpu_torch.config import load_examples
 
@@ -2214,6 +2275,258 @@ def i2v_cli_run(root, flavour, dev, wrappers, card, saved, saved_cn, lora_target
     del rt, passes, down, mid
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the approx caches, the weights cache and resume through the CLIs
+# ---------------------------------------------------------------------------
+
+# the JAX package's recommended operating point, and the finer caches
+APPROX_STEP = "step-extrap:3"
+APPROX_FINER = "uncond-extrap:3,guidance-cache:2"
+# where the card's kernels give other bits for the same inputs, a rerun is
+# held to phase 4's tolerance of the noise prediction (relative L2)
+RERUN_TOL = 3e-2
+# every cache on: the build whose overrides at 1 must be the exact path
+ALL_CACHES = dict(uncond_interval=2, guidance_interval=2, uncond_extrap=1.0, step_interval=2,
+                  step_extrap=1.0)
+
+
+def predicted_launches(sched, guidance_steps: int, extraction: bool,
+                       controlnet: bool) -> dict:
+    """The launches of a sampling run from its schedule's flags
+    (``SamplingFns.schedule``): per full guided step the controlnet pass
+    (i2v), the uncond forward where fresh, and the guidance pass where
+    fresh or else a plain conditional forward; per full vanilla step the
+    controlnet pass and one plain forward (the CFG pair, or the conditional
+    half alone on a stale-uncond step: the modules route alike at B·F 16
+    and 32); nothing on a skip step; extraction's where it ran.  A plain
+    forward launches what a vanilla step does, the guidance pass the rest
+    of a guided step's PREDICTED_LAUNCHES."""
+    out = {}
+    for name, (ext, per_g, per_v) in PREDICTED_LAUNCHES.items():
+        cn = PREDICTED_CONTROLNET_LAUNCHES.get(name, 0) if controlnet else 0
+        plain, grad = per_v, per_g - per_v
+        n = ext + cn if extraction else 0
+        for i in np.flatnonzero(sched.full):
+            if i < guidance_steps:
+                n += cn + (plain if sched.uncond[i] else 0) + (grad if sched.guidance[i]
+                                                               else plain)
+            else:
+                n += cn + plain
+        out[name] = int(n)
+    return out
+
+
+def check_launches(tag: str, run: dict, controlnet: bool) -> None:
+    rt = run["rt"]
+    want = predicted_launches(rt.pipeline.fns.schedule(), rt.infer_cfg.guidance_steps,
+                              "extract" in rt.timings, controlnet)
+    differs = []
+    for name, n in run["launches"].items():
+        log(f"{tag} launches {name:25s} measured {n:5d} predicted {want[name]:5d}"
+            f"{'' if n == want[name] else '  DIFFERS'}")
+        if n != want[name]:
+            differs.append(name)
+    if differs:
+        raise AssertionError(f"{tag}: launches differ from the prediction: {differs}")
+
+
+def same_or_close(what: str, got, want) -> None:
+    """``got`` equals ``want`` bit for bit, or, where the card's kernels
+    gave other bits for the same inputs, within RERUN_TOL (said so)."""
+    if torch.equal(got, want):
+        log(f"{what}: equal bit for bit")
+        return
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    log(f"{what}: NOT bit for bit: relative L2 {rel:.3e}, max abs difference "
+        f"{(got.float() - want.float()).abs().max().item():.3e} (tol {RERUN_TOL:.0e}); the "
+        f"card's kernels gave other bits for the same inputs")
+    if rel > RERUN_TOL:
+        raise AssertionError(f"{what}: relative L2 {rel}")
+
+
+def stepped_sample(fns, infer, latents, uncond, cond, rep):
+    """The exact schedule driven one step at a time through ``guided_step``
+    and ``vanilla_step``, which ``sample``'s cached steps equal with every
+    flag true."""
+    from motionclone_tpu_torch.diffusion.ddim import prev_timesteps
+    from motionclone_tpu_torch.diffusion.guidance import ramp_scales
+
+    ts = fns.timesteps
+    tps = prev_timesteps(ts)
+    ramps = ramp_scales(infer.guidance_steps, infer.warm_up_steps, infer.cool_up_steps)
+    for i, (t, tp) in enumerate(zip(ts.tolist(), tps.tolist())):
+        if i < infer.guidance_steps:
+            latents, _ = fns.guided_step(latents, t, tp, float(ramps[i]), uncond, cond, rep)
+        else:
+            latents = fns.vanilla_step(latents, t, tp, uncond, cond)
+    return latents
+
+
+def approx_identity(pipe, run) -> None:
+    """Phase 9(e), on phase 3's pipeline and cut schedule: the exact steps
+    one at a time (``guided_step`` / ``vanilla_step``) against phase 3's
+    exact ``sample`` and against the build with every cache on, run with
+    every override at 1, from the same latents, embeddings and
+    representation."""
+    from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns
+
+    init = pipe.initial_latents(seed=3)
+    want = stepped_sample(pipe.fns, pipe.infer_cfg, init, run["uncond"], run["cond"],
+                          run["rep"])
+    same_or_close("approx (e): the exact sample against its steps one at a time (phase "
+                  "3's 4 steps)", run["out"], want)
+    fns = make_sampling_fns(pipe.unet, pipe.sched_cfg, pipe.infer_cfg, **ALL_CACHES)
+    got = fns.sample(init, run["uncond"], run["cond"], run["rep"],
+                     uncond_refresh=1, guidance_refresh=1, step_refresh=1,
+                     uncond_extrap_w=1.0, step_extrap_w=1.0)
+    same_or_close("approx (e): every cache built, every override at 1, against the exact "
+                  "steps one at a time (phase 3's 4 steps)", got, want)
+
+
+def psnr(a, b) -> float:
+    mse = float(((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean())
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def log_run(tag: str, run: dict, card: str) -> None:
+    """Seconds per video, the full and skip step medians, peak memory."""
+    rt = run["rt"]
+    t = rt.timings
+    median = lambda ms: f"{sorted(ms)[len(ms) // 2]:.1f}" if ms else "-"
+    written = (f" (the entry written in {rt.cache_write_seconds:.2f} s besides)"
+               if t["weights_cache"] == "miss" else "")
+    log(f"{tag}: weights cache {t['weights_cache']}, loaded in {rt.load_seconds:.2f} s"
+        f"{written}; "
+        f"sampling {t['sample']:.2f} s: ms per guided step median {median(t['guided_ms'])} "
+        f"({len(t['guided_ms'])} full), skip {median(t['guided_skip_ms'])} "
+        f"({len(t['guided_skip_ms'])}); per vanilla step median {median(t['vanilla_ms'])} "
+        f"({len(t['vanilla_ms'])} full), skip {median(t['vanilla_skip_ms'])} "
+        f"({len(t['vanilla_skip_ms'])}); peak device memory {run['peak_gb']:.2f} GB; "
+        f"seconds per video from the CLI {run['seconds']:.1f} (weights load included), "
+        f"{run['seconds'] - rt.load_seconds:.1f} (excluded) [{card}]")
+
+
+class Interrupted(Exception):
+    pass
+
+
+def approx_cli(dev, wrappers, card: str, root: str, t2v: dict, i2v: dict) -> None:
+    """Phase 9: ``--approx``, ``--weights-cache`` and ``--resume`` through
+    the CLIs, on phase 7's and phase 8's model directories in ``root``."""
+    from motionclone_tpu_torch import cli
+    from motionclone_tpu_torch.models.sparse_controlnet import SparseControlNetModel
+
+    side, frames = 512, 16
+    stubbed = stub_codec(reference_clip(frames, side))
+    wc = os.path.join(root, "weights_cache")
+
+    # (a) step-extrap:3, cold weights cache, resume on (uninterrupted)
+    argv_a = t2v_argv(root, dev, "out_9a") + ["--approx", APPROX_STEP, "--weights-cache", wc,
+                                              "--resume"]
+    a = run_cli(cli.t2v_main, argv_a, wrappers)
+    tag = f"approx (a) t2v_camera --approx {APPROX_STEP}"
+    if a["rt"].timings["weights_cache"] != "miss":
+        raise AssertionError(f"{tag}: the first run's weights cache was not a miss")
+    check_launches(tag, a, controlnet=False)
+    video = read_output(a["paths"], stubbed)
+    check_video(tag, video, frames, side)
+    rel = ((a["latents"] - t2v["latents"]).norm() / t2v["latents"].norm()).item()
+    log(f"{tag}: against phase 7's exact run (random weights, so not a quality figure): "
+        f"final latents relative L2 {rel:.3e}, frames PSNR {psnr(video, t2v['video']):.2f} dB")
+    log_run(tag, a, card)
+    if any(f.startswith(".resume_") for f in os.listdir(os.path.join(root, "out_9a"))):
+        raise AssertionError(f"{tag}: the resume checkpoint outlived the run")
+    cold_s, a_latents = a["rt"].load_seconds, a["latents"]
+    del a
+    torch.cuda.empty_cache()
+
+    # (b) the finer caches, a weights-cache hit
+    b = run_cli(cli.t2v_main, t2v_argv(root, dev, "out_9b")
+                + ["--approx", APPROX_FINER, "--weights-cache", wc], wrappers)
+    tag = f"approx (b) t2v_camera --approx {APPROX_FINER}"
+    if b["rt"].timings["weights_cache"] != "hit":
+        raise AssertionError(f"{tag}: the second run's weights cache was not a hit")
+    check_loaded(b["rt"], t2v["saved"])
+    check_launches(tag, b, controlnet=False)
+    video = read_output(b["paths"], stubbed)
+    check_video(tag, video, frames, side)
+    rel = ((b["latents"] - t2v["latents"]).norm() / t2v["latents"].norm()).item()
+    log(f"{tag}: against phase 7's exact run (random weights): final latents relative L2 "
+        f"{rel:.3e}, frames PSNR {psnr(video, t2v['video']):.2f} dB")
+    log_run(tag, b, card)
+    log(f"approx t2v weights: loaded in {t2v['load_seconds']:.2f} s without the cache "
+        f"(phase 7), {cold_s:.2f} s cold (a miss; the entry's write excluded), "
+        f"{b['rt'].load_seconds:.2f} s warm (a hit), every parameter equal to phase 7's "
+        f"bit for bit [{card}]")
+    log(f"approx t2v seconds per video (load included): exact {t2v['seconds']:.1f} "
+        f"(phase 7), sampling {t2v['sample_seconds']:.2f} s [{card}]")
+    del b
+    torch.cuda.empty_cache()
+
+    # (d) resume: interrupted after the guided chunk, then run again
+    def stop(done, total):
+        if done == t2v["guidance_steps"]:
+            raise Interrupted
+
+    argv_d = t2v_argv(root, dev, "out_9d") + ["--approx", APPROX_STEP, "--weights-cache", wc,
+                                              "--resume"]
+    try:
+        run_cli(cli.t2v_main, argv_d, wrappers, on_chunk=stop)
+        raise AssertionError("approx (d): the run was not interrupted")
+    except Interrupted:
+        pass
+    left = [f for f in os.listdir(os.path.join(root, "out_9d")) if f.startswith(".resume_")]
+    if len(left) != 1:
+        raise AssertionError(f"approx (d): the interrupted run left {left}")
+    d = run_cli(cli.t2v_main, argv_d, wrappers)
+    tag = "approx (d) t2v_camera resume"
+    t = d["rt"].timings
+    if t["guided_ms"] or t["guided_skip_ms"] or not t["vanilla_ms"]:
+        raise AssertionError(f"{tag}: the rerun did not continue at the vanilla chunk")
+    same_or_close(f"{tag}: rerun after the guided chunk against (a)'s uninterrupted run, "
+                  f"final latents", d["latents"], a_latents)
+    log_run(tag, d, card)
+    del d
+    torch.cuda.empty_cache()
+
+    # (c) i2v_rgb under step-extrap:3, weights cache miss then hit
+    passes = []
+    forward = SparseControlNetModel.forward
+
+    def spy(self, *args, **kwargs):
+        passes.append(1)
+        return forward(self, *args, **kwargs)
+
+    SparseControlNetModel.forward = spy
+    try:
+        for i, state in enumerate(("miss", "hit")):
+            passes.clear()
+            c = run_cli(cli.i2v_main, i2v_argv(root, "rgb", dev, f"out_9c{i}")
+                        + ["--approx", APPROX_STEP, "--weights-cache", wc], wrappers)
+            rt = c["rt"]
+            tag = f"approx (c{i}) i2v_rgb --approx {APPROX_STEP}"
+            if rt.timings["weights_cache"] != state:
+                raise AssertionError(f"{tag}: the weights cache was not a {state}")
+            check_launches(tag, c, controlnet=True)
+            full = int(rt.pipeline.fns.schedule().full.sum())
+            want = full + ("extract" in rt.timings)
+            log(f"{tag}: {len(passes)} controlnet passes, {full} full steps of "
+                f"{rt.infer_cfg.inference_steps}")
+            if len(passes) != want:
+                raise AssertionError(f"{tag}: {len(passes)} controlnet passes, not {want}")
+            check_video(tag, read_output(c["paths"], stubbed), frames, side)
+            if state == "hit":
+                got = rt.pipeline.controlnet.state_dict()
+                for k, v in i2v["saved_rgb_controlnet"].items():
+                    if not torch.equal(got[k].cpu().view(torch.int16), v.view(torch.int16)):
+                        raise AssertionError(f"{tag}: cached controlnet {k} differs")
+            log_run(tag, c, card)
+            del c, rt
+            torch.cuda.empty_cache()
+    finally:
+        SparseControlNetModel.forward = forward
 
 
 # ---------------------------------------------------------------------------
@@ -2422,15 +2735,23 @@ def main() -> int:
     sharded = sharded_path(dev, reference, args.shards, args.backend)
     log(f"phase sharded path: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    # phase 7: the t2v CLI from a model directory on disk
-    t0 = time.perf_counter()
-    t2v_cli(dev, wrappers, card)
-    log(f"phase t2v CLI: {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    # phase 8: the i2v CLI, both SparseCtrl flavours
-    t0 = time.perf_counter()
-    i2v_cli(dev, wrappers, card)
-    log(f"phase i2v CLI: {time.perf_counter() - t0:.1f} s")
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="cli_") as root:
+        # phase 7: the t2v CLI from a model directory on disk
+        t0 = time.perf_counter()
+        t2v = t2v_cli(dev, wrappers, card, root)
+        log(f"phase t2v CLI: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        # phase 8: the i2v CLI, both SparseCtrl flavours
+        t0 = time.perf_counter()
+        i2v = i2v_cli(dev, wrappers, card, root, t2v["saved"])
+        log(f"phase i2v CLI: {time.perf_counter() - t0:.1f} s")
+        # phase 9: --approx, --weights-cache and --resume through the CLIs
+        t0 = time.perf_counter()
+        approx_cli(dev, wrappers, card, root, t2v, i2v)
+        log(f"phase approx CLI: {time.perf_counter() - t0:.1f} s")
+        del t2v, i2v
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -3,13 +3,16 @@
 
 Port of the t2v and i2v entry points of ``motionclone_tpu/cli.py``, with
 the same flags and defaults and one more, ``--device`` (``cuda`` by
-default; ``cpu`` runs the kernels' plain PyTorch versions).  Flags of the JAX package that the port
-does not have yet still parse: ``--frame-shard``, ``--frame-shard-mode``,
-``--cfg-pair``, ``--approx``, ``--resume`` and ``--weights-cache`` exit with
-a message naming their ``ROADMAP.md`` item when given another value than
-the default.  ``--attention-impl xla|chunked`` and ``--without-xformers``
-select the port's unfused ("flash") path and say so; ``--visible_gpu`` and
-``--compile-cache`` are accepted and print that they do nothing.
+default; ``cpu`` runs the kernels' plain PyTorch versions).  ``--approx``
+(the approx caches, :func:`parse_approx`), ``--resume`` (per-chunk resume
+of sampling) and ``--weights-cache DIR`` (the converted-weights cache) work
+as in the JAX package.  Flags of the JAX package that the port does not
+have yet still parse: ``--frame-shard``, ``--frame-shard-mode`` and
+``--cfg-pair`` exit with a message naming their ``ROADMAP.md`` item when
+given another value than the default.  ``--attention-impl xla|chunked`` and
+``--without-xformers`` select the port's unfused ("flash") path and say so;
+``--visible_gpu`` and ``--compile-cache`` are accepted and print that they
+do nothing.
 """
 
 from __future__ import annotations
@@ -31,9 +34,6 @@ UNPORTED = {
     "frame_shard_mode": ("shardmap", "the GSPMD frame-sharding flavour is not ported "
                                      "(ROADMAP.md queue 1, 'Do not port')"),
     "cfg_pair": (False, "the cfg mesh axis is ROADMAP.md queue 1 item 7"),
-    "approx": ("", "the approx caches are ROADMAP.md queue 1 item 5"),
-    "resume": (False, "per-chunk resume is ROADMAP.md queue 1 item 6"),
-    "weights_cache": ("", "the converted-weights cache is ROADMAP.md queue 1 item 6"),
 }
 
 
@@ -64,26 +64,99 @@ def build_parser(default_config: str, default_examples: str,
                         help="auto: fused kernels on CUDA, unfused on the CPU; "
                              "flash: unfused (attention kernels only); fused; "
                              "xla and chunked select flash")
-    parser.add_argument("--resume", action="store_true", help="not ported yet")
+    parser.add_argument("--resume", action="store_true",
+                        help="checkpoint the sampling loop's latents after each chunk "
+                             "(in the output directory) and continue an interrupted run "
+                             "from the last finished chunk")
     parser.add_argument("--frame-shard", type=int, default=0, metavar="N",
                         help="not ported yet")
     parser.add_argument("--frame-shard-mode", type=str, default="shardmap",
                         choices=["shardmap", "gspmd"], help="not ported")
     parser.add_argument("--cfg-pair", action="store_true", help="not ported yet")
-    parser.add_argument("--approx", type=str, default="", metavar="MODE[:K]",
-                        help="not ported yet")
+    parser.add_argument(
+        "--approx", type=str, default="", metavar="MODE[:K]",
+        help="OUTPUT-CHANGING speed mode; default is the exact pipeline. "
+        "'uncond-cache[:K]': cross-step cache — refresh the unconditional "
+        "UNet forward every K steps (default 3) and reuse the cached "
+        "prediction in between (the conditional pass and motion guidance "
+        "stay exact). 'guidance-cache[:K]': refresh the motion-guidance "
+        "gradient (the cond fwd+bwd) every K guided steps (default 2); in "
+        "between a plain conditional forward supplies the CFG term and the "
+        "cached gradient is re-applied with the current ramp. "
+        "'uncond-extrap[:K]': like uncond-cache but the cached prediction "
+        "is linearly extrapolated in timestep space between refreshes. "
+        "'step-cache[:K]': run the FULL step (controlnet + uncond + "
+        "cond/grad) every K steps (default 2) and in between hold the cached "
+        "combined noise prediction — only the DDIM update runs on skip "
+        "steps. 'step-extrap[:K]': like step-cache but the held prediction "
+        "is linearly extrapolated from the last two full steps (a "
+        "linear-multistep solver on skip steps). Combine with a comma: "
+        "'uncond-extrap:3,guidance-cache:2' or 'step-extrap:2'. The JAX "
+        "package recommends 'step-extrap:3' for the reference workloads; "
+        "PERF.md has this port's measurements")
     parser.add_argument("--compile-cache", type=str, default="", metavar="DIR",
                         help="accepted for compatibility; does nothing")
     parser.add_argument("--weights-cache", type=str, default="", metavar="DIR",
-                        help="not ported yet")
+                        help="cache the assembled and merged weights in DIR: the "
+                             "checkpoint assembly and LoRA merge run once per unique "
+                             "checkpoint/LoRA/config set, later starts read one file")
     return parser
 
 
-def _refuse_unported(args) -> None:
+_APPROX_DEFAULTS = {
+    "uncond-cache": 3,
+    "uncond-extrap": 3,
+    "guidance-cache": 2,
+    "step-cache": 2,
+    "step-extrap": 2,
+}
+
+
+def parse_approx(spec: str) -> tuple:
+    """'--approx MODE[:K][,MODE[:K]]' -> (uncond_interval,
+    guidance_interval, uncond_extrap, step_interval, step_extrap), as the
+    JAX package's ``parse_approx``; an interval of 1 means that cache is
+    off."""
+    intervals = dict.fromkeys(_APPROX_DEFAULTS, 1)
+    if not spec:
+        return 1, 1, 0.0, 1, 0.0
+    for part in spec.split(","):
+        name, _, k = part.strip().partition(":")
+        if name not in _APPROX_DEFAULTS:
+            raise SystemExit(
+                f"unknown --approx mode {name!r} (supported: "
+                f"uncond-cache[:K], uncond-extrap[:K], guidance-cache[:K], "
+                f"step-cache[:K], step-extrap[:K])"
+            )
+        interval = int(k) if k else _APPROX_DEFAULTS[name]
+        if interval < 2:
+            raise SystemExit(f"--approx {name}:K needs K >= 2")
+        intervals[name] = interval
+    if intervals["uncond-cache"] > 1 and intervals["uncond-extrap"] > 1:
+        raise SystemExit(
+            "--approx uncond-cache and uncond-extrap are the same cache "
+            "(held vs extrapolated) — pick one"
+        )
+    if intervals["step-cache"] > 1 and intervals["step-extrap"] > 1:
+        raise SystemExit(
+            "--approx step-cache and step-extrap are the same cache "
+            "(held vs extrapolated) — pick one"
+        )
+    extrap = 1.0 if intervals["uncond-extrap"] > 1 else 0.0
+    uncond_k = max(intervals["uncond-cache"], intervals["uncond-extrap"])
+    step_w = 1.0 if intervals["step-extrap"] > 1 else 0.0
+    step_k = max(intervals["step-cache"], intervals["step-extrap"])
+    return uncond_k, intervals["guidance-cache"], extrap, step_k, step_w
+
+
+def _check_flags(args) -> None:
+    """Refuse the flags the port does not have, and parse ``--approx`` into
+    ``args.approx_knobs``, before any file is read."""
     for flag, (default, why) in UNPORTED.items():
         if getattr(args, flag) != default:
             raise SystemExit(f"--{flag.replace('_', '-')} is not available in the PyTorch "
                              f"port: {why}")
+    args.approx_knobs = parse_approx(args.approx)
 
 
 def _load_config(args) -> InferenceConfig:
@@ -104,16 +177,25 @@ def _setup(args, cfg: Optional[InferenceConfig] = None) -> MotionCloneRuntime:
         print(f"--attention-impl {args.attention_impl}: running the port's unfused "
               f"path (flash)")
         args.attention_impl = "flash"
+    uncond_k, guidance_k, uncond_w, step_k, step_w = args.approx_knobs
     if cfg is None:
         cfg = _load_config(args)
     os.makedirs(args.generated_videos_save_dir, exist_ok=True)
     with open(os.path.join(args.generated_videos_save_dir, "inference_config.json"), "w") as f:
         json.dump({k: str(v) for k, v in vars(cfg).items()}, f, indent=2)
-    return MotionCloneRuntime(
+    runtime = MotionCloneRuntime(
         args.pretrained_model_path, cfg, device=args.device,
         dtype=torch.float32 if args.float32 else torch.bfloat16,
         attention_impl=args.attention_impl, config_root=args.config_root,
+        uncond_interval=uncond_k, guidance_interval=guidance_k, uncond_extrap=uncond_w,
+        step_interval=step_k, step_extrap=step_w, weights_cache=args.weights_cache,
     )
+    if args.weights_cache:
+        written = (f" (entry written in {runtime.cache_write_seconds:.1f}s)"
+                   if runtime.weights_cache_state == "miss" else "")
+        print(f"weights cache {args.weights_cache}: {runtime.weights_cache_state}{written}; "
+              f"weights loaded in {runtime.load_seconds:.1f}s")
+    return runtime
 
 
 def run_serial(args, cfg: Optional[InferenceConfig] = None, examples=None):
@@ -128,6 +210,7 @@ def run_serial(args, cfg: Optional[InferenceConfig] = None, examples=None):
             output_dir=args.generated_videos_save_dir,
             default_seed=args.default_seed,
             config_root=args.config_root,
+            resume=args.resume,
         )
         print(out_path, "is done")
         paths.append(out_path)
@@ -137,7 +220,7 @@ def run_serial(args, cfg: Optional[InferenceConfig] = None, examples=None):
 def t2v_main(argv: Optional[Sequence[str]] = None):
     """The t2v CLI; returns (runtime, mp4 paths)."""
     args = build_parser("configs/t2v_camera.yaml", "configs/t2v_camera.jsonl").parse_args(argv)
-    _refuse_unported(args)
+    _check_flags(args)
     return run_serial(args)
 
 
@@ -148,7 +231,7 @@ def i2v_main(argv: Optional[Sequence[str]] = None):
     condition images do not pair with its ``image_index``."""
     args = build_parser("configs/i2v_sketch.yaml", "configs/i2v_sketch.jsonl",
                         default_seed=76739).parse_args(argv)
-    _refuse_unported(args)
+    _check_flags(args)
     cfg = _load_config(args)
     if not cfg.controlnet_path or not cfg.controlnet_config:
         raise ValueError("i2v requires controlnet_path and controlnet_config in the YAML")

@@ -14,7 +14,10 @@ Port of the exact path of ``motionclone_tpu/pipeline/motionclone.py``
   warm-up/cool-down ramp, combines CFG as ``cond + s * (cond - uncond)``
   and takes the DDIM step with the gradient as score;
 * a vanilla step is one batch-2 CFG forward and a DDIM step;
-* ``sample`` runs the guided phase then the vanilla phase as a Python loop.
+* ``sample`` runs the guided phase then the vanilla phase as a Python loop,
+  in chunks (below), through the cached steps with every flag true on the
+  exact schedule; ``guided_step`` and ``vanilla_step`` are the exact steps
+  alone, for callers that drive one step.
 
 With a ``controlnet`` (``models/sparse_controlnet.py``, the i2v workloads)
 each function takes ``cn_cond = (cond, mask, scale)``: the frame-scattered
@@ -49,6 +52,29 @@ ranks, outside autograd.  Sharding needs ``use_inflated_groupnorm`` and a
 unsharded.  A controlnet under a group of more than one rank raises: the
 frame-sharded controlnet is ROADMAP.md queue 1 item 7.
 
+The approx caches (the JAX package's ``--approx``; output-changing, opt-in
+through ``make_sampling_fns``'s ``uncond_interval``, ``guidance_interval``,
+``uncond_extrap``, ``step_interval`` and ``step_extrap``) act on the steps
+of ``sample``, which walks each phase in chunks of ``chunk_steps``: every
+chunk starts from empty caches with all its flags 0 true, and the guided
+and vanilla phases never share a chunk.  A full step runs the controlnet
+pass on the CFG pair, then the unconditional forward fresh or its cached
+prediction held / extrapolated in timestep space, then (guided) either the
+fresh conditional forward + backward or a plain conditional forward with
+the cached raw gradient; a skip step (the step cache) runs no model work:
+its noise prediction is extrapolated from the last two full steps', and the
+cached raw gradient is re-applied under the step's ramp.  The finer caches
+count executed steps (:func:`_refresh_flags`).  Under a frame group the
+caches hold each rank's frames, every rank takes the same branch, and a
+step that computes no guidance returns a loss of 0.
+
+``sample(..., resume_path=)`` writes the latents after every chunk and a
+rerun continues from the last finished chunk, with the JAX package's keys
+(``latents`` in f32, ``steps_done``, ``timesteps``, ``chunk_steps``,
+``tag``), so a checkpoint means the same in either package.  Under a frame
+group each rank keeps its own frames under ``<resume_path>.rank<r>.npz``,
+and the ranks continue only from one step that every rank's file holds.
+
 The lower-level functions take explicit noise and latents, so tests can
 feed numpy inputs.  Entry points run on CUDA unless ``device="cpu"`` is
 passed.
@@ -57,7 +83,8 @@ passed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import os
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,12 +129,100 @@ def guidance_cut_index(guidance_blocks: Tuple[str, ...]) -> int:
     return int(guidance_blocks[-1].rsplit(".", 1)[-1])
 
 
+def _refresh_flags(n: int, k: int, executed=None) -> np.ndarray:
+    """One chunk's refresh flags for a cache of interval ``k``: step 0 and
+    every k-th step after it.  With ``executed`` (the step cache's mask of
+    full steps) the count runs over executed steps only: a flag raised on a
+    skipped step would be consumed without running, stretching the
+    interval (uncond-cache:5 under step-extrap:2 would refresh every 10th
+    step)."""
+    if executed is None:
+        return (np.arange(n) % k) == 0
+    executed = np.asarray(executed, bool)
+    return executed & (((np.cumsum(executed) - 1) % k) == 0)
+
+
+def _const_col(n: int, w: float) -> np.ndarray:
+    """A per-step column of the weight ``w`` in float32, as the JAX package
+    feeds its extrapolation weights to the steps."""
+    return np.full((n,), w, np.float32)
+
+
+def _extrapolate(last: torch.Tensor, prev: torch.Tensor, t_last: float, t_prev: float,
+                 n_ref: int, t: float, w: float) -> torch.Tensor:
+    """A cached prediction at timestep ``t``: the last anchor plus ``w``
+    times the slope through the last two anchors (in timestep space), in
+    float32 and cast back to the anchors' dtype: bf16 anchor differences
+    are the signal being amplified.  The slope counts only once two anchors
+    exist (``n_ref >= 2``); w = 0 holds the cache."""
+    denom = t_last - t_prev
+    slope = (last.float() - prev.float()) / (1.0 if denom == 0 else denom)
+    wk = float(np.float32(w) * np.float32(1.0 if n_ref >= 2 else 0.0))
+    return (last.float() + wk * slope * float(np.float32(t) - np.float32(t_last))).to(last.dtype)
+
+
+@dataclasses.dataclass
+class _Anchors:
+    """The last two refreshes of a cached prediction (zeros before them),
+    their timesteps and how many there were."""
+    last: torch.Tensor
+    prev: torch.Tensor
+    t_last: float = 0.0
+    t_prev: float = 0.0
+    n: int = 0
+
+    @classmethod
+    def empty(cls, like: torch.Tensor) -> "_Anchors":
+        zeros = torch.zeros_like(like)
+        return cls(zeros, zeros)
+
+    def push(self, x: torch.Tensor, t: int) -> None:
+        self.last, self.prev = x, self.last
+        self.t_last, self.t_prev = float(t), self.t_last
+        self.n += 1
+
+    def extrapolate(self, t: int, w: float) -> torch.Tensor:
+        return _extrapolate(self.last, self.prev, self.t_last, self.t_prev, self.n, t, w)
+
+
+@dataclasses.dataclass
+class _ApproxCarry:
+    """What the approx steps carry within a chunk: the latents, the uncond
+    prediction's anchors, the raw guidance gradient (unscaled by the ramp,
+    in the latents' dtype) and the noise prediction's anchors (the step
+    cache's)."""
+    latents: torch.Tensor
+    uncond: _Anchors
+    grad: torch.Tensor
+    noise: _Anchors
+
+    @classmethod
+    def start(cls, latents: torch.Tensor) -> "_ApproxCarry":
+        return cls(latents, _Anchors.empty(latents), torch.zeros_like(latents),
+                   _Anchors.empty(latents))
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """Per step of a run (guided steps first): whether it runs its model
+    work (``full``; False: a skip step of the step cache, DDIM only), and
+    on a full step whether the uncond forward and the guidance gradient
+    are fresh (False: from the cache).  The exact path's steps are all
+    True."""
+    full: np.ndarray
+    uncond: np.ndarray
+    guidance: np.ndarray
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplingFns:
     extract: Callable[..., MotionRep]
     guided_step: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
     vanilla_step: Callable[..., torch.Tensor]
     sample: Callable[..., torch.Tensor]
+    # schedule(chunk_steps=50, uncond_refresh=None, guidance_refresh=None,
+    # step_refresh=None) -> Schedule: the flags ``sample`` runs with
+    schedule: Callable[..., Schedule]
     timesteps: np.ndarray
     frame_group: Optional[FrameGroup] = None  # None: unsharded
 
@@ -149,11 +264,39 @@ def make_sampling_fns(
     attention_impl: str = "auto",
     frame_group: Optional[FrameGroup] = None,
     controlnet: Optional[SparseControlNetModel] = None,
+    uncond_interval: int = 1,
+    guidance_interval: int = 1,
+    uncond_extrap: float = 0.0,
+    step_interval: int = 1,
+    step_extrap: float = 0.0,
 ) -> SamplingFns:
     """Build extract / guided_step / vanilla_step / sample around ``unet``
     (its parameters' device and dtype set where the work runs), sharded
     over ``frame_group``'s ranks when it has more than one, conditioned by
-    ``controlnet`` where a ``cn_cond`` is passed."""
+    ``controlnet`` where a ``cn_cond`` is passed.
+
+    The approx caches (output-changing; all off by default):
+    ``uncond_interval`` > 1 refreshes the unconditional forward every K
+    steps of both phases; ``guidance_interval`` > 1 the guidance gradient
+    every K guided steps (a plain conditional forward in between);
+    ``step_interval`` > 1 runs the full step every K steps (DDIM only in
+    between); ``uncond_extrap`` and ``step_extrap`` in [0, 1] weight the
+    linear extrapolation of the uncond and step caches (0 holds them).
+    ``sample`` can override each at run time."""
+    if uncond_interval < 1:
+        raise ValueError(f"uncond_interval must be >= 1, got {uncond_interval}")
+    if guidance_interval < 1:
+        raise ValueError(f"guidance_interval must be >= 1, got {guidance_interval}")
+    if step_interval < 1:
+        raise ValueError(f"step_interval must be >= 1, got {step_interval}")
+    if uncond_extrap and uncond_interval == 1:
+        raise ValueError(
+            "uncond_extrap extrapolates the uncond cache: build "
+            "make_sampling_fns(..., uncond_interval>1) to enable it")
+    if step_extrap and step_interval == 1:
+        raise ValueError(
+            "step_extrap extrapolates the step cache: build "
+            "make_sampling_fns(..., step_interval>1) to enable it")
     group = check_frame_group(frame_group, unet.cfg, infer_cfg)
     if controlnet is not None and group is not None:
         raise NotImplementedError(
@@ -221,66 +364,256 @@ def make_sampling_fns(
         return residuals(torch.cat([latents, latents]), t,
                          torch.cat([uncond_emb, cond_emb]), cn_cond)
 
-    def guided_step(latents, t: int, tp: int, ramp: float, uncond_emb, cond_emb,
-                    motion_rep: MotionRep, cn_cond: Optional[CnCond] = None):
-        """Returns (new latents, guidance loss)."""
-        b = latents.shape[0]
-        res = pair_residuals(latents, t, uncond_emb, cond_emb, cn_cond)
+    def plain_pass(latents, t: int, emb, res, sl: slice = slice(None)):
+        """A forward without grad on the path of the passes that are not
+        differentiated, with the residuals' rows ``sl``."""
         with torch.no_grad():
-            uncond_pred, _ = unet(latents, t, uncond_emb, attention_impl=plain_impl,
-                                  frame_group=group, **residual_kwargs(res, slice(None, b)))
+            pred, _ = unet(latents, t, emb, attention_impl=plain_impl, frame_group=group,
+                           **residual_kwargs(res, sl))
+        return pred
+
+    def pair_pass(latents, t: int, uncond_emb, cond_emb, res):
+        # the batch-2 CFG forward -> (uncond, cond) predictions
+        b = latents.shape[0]
+        pred2 = plain_pass(torch.cat([latents, latents]), t,
+                           torch.cat([uncond_emb, cond_emb]), res)
+        return pred2[:b], pred2[b:]
+
+    def guidance_pass(latents, t: int, cond_emb, motion_rep: MotionRep, res, sl: slice):
+        """The conditional forward under autograd and the gradient of the
+        guidance loss with respect to the latents -> (cond prediction, raw
+        gradient, the loss summed over the ranks)."""
         with torch.enable_grad():
             leaf = latents.detach().requires_grad_(True)
             cond_pred, probs = unet(leaf, t, cond_emb, guidance_blocks=guidance,
                                     post_guidance_cut=cut,
                                     post_guidance_impl=plain_impl, frame_group=group,
-                                    **residual_kwargs(res, slice(b, None)))
+                                    **residual_kwargs(res, sl))
             loss = infer_cfg.motion_guidance_weight * motion_guidance_loss(
                 probs, motion_rep, group
             )
             (grad,) = torch.autograd.grad(loss, leaf)
-        grad = grad * ramp  # the loss ramp scales the score linearly
-        cond_pred = cond_pred.detach()
-        noise_pred = cond_pred + cfg_scale * (cond_pred - uncond_pred)
-        new = ddim_step(ddim, noise_pred, t, tp, latents, score=grad,
-                        guidance_scale=1.0)
         loss = loss.detach()
         if group is not None:  # the value: the ranks' partials summed
             loss = group.all_reduce_sum(loss)
+        return cond_pred.detach(), grad, loss
+
+    def combine(cond_pred, uncond_pred):
+        # the reference's CFG base: cond + s * (cond - uncond)
+        return cond_pred + cfg_scale * (cond_pred - uncond_pred)
+
+    def guided_step(latents, t: int, tp: int, ramp: float, uncond_emb, cond_emb,
+                    motion_rep: MotionRep, cn_cond: Optional[CnCond] = None):
+        """Returns (new latents, guidance loss)."""
+        b = latents.shape[0]
+        res = pair_residuals(latents, t, uncond_emb, cond_emb, cn_cond)
+        uncond_pred = plain_pass(latents, t, uncond_emb, res, slice(None, b))
+        cond_pred, grad, loss = guidance_pass(latents, t, cond_emb, motion_rep, res,
+                                              slice(b, None))
+        # the loss ramp scales the score linearly
+        new = ddim_step(ddim, combine(cond_pred, uncond_pred), t, tp, latents,
+                        score=grad * ramp, guidance_scale=1.0)
         return new, loss
 
     def vanilla_step(latents, t: int, tp: int, uncond_emb, cond_emb,
                      cn_cond: Optional[CnCond] = None):
-        b = latents.shape[0]
         res = pair_residuals(latents, t, uncond_emb, cond_emb, cn_cond)
-        with torch.no_grad():
-            pred2, _ = unet(torch.cat([latents, latents]), t,
-                            torch.cat([uncond_emb, cond_emb]),
-                            attention_impl=plain_impl, frame_group=group,
-                            **residual_kwargs(res))
-        uncond_pred, cond_pred = pred2[:b], pred2[b:]
-        noise_pred = cond_pred + cfg_scale * (cond_pred - uncond_pred)
-        return ddim_step(ddim, noise_pred, t, tp, latents)
+        uncond_pred, cond_pred = pair_pass(latents, t, uncond_emb, cond_emb, res)
+        return ddim_step(ddim, combine(cond_pred, uncond_pred), t, tp, latents)
+
+    def guided_step_approx(carry: _ApproxCarry, t: int, tp: int, ramp: float, flags,
+                           uncond_emb, cond_emb, motion_rep: MotionRep, cn_cond):
+        """A guided step of ``sample``, through the caches: ``flags`` =
+        (full, fresh uncond, fresh guidance, uncond weight, step weight);
+        updates ``carry`` and returns the loss (0 where no gradient was
+        taken).  With every flag true (the exact schedule) this is
+        :func:`guided_step`'s arithmetic."""
+        full, fresh_u, fresh_g, w_u, w_s = flags
+        latents = carry.latents
+        b = latents.shape[0]
+        loss = torch.zeros((), dtype=torch.float32, device=latents.device)
+        if full:
+            res = pair_residuals(latents, t, uncond_emb, cond_emb, cn_cond)
+            if fresh_u:
+                uncond_pred = plain_pass(latents, t, uncond_emb, res, slice(None, b))
+                carry.uncond.push(uncond_pred, t)
+            else:
+                uncond_pred = carry.uncond.extrapolate(t, w_u)
+            if fresh_g:
+                cond_pred, carry.grad, loss = guidance_pass(latents, t, cond_emb,
+                                                            motion_rep, res, slice(b, None))
+            else:  # the full UNet, without grad; the gradient from the cache
+                cond_pred = plain_pass(latents, t, cond_emb, res, slice(b, None))
+            noise_pred = combine(cond_pred, uncond_pred)
+            carry.noise.push(noise_pred, t)
+        else:
+            noise_pred = carry.noise.extrapolate(t, w_s)
+        carry.latents = ddim_step(ddim, noise_pred, t, tp, latents, score=carry.grad * ramp,
+                                  guidance_scale=1.0)
+        return loss
+
+    def vanilla_step_approx(carry: _ApproxCarry, t: int, tp: int, flags, uncond_emb,
+                            cond_emb, cn_cond):
+        """A vanilla step of ``sample``, through the caches (``flags`` as
+        :func:`guided_step_approx`'s; the guidance flag is unused): the
+        batch-2 pair on a fresh-uncond step (every step of the exact
+        schedule, :func:`vanilla_step`'s arithmetic), else a batch-1
+        conditional forward beside the cached uncond prediction."""
+        full, fresh_u, _, w_u, w_s = flags
+        latents = carry.latents
+        b = latents.shape[0]
+        if full:
+            res = pair_residuals(latents, t, uncond_emb, cond_emb, cn_cond)
+            if fresh_u:
+                uncond_pred, cond_pred = pair_pass(latents, t, uncond_emb, cond_emb, res)
+                carry.uncond.push(uncond_pred, t)
+            else:
+                cond_pred = plain_pass(latents, t, cond_emb, res, slice(b, None))
+                uncond_pred = carry.uncond.extrapolate(t, w_u)
+            noise_pred = combine(cond_pred, uncond_pred)
+            carry.noise.push(noise_pred, t)
+        else:
+            noise_pred = carry.noise.extrapolate(t, w_s)
+        carry.latents = ddim_step(ddim, noise_pred, t, tp, latents)
+
+    def chunks(chunk_steps: int) -> Iterator[Tuple[int, int]]:
+        """[lo, hi) of each chunk: the guided phase, then the vanilla one."""
+        if chunk_steps < 1:
+            raise ValueError(f"chunk_steps must be >= 1, got {chunk_steps}")
+        for begin, end in ((0, g), (g, len(timesteps))):
+            for lo in range(begin, end, chunk_steps):
+                yield lo, min(lo + chunk_steps, end)
+
+    def intervals(uncond_refresh, guidance_refresh, uncond_extrap_w, step_refresh,
+                  step_extrap_w):
+        """The run's (K_u, K_g, w_u, K_s, w_s): the build's, or the
+        overrides, which need the cache they override."""
+        for name, value, built, what in (
+                ("uncond_refresh", uncond_refresh, uncond_interval, "uncond_interval"),
+                ("guidance_refresh", guidance_refresh, guidance_interval, "guidance_interval"),
+                ("step_refresh", step_refresh, step_interval, "step_interval")):
+            if value is not None and built == 1:
+                raise ValueError(f"{name} needs the approx executables: build "
+                                 f"make_sampling_fns(..., {what}>1)")
+        k_u = uncond_interval if uncond_refresh is None else uncond_refresh
+        k_g = guidance_interval if guidance_refresh is None else guidance_refresh
+        k_s = step_interval if step_refresh is None else step_refresh
+        for name, value in (("uncond_refresh", k_u), ("guidance_refresh", k_g),
+                            ("step_refresh", k_s)):
+            if value < 1:
+                raise ValueError(f"{name} must be >= 1, got {value}")
+        for name, value, built, what in (
+                ("uncond_extrap_w", uncond_extrap_w, uncond_interval, "uncond_interval"),
+                ("step_extrap_w", step_extrap_w, step_interval, "step_interval")):
+            if value is not None and built == 1:
+                raise ValueError(f"{name} needs the approx executables: build "
+                                 f"make_sampling_fns(..., {what}>1)")
+        w_u = uncond_extrap if uncond_extrap_w is None else uncond_extrap_w
+        w_s = step_extrap if step_extrap_w is None else step_extrap_w
+        return k_u, k_g, w_u, k_s, w_s
+
+    def flags_of(chunk_steps: int, k_u: int, k_g: int, k_s: int) -> Schedule:
+        full, fresh_u, fresh_g = [], [], []
+        for lo, hi in chunks(chunk_steps):
+            size = hi - lo
+            # the finer caches count executed (full) steps
+            executed = _refresh_flags(size, k_s)
+            full.append(executed)
+            fresh_u.append(_refresh_flags(size, k_u, executed))
+            fresh_g.append(_refresh_flags(size, k_g, executed) if lo < g
+                           else np.ones(size, bool))
+        return Schedule(*(np.concatenate(f) for f in (full, fresh_u, fresh_g)))
+
+    def schedule(chunk_steps: int = 50, uncond_refresh: Optional[int] = None,
+                 guidance_refresh: Optional[int] = None,
+                 step_refresh: Optional[int] = None) -> Schedule:
+        k_u, k_g, _, k_s, _ = intervals(uncond_refresh, guidance_refresh, None,
+                                        step_refresh, None)
+        return flags_of(chunk_steps, k_u, k_g, k_s)
 
     def sample(init_latents, uncond_emb, cond_emb, motion_rep: MotionRep,
                on_step: Optional[Callable[[int, bool], None]] = None,
-               cn_cond: Optional[CnCond] = None):
-        """Guided then vanilla phase; ``on_step(index, guided)`` is called
-        after each step."""
-        latents = init_latents  # init_noise_sigma == 1 for DDIM
-        for i, (t, tp) in enumerate(zip(timesteps.tolist(), t_prev.tolist())):
-            if i < g:
-                latents, _ = guided_step(latents, t, tp, float(ramps[i]),
-                                         uncond_emb, cond_emb, motion_rep, cn_cond)
-            else:
-                latents = vanilla_step(latents, t, tp, uncond_emb, cond_emb, cn_cond)
-            if on_step is not None:
-                on_step(i, i < g)
+               cn_cond: Optional[CnCond] = None, chunk_steps: int = 50,
+               resume_path: Optional[str] = None,
+               on_chunk: Optional[Callable[[int, int], None]] = None,
+               resume_tag: str = "", uncond_refresh: Optional[int] = None,
+               guidance_refresh: Optional[int] = None,
+               uncond_extrap_w: Optional[float] = None,
+               step_refresh: Optional[int] = None,
+               step_extrap_w: Optional[float] = None):
+        """Guided then vanilla phase, each in chunks of ``chunk_steps``;
+        ``on_step(index, guided)`` is called after each step,
+        ``on_chunk(steps_done, total)`` after each chunk.  The
+        ``*_refresh`` / ``*_extrap_w`` arguments override the build's
+        intervals and weights.  With ``resume_path`` the latents are
+        written after each chunk, a run finds them there and continues
+        (a checkpoint of another ``chunk_steps``, ``resume_tag``, schedule
+        or shape is ignored), and the file is deleted at the end.  Under a
+        frame group each rank keeps its own frames in
+        ``<resume_path>.rank<r>.npz``, and the group continues from them
+        only where every rank's file holds the same step; else every rank
+        starts again from ``init_latents``.  The exact schedule runs
+        through the same steps as the caches, with every flag true."""
+        k_u, k_g, w_u, k_s, w_s = intervals(uncond_refresh, guidance_refresh,
+                                            uncond_extrap_w, step_refresh, step_extrap_w)
+        flags = flags_of(chunk_steps, k_u, k_g, k_s)
+        w_u, w_s = (_const_col(len(timesteps), w) for w in (w_u, w_s))
+        fingerprint = np.asarray(timesteps, np.int32)
+        total = len(timesteps)
+        if resume_path and group is not None:
+            resume_path = f"{resume_path}.rank{group.rank}.npz"
+        latents, steps_done = init_latents, 0  # init_noise_sigma == 1 for DDIM
+        if resume_path and os.path.exists(resume_path):
+            with np.load(resume_path) as d:
+                if (int(d["chunk_steps"]) == chunk_steps and str(d["tag"]) == resume_tag
+                        and d["timesteps"].shape == fingerprint.shape
+                        and (d["timesteps"] == fingerprint).all()
+                        and tuple(d["latents"].shape) == tuple(init_latents.shape)):
+                    steps_done = int(d["steps_done"])
+                    latents = torch.from_numpy(d["latents"]).to(device=init_latents.device,
+                                                                dtype=init_latents.dtype)
+        if resume_path and group is not None:
+            # a run killed between two ranks' writes leaves their files a
+            # chunk apart; each rank keeps only its last checkpoint, so the
+            # group continues only where every rank stopped at one step
+            done = group.gather_frames(
+                torch.tensor([steps_done], dtype=torch.int64, device=init_latents.device), dim=0)
+            if (done != steps_done).any():
+                latents, steps_done = init_latents, 0
+        for lo, hi in chunks(chunk_steps):
+            if hi <= steps_done:  # checkpointed
+                continue
+            guided = lo < g
+            carry = _ApproxCarry.start(latents)  # every chunk starts from empty caches
+            for i in range(lo, hi):
+                t, tp = int(timesteps[i]), int(t_prev[i])
+                step_flags = (flags.full[i], flags.uncond[i], flags.guidance[i],
+                              float(w_u[i]), float(w_s[i]))
+                if guided:
+                    guided_step_approx(carry, t, tp, float(ramps[i]), step_flags,
+                                       uncond_emb, cond_emb, motion_rep, cn_cond)
+                else:
+                    vanilla_step_approx(carry, t, tp, step_flags, uncond_emb, cond_emb,
+                                        cn_cond)
+                if on_step is not None:
+                    on_step(i, guided)
+            latents = carry.latents
+            if resume_path:
+                # f32 on disk (npz has no bf16), cast back exactly; keep the
+                # .npz suffix, which np.savez would append otherwise
+                tmp = resume_path + ".tmp.npz"
+                np.savez(tmp, latents=latents.float().cpu().numpy(), steps_done=hi,
+                         timesteps=fingerprint, chunk_steps=chunk_steps, tag=resume_tag)
+                os.replace(tmp, resume_path)
+            if on_chunk is not None:
+                on_chunk(hi, total)
+        if resume_path and os.path.exists(resume_path):
+            os.remove(resume_path)
         return latents
 
     return SamplingFns(extract=extract, guided_step=guided_step,
                        vanilla_step=vanilla_step, sample=sample,
-                       timesteps=timesteps, frame_group=group)
+                       timesteps=timesteps, frame_group=group, schedule=schedule)
 
 
 class MotionClonePipeline:
@@ -288,8 +621,10 @@ class MotionClonePipeline:
 
     ``unet`` (and the optional ``vae`` / ``text_encoder``) are moved to
     ``device`` and ``dtype``; the default is CUDA in bfloat16, and so is the
-    optional ``controlnet``.  ``attention_impl``, ``frame_group`` and
-    ``controlnet`` are those of :func:`make_sampling_fns`; a ``cn_cond`` is
+    optional ``controlnet``.  ``attention_impl``, ``frame_group``,
+    ``controlnet`` and the approx knobs (``uncond_interval``,
+    ``guidance_interval``, ``uncond_extrap``, ``step_interval``,
+    ``step_extrap``) are those of :func:`make_sampling_fns`; a ``cn_cond`` is
     moved to the device and dtype before it conditions a pass.  Every noise tensor is drawn by
     ``utils.rng.draw_normal`` in its own domain of the seed (the VAE
     posterior, the extraction noise, the initial latents), so one seed gives
@@ -313,6 +648,11 @@ class MotionClonePipeline:
         attention_impl: str = "auto",
         frame_group: Optional[FrameGroup] = None,
         controlnet: Optional[SparseControlNetModel] = None,
+        uncond_interval: int = 1,
+        guidance_interval: int = 1,
+        uncond_extrap: float = 0.0,
+        step_interval: int = 1,
+        step_extrap: float = 0.0,
     ):
         infer_cfg.validate()
         self.device = resolve_device(device)
@@ -328,8 +668,11 @@ class MotionClonePipeline:
             None if controlnet is None
             else controlnet.to(device=self.device, dtype=dtype).eval()
         )
-        self.fns = make_sampling_fns(self.unet, sched_cfg, infer_cfg, attention_impl,
-                                     frame_group, self.controlnet)
+        self.fns = make_sampling_fns(
+            self.unet, sched_cfg, infer_cfg, attention_impl, frame_group, self.controlnet,
+            uncond_interval=uncond_interval, guidance_interval=guidance_interval,
+            uncond_extrap=uncond_extrap, step_interval=step_interval,
+            step_extrap=step_extrap)
 
     @torch.no_grad()
     def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
@@ -396,10 +739,15 @@ class MotionClonePipeline:
         motion_rep: MotionRep, seed: int,
         on_step: Optional[Callable[[int, bool], None]] = None,
         cn_cond: Optional[CnCond] = None,
+        resume_path: Optional[str] = None,
+        on_chunk: Optional[Callable[[int, int], None]] = None,
+        chunk_steps: int = 50,
     ) -> torch.Tensor:
         """Guided DDIM sampling from seeded noise -> final latents (the
-        rank's frames when sharded)."""
+        rank's frames when sharded); ``resume_path``, ``on_chunk`` and
+        ``chunk_steps`` are those of the sampling functions' ``sample``."""
         latents = self.initial_latents(seed)
         return self.fns.sample(latents, uncond_emb.to(self.dtype),
                                cond_emb.to(self.dtype), motion_rep, on_step=on_step,
-                               cn_cond=self._cn_cond(cn_cond))
+                               cn_cond=self._cn_cond(cn_cond), chunk_steps=chunk_steps,
+                               resume_path=resume_path, on_chunk=on_chunk)

@@ -13,7 +13,10 @@ their pixels in [0, 1] for the sketch flavour), sampling on the example's
 condition images (VAE-encoded with the ``CN_IMAGE_POSTERIOR`` draw of the
 seed for the RGB flavour, pixels for the sketch flavour).  The
 compute runs in :class:`~motionclone_tpu_torch.pipeline.motionclone.MotionClonePipeline`
-on ``device`` (CUDA unless the caller asks for the CPU).
+on ``device`` (CUDA unless the caller asks for the CPU), exact or through
+the approx caches; with ``weights_cache`` the loaded state dicts come from
+``weights/cache.py`` on a warm start, and ``run_example(resume=True)``
+continues an interrupted sampling run from its last finished chunk.
 """
 
 from __future__ import annotations
@@ -47,14 +50,13 @@ from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline, reso
 from motionclone_tpu_torch.utils import rng
 from motionclone_tpu_torch.weights.load import (
     apply_unet_diffusers_config,
-    assemble_pipeline_state_dicts,
+    assemble_state_dicts,
     clip_config_from_dir,
-    clip_state_dict,
-    controlnet_state_dict,
     load_into,
+    resolve_diffusers_module_path,
     vae_config_from_dir,
 )
-from motionclone_tpu_torch.weights.io import load_state_dict
+from motionclone_tpu_torch.weights.cache import cache_key, load_params, save_params
 
 
 def motion_rep_meta(cfg: InferenceConfig, seed_motion: int) -> dict:
@@ -103,6 +105,30 @@ def _validate_motion_representation(rep, path: str, cfg: InferenceConfig) -> Non
                 f"the config expects video_length={cfg.video_length}")
 
 
+def _asset(config_root: str, path: str) -> str:
+    return os.path.join(config_root, path) if path else ""
+
+
+def weights_cache_key(pretrained_model_path: str, infer_cfg: InferenceConfig,
+                      dtype: torch.dtype, config_root: str = ".") -> str:
+    """The weights cache's key of ``weights.load.assemble_state_dicts`` in
+    ``dtype``: every file it reads (the diffusers modules and their
+    config.json files, which set the topology, the motion module, the
+    DreamBooth checkpoint, the adapter LoRA, the controlnet and its YAML,
+    the model config), the dtype's name and the LoRA scale."""
+    j = lambda p: _asset(config_root, p)
+    subs = ("unet", "vae", "text_encoder")
+    sources = (
+        [resolve_diffusers_module_path(pretrained_model_path, sub)
+         or os.path.join(pretrained_model_path, sub) for sub in subs]
+        + [os.path.join(pretrained_model_path, sub, "config.json") for sub in subs]
+        + [j(infer_cfg.motion_module), j(infer_cfg.dreambooth_path),
+           j(infer_cfg.adapter_lora_path), j(infer_cfg.controlnet_path),
+           j(infer_cfg.controlnet_config), j(infer_cfg.model_config)])
+    return cache_key(sources, {"dtype": str(dtype).replace("torch.", ""),
+                               "adapter_lora_scale": infer_cfg.adapter_lora_scale})
+
+
 class MotionCloneRuntime:
     """Loaded weights and the pipeline for one workload config.
 
@@ -111,9 +137,17 @@ class MotionCloneRuntime:
     ``attention_impl``: that of :class:`MotionClonePipeline`.  Relative
     asset paths of ``infer_cfg`` are resolved under ``config_root``.  A
     ``controlnet_path`` builds the SparseCtrl controlnet of
-    ``controlnet_config`` (``cn_cfg``; None without one).
+    ``controlnet_config`` (``cn_cfg``; None without one).  The approx knobs
+    (``uncond_interval``, ``guidance_interval``, ``uncond_extrap``,
+    ``step_interval``, ``step_extrap``; ``cli.parse_approx`` gives them from
+    ``--approx``) are :class:`MotionClonePipeline`'s.  ``weights_cache``: a
+    directory of converted weights (``weights/cache.py``): a hit takes the
+    state dicts the loader would hand to the modules (assembled, merged,
+    in ``dtype``) from one file, a miss assembles them and writes the
+    entry; ``weights_cache_state`` says "hit", "miss" or "off".
     ``load_seconds`` holds the time the weights took from files to modules
-    on the device."""
+    on the device; a miss's write of the entry is not in it, but in
+    ``cache_write_seconds``."""
 
     def __init__(
         self,
@@ -124,6 +158,12 @@ class MotionCloneRuntime:
         dtype: torch.dtype = torch.bfloat16,
         attention_impl: str = "auto",
         config_root: str = ".",
+        uncond_interval: int = 1,
+        guidance_interval: int = 1,
+        uncond_extrap: float = 0.0,
+        step_interval: int = 1,
+        step_extrap: float = 0.0,
+        weights_cache: str = "",
     ):
         self.device = resolve_device(device)
         self.infer_cfg = infer_cfg
@@ -135,42 +175,56 @@ class MotionCloneRuntime:
         self.vae_cfg = vae_config_from_dir(pretrained_model_path)
         self.clip_cfg = clip_config_from_dir(pretrained_model_path)
 
-        def j(p):
-            return os.path.join(config_root, p) if p else ""
-
-        sds = assemble_pipeline_state_dicts(
-            pretrained_model_path,
-            motion_module_path=j(infer_cfg.motion_module),
-            dreambooth_path=j(infer_cfg.dreambooth_path),
-            adapter_lora_path=j(infer_cfg.adapter_lora_path),
-            adapter_lora_scale=infer_cfg.adapter_lora_scale,
-        )
+        if infer_cfg.controlnet_path and not infer_cfg.controlnet_config:
+            raise ValueError("controlnet_path is set but controlnet_config is not: "
+                             "the controlnet's YAML gives its topology")
+        sds, key = None, None
+        if weights_cache:
+            key = weights_cache_key(pretrained_model_path, infer_cfg, dtype, config_root)
+            sds = load_params(weights_cache, key)
+            required = {"unet", "vae", "text_encoder"} | (
+                {"controlnet"} if infer_cfg.controlnet_path else set())
+            if sds is not None and not required.issubset(sds):
+                sds = None  # an entry without a required component is a miss
+        self.weights_cache_state = "off" if not weights_cache else (
+            "miss" if sds is None else "hit")
+        self.cache_write_seconds = 0.0
+        if sds is None:
+            j = lambda p: _asset(config_root, p)
+            sds = assemble_state_dicts(
+                pretrained_model_path, motion_module_path=j(infer_cfg.motion_module),
+                dreambooth_path=j(infer_cfg.dreambooth_path),
+                adapter_lora_path=j(infer_cfg.adapter_lora_path),
+                adapter_lora_scale=infer_cfg.adapter_lora_scale,
+                controlnet_path=j(infer_cfg.controlnet_path))
+            if weights_cache:
+                sds = {c: {k: v.to(dtype) for k, v in sd.items()} for c, sd in sds.items()}
+                t_save = time.perf_counter()
+                save_params(weights_cache, key, sds)
+                self.cache_write_seconds = time.perf_counter() - t_save
         unet = load_into(lambda: UNet3DConditionModel(self.unet_cfg), sds["unet"], dtype, "unet")
         vae = load_into(lambda: AutoencoderKL(self.vae_cfg), sds["vae"], dtype, "vae")
-        clip = load_into(lambda: CLIPTextModel(self.clip_cfg),
-                         clip_state_dict(sds["text_encoder"]), dtype, "text_encoder")
-        del sds
+        clip = load_into(lambda: CLIPTextModel(self.clip_cfg), sds["text_encoder"], dtype,
+                         "text_encoder")
         controlnet, self.cn_cfg = None, None
         if infer_cfg.controlnet_path:
-            if not infer_cfg.controlnet_config:
-                raise ValueError("controlnet_path is set but controlnet_config is not: "
-                                 "the controlnet's YAML gives its topology")
-            cn_yaml = load_yaml(j(infer_cfg.controlnet_config))
+            cn_yaml = load_yaml(_asset(config_root, infer_cfg.controlnet_config))
             self.cn_cfg = SparseControlNetConfig.from_yaml_dict(
                 cn_yaml.get("controlnet_additional_kwargs", {}), self.unet_cfg)
-            controlnet = load_into(
-                lambda: SparseControlNetModel(self.cn_cfg),
-                controlnet_state_dict(load_state_dict(j(infer_cfg.controlnet_path))),
-                dtype, "controlnet")
+            controlnet = load_into(lambda: SparseControlNetModel(self.cn_cfg),
+                                   sds["controlnet"], dtype, "controlnet")
+        del sds
         self.tokenizer = ClipTokenizer.from_pretrained(pretrained_model_path,
                                                        subfolder="tokenizer")
         self.pipeline = MotionClonePipeline(
             self.unet_cfg, self.sched_cfg, infer_cfg, unet, vae=vae, text_encoder=clip,
             device=self.device, dtype=dtype, attention_impl=attention_impl,
-            controlnet=controlnet,
+            controlnet=controlnet, uncond_interval=uncond_interval,
+            guidance_interval=guidance_interval, uncond_extrap=uncond_extrap,
+            step_interval=step_interval, step_extrap=step_extrap,
         )
         self._sync()
-        self.load_seconds = time.perf_counter() - t0
+        self.load_seconds = time.perf_counter() - t0 - self.cache_write_seconds
         self.timings: Dict[str, object] = {}
 
     def _sync(self) -> None:
@@ -273,18 +327,24 @@ class MotionCloneRuntime:
         default_seed: int = 2025,
         config_root: str = ".",
         verbose: bool = True,
+        resume: bool = False,
     ) -> str:
         """Extraction (or the cached representation), guided sampling,
         decode and mp4 for one JSONL example; returns the mp4's path.
         ``timings`` then holds the phases' wall seconds (``text``,
         ``extract`` when it ran, ``condition`` with a controlnet, ``sample``,
-        ``decode_write``) and the
-        milliseconds of each guided and vanilla step (``guided_ms``,
-        ``vanilla_ms``; on a card, the time between CUDA events recorded
-        after each step, so sampling never waits on the host); with
-        ``verbose`` each phase prints a line."""
+        ``decode_write``), ``weights_cache`` (hit, miss or off) and the
+        milliseconds of each guided and vanilla step, full steps and the
+        step cache's skip steps (DDIM only) apart (``guided_ms``,
+        ``guided_skip_ms``, ``vanilla_ms``, ``vanilla_skip_ms``; on a card,
+        the time between CUDA events recorded after each step, so sampling
+        never waits on the host); with ``verbose`` each phase prints a line.
+        ``resume``: the sampling loop's latents are checkpointed after each
+        chunk to ``output_dir/.resume_<mp4 name>.npz``, and a rerun
+        continues from the last finished chunk (the file goes when sampling
+        ends)."""
         cfg = self.infer_cfg
-        timings: Dict[str, object] = {"text": 0.0}
+        timings: Dict[str, object] = {"text": 0.0, "weights_cache": self.weights_cache_state}
         self.timings = timings
         os.makedirs(motion_rep_dir, exist_ok=True)
         os.makedirs(output_dir, exist_ok=True)
@@ -360,24 +420,32 @@ class MotionCloneRuntime:
             event.record(torch.cuda.current_stream(self.device))
             return event
 
+        resume_path = (os.path.join(output_dir, ".resume_" + out_name + ".npz")
+                       if resume else None)
         marks = []
         self._sync()
         t0 = time.perf_counter()
         start = mark()
         latents = self.pipeline.sample_latents(
             uncond_emb, cond_emb, rep, seed=seed,
-            on_step=lambda _i, guided: marks.append((guided, mark())), cn_cond=cn_cond)
+            on_step=lambda i, guided: marks.append((i, guided, mark())), cn_cond=cn_cond,
+            resume_path=resume_path)
         self._sync()
         timings["sample"] = time.perf_counter() - t0
-        steps = {True: [], False: []}
-        for guided, end in marks:
-            steps[guided].append(start.elapsed_time(end) if cuda else (end - start) * 1e3)
+        full = self.pipeline.fns.schedule().full
+        steps = {key: [] for key in ("guided_ms", "guided_skip_ms", "vanilla_ms",
+                                     "vanilla_skip_ms")}
+        for i, guided, end in marks:
+            key = ("guided" if guided else "vanilla") + ("_ms" if full[i] else "_skip_ms")
+            steps[key].append(start.elapsed_time(end) if cuda else (end - start) * 1e3)
             start = end
-        timings["guided_ms"], timings["vanilla_ms"] = steps[True], steps[False]
+        timings.update(steps)
         median = lambda ms: f"{statistics.median(ms):.1f}" if ms else "-"
         log(f"guided sampling ({cfg.inference_steps} steps, {cfg.guidance_steps} guided): "
-            f"{timings['sample']:.1f}s; median ms per guided step {median(steps[True])}, "
-            f"per vanilla step {median(steps[False])}")
+            f"{timings['sample']:.1f}s; median ms per guided step "
+            f"{median(steps['guided_ms'])} (skip steps {median(steps['guided_skip_ms'])}), "
+            f"per vanilla step {median(steps['vanilla_ms'])} "
+            f"(skip steps {median(steps['vanilla_skip_ms'])})")
 
         # 3. decode and write the video
         t0 = time.perf_counter()

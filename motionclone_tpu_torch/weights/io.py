@@ -6,7 +6,7 @@ header length, a JSON header naming each tensor's dtype, shape and byte
 range, then the data, read with ``numpy.frombuffer`` over one ``mmap``.
 ``.ckpt/.pt/.pth/.bin`` files go through ``torch.load(weights_only=True)``.
 Tensors keep their stored dtype (bf16 included).  A missing file raises;
-nothing is downloaded.
+nothing is downloaded.  :func:`save_safetensors` writes the same format.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import json
 import mmap
 import os
 import struct
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -32,6 +32,35 @@ _ST_DTYPES = {
     "U8": (np.dtype("u1"), torch.uint8),
     "BOOL": (np.dtype("?"), torch.bool),
 }
+
+
+_ST_NAMES = {torch_dtype: name for name, (_, torch_dtype) in _ST_DTYPES.items()}
+
+
+def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> None:
+    """Write ``tensors`` as a ``.safetensors`` file: the header (each
+    tensor's dtype, shape and byte range; padded with spaces to a multiple
+    of 8 bytes), then each tensor's bytes, C-contiguous, with no gap.  The
+    tensors are laid out widest element first, so every tensor starts at a
+    multiple of its element size."""
+    order = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    header, offset = {}, 0
+    for name in order:
+        t = tensors[name]
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"tensor {name!r} has unsupported dtype {t.dtype} "
+                             f"(supported: {sorted(_ST_DTYPES)})")
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+        for name in order:
+            flat = tensors[name].detach().cpu().contiguous().reshape(-1)
+            f.write(flat.view(torch.uint8).numpy().data)
 
 
 def load_safetensors(path: str) -> StateDict:

@@ -221,6 +221,29 @@ def controlnet_state_dict(sd: Mapping[str, torch.Tensor]) -> StateDict:
             if "pos_encoder.pe" not in k and k != "animatediff_config"}
 
 
+def assemble_state_dicts(
+    pretrained_dir: str,
+    *,
+    motion_module_path: str = "",
+    dreambooth_path: str = "",
+    adapter_lora_path: str = "",
+    adapter_lora_scale: float = 1.0,
+    controlnet_path: str = "",
+) -> Dict[str, StateDict]:
+    """The state dict of each module as :func:`load_into` takes it (what
+    the weights cache stores): :func:`assemble_pipeline_state_dicts`'s,
+    CLIP's through :func:`clip_state_dict` and, with a ``controlnet_path``,
+    the controlnet's through :func:`controlnet_state_dict`."""
+    sds = assemble_pipeline_state_dicts(
+        pretrained_dir, motion_module_path=motion_module_path,
+        dreambooth_path=dreambooth_path, adapter_lora_path=adapter_lora_path,
+        adapter_lora_scale=adapter_lora_scale)
+    sds["text_encoder"] = clip_state_dict(sds["text_encoder"])
+    if controlnet_path:
+        sds["controlnet"] = controlnet_state_dict(load_state_dict(controlnet_path))
+    return sds
+
+
 def load_into(module_fn: Callable[[], torch.nn.Module], sd: Mapping[str, torch.Tensor],
               dtype: torch.dtype, what: str = "checkpoint") -> torch.nn.Module:
     """The module ``module_fn()`` builds, with ``sd``'s tensors (cast to

@@ -18,6 +18,11 @@
   weights the guidance score drives latents to |x| ~ 70, where the two
   frameworks' f32 sums part by ~1e-3;
 * (d) the validations, the partial losses, and the launcher's failure path;
+* (f) the approx caches under 2 ranks: ``sample`` under step-extrap:2,
+  interrupted after the guided chunk and resumed (each rank from its own
+  checkpoint), against the port's unsharded run of the same caches, at
+  (c)'s tolerance against the unsharded port; and checkpoints a chunk
+  apart (a run killed between the ranks' writes) start both ranks again;
 * (e) the seed's noise draws: the VAE posterior, the extraction noise and
   the initial latents are pairwise different for one seed and repeat for
   the same seed, and each launched gloo rank's initial latents are its
@@ -28,6 +33,7 @@ time limit); their bodies live in test_torch_frame_shard_ranks.py, which
 imports no JAX.  One launch serves (b), (c) and (d)."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -57,14 +63,16 @@ from motionclone_tpu_torch.pipeline.motionclone import (
 )
 from motionclone_tpu_torch.utils import rng as trng
 from motionclone_tpu_torch.weights.from_jax import state_dict_from_flax
-from test_torch_frame_shard_ranks import failing_rank, frame_shard_rank
-from test_torch_models import load_port, random_flax_params
+from test_torch_frame_shard_ranks import approx_resume_rank, failing_rank, frame_shard_rank
+from test_torch_models import load_port, one_torch_thread, random_flax_params  # noqa: F401
 
 RANKS = 4
 LAUNCH_TIMEOUT_S = 240.0
 GUIDANCE = ("up_blocks.1",)
 F_, HW = 8, 16  # frames and latent side of (b) and (c): 2 frames per rank
 DRAW_SEED = 7  # the seed of the ranks' initial latents in (e)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _t(x):
@@ -227,6 +235,51 @@ def test_sharded_pipeline_matches_unsharded_port(sharded):
                                           err_msg=f"rank {r} {k}")
         np.testing.assert_allclose(got["latents"].numpy(), s["latents"].numpy(),
                                    atol=2e-4, rtol=1e-3, err_msg=f"rank {r}")
+
+
+@pytest.fixture(scope="module")
+def approx_ranks(sharded, tmp_path_factory):
+    """(f)'s one launch of 2 ranks (test_torch_frame_shard_ranks.py's
+    ``approx_resume_rank``) and its work directory."""
+    s = sharded
+    workdir = tmp_path_factory.mktemp("approx")
+    args = (state_dict_from_flax(s["params"]), tcfg.micro_unet_config(),
+            tcfg.NoiseScheduleConfig(), _infer(tcfg), _t(s["video_latents"]), _t(s["noise"]),
+            _t(s["init"]), _t(s["uncond"]), _t(s["cond"]), str(workdir))
+    results = launch(approx_resume_rank, 2, backend="gloo", args=args,
+                     timeout=LAUNCH_TIMEOUT_S)
+    return results, workdir
+
+
+def test_sharded_approx_resume_matches_unsharded_port(sharded, approx_ranks):
+    """(f): 2 ranks, step-extrap:2, each interrupted after the guided
+    chunk and resumed from its own checkpoint, against the unsharded run
+    of the same caches."""
+    s = sharded
+    results, workdir = approx_ranks
+    fns = t_make_fns(s["unet"], tcfg.NoiseScheduleConfig(), _infer(tcfg), step_interval=2,
+                     step_extrap=1.0)
+    assert fns.schedule().full.tolist() == [True, False, True]
+    want = fns.sample(_t(s["init"]), _t(s["uncond"]), _t(s["cond"]), s["rep"])
+    assert not torch.equal(want, s["latents"])
+    for r, res in enumerate(results):
+        assert res["left"] == ["run.npz.rank0.npz", "run.npz.rank1.npz"]
+        np.testing.assert_allclose(res["latents"].numpy(), want.numpy(), atol=2e-4, rtol=1e-3,
+                                   err_msg=f"rank {r}")
+    assert not os.listdir(workdir)
+
+
+def test_sharded_resume_restarts_when_ranks_disagree(approx_ranks):
+    """(f): a run killed between the ranks' checkpoint writes leaves rank
+    1's file one chunk behind rank 0's; each rank holds only its last
+    checkpoint, so the rerun starts both ranks again from step 0 (rather
+    than at different chunks, whose gathers would not match) and ends on
+    the uninterrupted run's latents."""
+    results, _ = approx_ranks
+    for r, res in enumerate(results):
+        assert res["behind_done"] == [2, 1], f"rank {r}"
+        assert res["behind_steps"] == [0, 1, 2], f"rank {r}"
+        assert res["behind_equal"], f"rank {r}"
 
 
 def test_partial_losses_sum_to_the_unsharded_loss(sharded):

@@ -4,6 +4,10 @@ Each runs in a process of its own that ``parallel.frames.launch`` spawns,
 as one rank of a gloo group on the CPU.  This module imports no JAX, so that
 the ranks start fast, and it holds no tests."""
 
+import os
+import shutil
+
+import numpy as np
 import torch
 
 from motionclone_tpu_torch.diffusion.guidance import motion_guidance_loss
@@ -64,6 +68,72 @@ def sharded_pipeline(group, state_dict, unet_cfg, sched_cfg, infer_cfg,
         "partial_loss": float(partial),
         "loss": float(loss),
     }
+
+
+class _Stop(Exception):
+    pass
+
+
+def _stop_at(steps):
+    def on_chunk(done, total):
+        if done == steps:
+            raise _Stop
+    return on_chunk
+
+
+def _interrupted(fns, group, *args, **kw):
+    """``fns.sample(*args, **kw)`` stopped by its ``on_chunk``, then a
+    barrier: every rank has written its checkpoint."""
+    try:
+        fns.sample(*args, **kw)
+    except _Stop:
+        pass
+    group.gather_frames(torch.zeros(1, 1))
+
+
+def approx_resume_rank(group, state_dict, unet_cfg, sched_cfg, infer_cfg, video_latents,
+                       noise, init, uncond, cond, workdir):
+    """``sample`` under step-extrap:2 on the rank's frames, interrupted
+    after the guided chunk with a resume path, then run again on it:
+    returns the latents gathered over the ranks and the files the
+    interrupted run left in ``workdir``.  Then, in chunks of one step, a
+    run killed between the ranks' writes: rank 1's checkpoint one chunk
+    behind rank 0's; the rerun's steps (the ranks must agree to start
+    again from step 0) and whether it ends on an uninterrupted run's
+    latents."""
+    torch.set_num_threads(1)
+    unet = UNet3DConditionModel(unet_cfg)
+    unet.load_state_dict(state_dict, strict=True)
+    unet.eval()
+    fns = make_sampling_fns(unet, sched_cfg, infer_cfg, frame_group=group, step_interval=2,
+                            step_extrap=1.0)
+    rep = fns.extract(video_latents, noise, uncond)
+    local = group.local_frames(init)
+    path = os.path.join(workdir, "run.npz")
+    _interrupted(fns, group, local, uncond, cond, rep, resume_path=path,
+                 on_chunk=_stop_at(infer_cfg.guidance_steps))
+    left = sorted(os.listdir(workdir))
+    latents = fns.sample(local, uncond, cond, rep, resume_path=path)
+
+    path = os.path.join(workdir, "behind.npz")
+    mine, kept = f"{path}.rank{group.rank}.npz", os.path.join(workdir, "kept")
+    _interrupted(fns, group, local, uncond, cond, rep, resume_path=path, chunk_steps=1,
+                 on_chunk=_stop_at(1))
+    if group.rank == 1:
+        shutil.copy(mine, kept)
+    _interrupted(fns, group, local, uncond, cond, rep, resume_path=path, chunk_steps=1,
+                 on_chunk=_stop_at(2))
+    if group.rank == 1:
+        os.replace(kept, mine)
+    with np.load(mine) as d:
+        done = group.gather_frames(torch.tensor([int(d["steps_done"])]), dim=0)
+    steps = []
+    rerun = fns.sample(local, uncond, cond, rep, resume_path=path, chunk_steps=1,
+                       on_step=lambda i, guided: steps.append(i))
+    return {"latents": group.gather_frames(latents), "left": left,
+            "behind_done": done.tolist(), "behind_steps": steps,
+            "behind_equal": torch.equal(rerun, fns.sample(local, uncond, cond, rep,
+                                                          chunk_steps=1))}
 
 
 def failing_rank(group):

@@ -37,6 +37,19 @@ ATOL = 1e-4
 GUIDANCE = ("up_blocks.1",)
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """The test workers share the machine's cores: torch's intra-op pool at
+    full width in each of them would oversubscribe the cores (its small
+    ops then wait on descheduled threads), so a module that takes this
+    fixture (``pytestmark = pytest.mark.usefixtures("one_torch_thread")``)
+    runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_flax_params(module, *args, seed, **kwargs):
     """A numpy flax tree of ``module``'s parameter shapes: fan-in-scaled
     normal kernels (activations stay O(1) through the depth and no

@@ -39,10 +39,12 @@ from motionclone_tpu_torch.pipeline.motionclone import (
     make_sampling_fns as t_make_fns,
     resolve_impl,
 )
-from test_torch_models import load_port, random_flax_params
+from test_torch_models import load_port, one_torch_thread, random_flax_params  # noqa: F401
 
 GUIDANCE = ("up_blocks.1",)
 F_, HW = 4, 16
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _t(x):

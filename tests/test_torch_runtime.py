@@ -22,6 +22,13 @@ topology) serves every case:
   and ``draw_normal`` noise (exact); a second run reuses the cached
   representation;
 * every flag the port does not have yet exits with its ROADMAP.md item;
+* the weights cache: a warm runtime's modules equal a cold one's bit for
+  bit, and a touched source, another dtype or LoRA scale, or an entry
+  without the controlnet misses;
+* ``--approx``, ``--weights-cache`` and ``--resume`` through ``t2v_main``
+  and ``i2v_main`` (an approx run's skip steps, a second call's hit, an
+  interrupted and resumed run equal to an uninterrupted one), and
+  ``--approx``'s refusals with the JAX package's messages;
 * i2v, on the same directory plus tests/test_cli_synthetic_e2e.py's
   SparseCtrl checkpoints (both flavours) and a condition PNG: the
   controlnet checkpoint loads strictly and equals the JAX package's load
@@ -65,6 +72,7 @@ from motionclone_tpu_torch.utils import rng as trng
 from motionclone_tpu_torch.weights import load as tload
 from motionclone_tpu_torch.weights.from_jax import clip_state_dict_from_flax, state_dict_from_flax
 from test_cli_synthetic_e2e import _build_controlnet, _build_model_dir
+from test_torch_models import one_torch_thread  # noqa: F401
 
 SD = os.path.join("models", "SD")
 PROMPT = "a cat running"
@@ -72,6 +80,8 @@ ARGS = ["--pretrained-model-path", SD, "--inference_config", "inference.yaml",
         "--examples", "examples.jsonl", "--motion-representation-save-dir", "reps",
         "--generated-videos-save-dir", "out", "--W", "64", "--H", "64", "--L", "4",
         "--float32", "--device", "cpu"]
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")
@@ -352,9 +362,12 @@ def test_t2v_main_runs_the_slice_to_an_mp4(model_dir, monkeypatch, capsys):
     assert os.path.exists(os.path.join("out", "inference_config.json"))
     assert tguid.load_motion_representation_meta(os.path.join("reps", "ref.npz")) == \
         runner.motion_rep_meta(cfg, 42)
-    assert sorted(rt.timings) == ["decode_write", "extract", "guided_ms", "sample", "text",
-                                  "vanilla_ms"]
+    assert sorted(rt.timings) == ["decode_write", "extract", "guided_ms", "guided_skip_ms",
+                                  "sample", "text", "vanilla_ms", "vanilla_skip_ms",
+                                  "weights_cache"]
     assert (len(rt.timings["guided_ms"]), len(rt.timings["vanilla_ms"])) == (2, 2)
+    assert rt.timings["guided_skip_ms"] == rt.timings["vanilla_skip_ms"] == []
+    assert rt.timings["weights_cache"] == "off"
 
     # by hand: the same modules, embeddings and draw_normal noise
     pipe = MotionClonePipeline(rt.unet_cfg, rt.sched_cfg, cfg, rt.pipeline.unet,
@@ -385,8 +398,7 @@ def test_t2v_main_runs_the_slice_to_an_mp4(model_dir, monkeypatch, capsys):
 
 _UNPORTED_ARGV = {"frame_shard": ["--frame-shard", "2"],
                   "frame_shard_mode": ["--frame-shard-mode", "gspmd"],
-                  "cfg_pair": ["--cfg-pair"], "approx": ["--approx", "step-extrap:3"],
-                  "resume": ["--resume"], "weights_cache": ["--weights-cache", "wc"]}
+                  "cfg_pair": ["--cfg-pair"]}
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED))
@@ -623,3 +635,183 @@ def test_i2v_main_refusals(i2v_dir, i2v_runtimes, monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="no condition_image_paths"):
         i2v_runtimes["pixel"].run_example(example, motion_rep_dir=str(tmp_path / "r"),
                                           output_dir=str(tmp_path / "o"))
+
+
+# ---------------------------------------------------------------------------
+# the weights cache, --approx, --weights-cache and --resume
+# ---------------------------------------------------------------------------
+
+
+def _state(rt):
+    pipe = rt.pipeline
+    mods = dict(unet=pipe.unet, vae=pipe.vae, text_encoder=pipe.text_encoder)
+    if pipe.controlnet is not None:
+        mods["controlnet"] = pipe.controlnet
+    return {name: m.state_dict() for name, m in mods.items()}
+
+
+def _assert_same_modules(a, b):
+    assert sorted(a) == sorted(b)
+    for name in a:
+        assert sorted(a[name]) == sorted(b[name]), name
+        for k, v in a[name].items():
+            assert v.dtype == b[name][k].dtype and torch.equal(v, b[name][k]), f"{name} {k}"
+
+
+def test_weights_cache_hit_loads_the_cold_modules_bit_for_bit(model_dir, infer_cfg, runtime,
+                                                             tmp_path):
+    sd_dir, wc = os.path.join(model_dir, SD), str(tmp_path / "wc")
+    make = lambda cfg=infer_cfg, dtype=torch.float32: runner.MotionCloneRuntime(
+        sd_dir, cfg, device="cpu", dtype=dtype, config_root=model_dir, weights_cache=wc)
+    cold = make()
+    assert cold.weights_cache_state == "miss" and runtime.weights_cache_state == "off"
+    assert [f for f in os.listdir(wc) if f.startswith("params-torch-")] == os.listdir(wc)
+    warm = make()
+    assert warm.weights_cache_state == "hit"
+    _assert_same_modules(_state(warm), _state(cold))
+    _assert_same_modules(_state(warm), _state(runtime))
+    # another dtype or LoRA scale is another entry; a touched source misses
+    assert make(dtype=torch.bfloat16).weights_cache_state == "miss"
+    assert make(dataclasses.replace(infer_cfg, adapter_lora_scale=0.5)
+                ).weights_cache_state == "miss"
+    mm = os.path.join(model_dir, infer_cfg.motion_module)
+    st = os.stat(mm)
+    os.utime(mm, ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+    try:
+        assert make().weights_cache_state == "miss"
+        assert make().weights_cache_state == "hit"
+    finally:
+        os.utime(mm, ns=(st.st_atime_ns, st.st_mtime_ns))
+    assert len(os.listdir(wc)) == 4  # f32, bf16, LoRA scale 0.5, the touched source
+
+
+def test_weights_cache_entry_without_the_controlnet_misses(i2v_dir, i2v_runtimes, tmp_path):
+    from motionclone_tpu_torch.weights import cache as wcache
+
+    wc = str(tmp_path / "wc")
+    make = lambda: runner.MotionCloneRuntime(
+        os.path.join(i2v_dir, SD), _i2v_cfg(i2v_dir, "latent"), device="cpu",
+        dtype=torch.float32, config_root=i2v_dir, weights_cache=wc)
+    assert make().weights_cache_state == "miss"
+    (entry,) = os.listdir(wc)
+    key = entry[len("params-torch-"):-len(".safetensors")]
+    sds = wcache.load_params(wc, key)
+    assert "controlnet" in sds
+    wcache.save_params(wc, key, {c: sd for c, sd in sds.items() if c != "controlnet"})
+    rt = make()
+    assert rt.weights_cache_state == "miss"
+    _assert_same_modules(_state(rt), _state(i2v_runtimes["latent"]))
+    assert make().weights_cache_state == "hit"
+
+
+MAINS = {"t2v": lambda argv: t2v_main(argv), "i2v": lambda argv: i2v_main(argv)}
+
+
+def _main_argv(which, tag):
+    argv = _i2v_argv("latent") if which == "i2v" else list(ARGS)
+    return argv + ["--motion-representation-save-dir", f"reps_{which}",
+                   "--generated-videos-save-dir", f"out_{which}_{tag}"]
+
+
+_SAMPLE_LATENTS = MotionClonePipeline.sample_latents
+
+
+def _spy_latents(monkeypatch, seen, on_chunk=None):
+    def spy(self, *args, **kwargs):
+        if on_chunk is not None:
+            kwargs["on_chunk"] = on_chunk
+        seen.append(_SAMPLE_LATENTS(self, *args, **kwargs))
+        return seen[-1]
+
+    monkeypatch.setattr(MotionClonePipeline, "sample_latents", spy)
+
+
+def _frames(paths):
+    assert len(paths) == 1
+    frames, _ = read_video_frames(paths[0])
+    assert frames.shape == (4, 64, 64, 3) and frames.dtype == np.uint8
+    return frames
+
+
+@pytest.mark.parametrize("which", sorted(MAINS))
+def test_main_runs_the_approx_caches(i2v_dir, which, monkeypatch):
+    """``--approx step-extrap:2`` on the synthetic schedule (4 steps, 2
+    guided): one full and one skip step per phase, timed apart, and other
+    latents than the exact run's."""
+    monkeypatch.chdir(i2v_dir)
+    seen = []
+    _spy_latents(monkeypatch, seen)
+    MAINS[which](_main_argv(which, "exact"))
+    rt, paths = MAINS[which](_main_argv(which, "approx") + ["--approx", "step-extrap:2"])
+    _frames(paths)
+    assert rt.pipeline.fns.schedule().full.tolist() == [True, False, True, False]
+    assert [len(rt.timings[k]) for k in ("guided_ms", "guided_skip_ms", "vanilla_ms",
+                                         "vanilla_skip_ms")] == [1, 1, 1, 1]
+    assert not torch.equal(seen[1], seen[0])
+
+
+@pytest.mark.parametrize("which", sorted(MAINS))
+def test_main_weights_cache_second_call_hits(i2v_dir, which, monkeypatch, capsys):
+    monkeypatch.chdir(i2v_dir)
+    seen = []
+    _spy_latents(monkeypatch, seen)
+    argv = _main_argv(which, "wc") + ["--weights-cache", f"wc_{which}"]
+    states = []
+    for _ in range(2):
+        rt, paths = MAINS[which](argv)
+        _frames(paths)
+        states.append(rt.timings["weights_cache"])
+    assert states == ["miss", "hit"]
+    assert f"weights cache wc_{which}: hit" in capsys.readouterr().out
+    torch.testing.assert_close(seen[1], seen[0], rtol=0, atol=0)
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("which", sorted(MAINS))
+def test_main_resume_continues_an_interrupted_run(i2v_dir, which, monkeypatch):
+    """An interrupted ``--resume`` run (stopped after the guided chunk)
+    leaves its checkpoint in the output directory; the rerun takes it and
+    ends on the uninterrupted run's latents, bit for bit, and removes it."""
+    monkeypatch.chdir(i2v_dir)
+    seen = []
+
+    def stop(done, total):
+        if done == 2:
+            raise _Stop
+
+    argv = _main_argv(which, "resume") + ["--resume"]
+    _spy_latents(monkeypatch, seen, on_chunk=stop)
+    with pytest.raises(_Stop):
+        MAINS[which](argv)
+    out = f"out_{which}_resume"
+    (ckpt,) = [f for f in os.listdir(out) if f.startswith(".resume_")]
+    assert ckpt.endswith(".mp4.npz")
+    _spy_latents(monkeypatch, seen)
+    rt, paths = MAINS[which](argv)
+    _frames(paths)
+    assert (len(rt.timings["guided_ms"]), len(rt.timings["vanilla_ms"])) == (0, 2)
+    assert not any(f.startswith(".resume_") for f in os.listdir(out))
+    MAINS[which](_main_argv(which, "whole"))
+    torch.testing.assert_close(seen[0], seen[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("which", sorted(MAINS))
+@pytest.mark.parametrize("spec,message", [
+    ("bogus", "unknown --approx mode 'bogus'"),
+    ("step-cache:1", "--approx step-cache:K needs K >= 2")])
+def test_main_refuses_a_bad_approx_spec(which, spec, message, tmp_path, monkeypatch):
+    """JAX's messages, before any file is read or written."""
+    from motionclone_tpu.cli import parse_approx as j_parse_approx
+
+    with pytest.raises(SystemExit) as want:
+        j_parse_approx(spec)
+    assert str(want.value).startswith(message)
+    monkeypatch.chdir(tmp_path)
+    argv = _i2v_argv("latent") if which == "i2v" else list(ARGS)
+    with pytest.raises(SystemExit) as got:
+        MAINS[which](argv + ["--approx", spec])
+    assert str(got.value) == str(want.value)
+    assert not os.listdir(tmp_path)

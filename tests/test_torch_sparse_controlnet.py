@@ -45,12 +45,15 @@ from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel as TUNet
 from motionclone_tpu_torch.parallel.frames import FrameGroup
 from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns as t_make_fns
 from test_sparse_controlnet import tiny_cn_config
-from test_torch_models import close, load_port, random_flax_params
+from test_torch_models import (  # noqa: F401
+    close, load_port, one_torch_thread, random_flax_params)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, F_, HW = 1, 4, 16
 GUIDANCE = ("up_blocks.1",)
 FLAVOURS = ("latent", "pixel")  # configs/i2v_rgb.yaml, configs/i2v_sketch.yaml
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _t(x):
