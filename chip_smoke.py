@@ -39,7 +39,12 @@ Phase 2  kernels: each kernel at every shape the main path gives it (the
          modules) at the controlnet's four (S, C) where the kernel takes
          them, B = 1 and 2, against its plain version, beside the unfused
          module; the controlnet's products and convolutions are shapes
-         the lists above already hold.
+         the lists above already hold.  Each kernel of the sweep's path is
+         also held at the largest shape phase 10's batch of 2 examples
+         gives it: B·F = 64 (its CFG pair) for kernels 1, 5, 7 (the
+         controlnet's too) and 8, B = 4 for the unfused motion modules'
+         kernel 3, and B·F = 32 (its differentiated pass) for kernels 2
+         and 4.
 Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          width, 512x512x16 frames, random weights from a seed: CLIP on random
          token ids for the CFG pair, VAE encode of a random video,
@@ -134,6 +139,33 @@ Phase 9  the approx caches, the weights cache and resume through the CLIs,
          without the cache, cold and warm, and per run the seconds per
          video, the full and skip step medians and peak memory beside the
          card's name and power limit.
+Phase 10 the sweep and the server, on phases 7-9's model directory and
+         weights cache: (a) ``cli.sweep_main`` (``python3 -m
+         motionclone_tpu_torch.sweep``) on 2 examples, the reference clip
+         under two prompts and seeds, at ``--num-devices 2``: one batch at
+         the full t2v_camera schedule, whose launches must equal
+         ``predicted_launches`` (a batch launches each kernel once per
+         pass), with one CLIP call, two 16 x 512 x 512 x 3 uint8 videos with
+         the reference's names, and each example's final latents within
+         BATCH_TOL of the example run alone (the first: phase 7's run; the
+         second runs now), printed beside a rounding control (phase 7's
+         example alone from initial latents one bf16 ulp away); prints the
+         seconds per batch and per video, the step medians at batch 2 and
+         peak memory.  (b) the same batch with the schedule cut to
+         SWEEP_CUT: a representation-cache hit (no VAE encode, no
+         extraction).  (c) (b) with ``--resume``, interrupted after the
+         guided chunk and run again, must end on (b)'s latents (bit for
+         bit, or within RERUN_TOL with a line saying so).  (d) an i2v_rgb
+         batch of 2 with the controlnet scales I2V_SWEEP_SCALES, cut to
+         I2V_SWEEP_CUT: the controlnet runs once per step on 4 rows, its
+         residuals are finite and each example's are its own scale times
+         the unit-scale ones.  (e) ``cli.serve_main`` on 127.0.0.1, port 0,
+         in a thread, cut to SWEEP_CUT, ``--batch-max 2``: 3 POSTed jobs,
+         the first alone on the single path and the other two as one
+         batch, a malformed body answered 400, every job done with its
+         video, ``/health`` and ``/metrics`` read; then the server is
+         stopped and every thread it started joined.  Each cut run prints
+         a line saying so.
 
 The line before the last is the kernels JSON; the last line is the result
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -178,6 +210,8 @@ FRAMES = 16
 RECT_QUERY_FRAMES = (8, 4, 2)
 # (H = W, C) of the fused spatial transformer and motion module at 512x512
 FUSED_SHAPES = ((64, 320), (32, 640))
+# B·F of the sweep's batch of 2 examples (phase 10): a CFG half, the pair
+BATCH2_HALF, BATCH2_PAIR = 2 * FRAMES, 4 * FRAMES
 # (H = W, Cin, Cout) of every resnet the fused route takes at 512x512
 RESNET_SHAPES = ((64, 320, 320), (64, 960, 320), (64, 640, 320),
                  (32, 320, 640), (32, 640, 640), (32, 1920, 640),
@@ -454,10 +488,12 @@ def check_flash_kernels(dev) -> dict:
     for s, d in ATTN_SHAPES:
         hd = HEADS * d
         scale = d ** -0.5
-        # flash forward, B*F = 16 (one CFG half) and 32 (the vanilla pair):
-        # the self-attention (Sk = S), then the cross-attention against the
-        # 77 text tokens (the ragged last key tile)
-        for sk, b in ((s, 16), (s, 32), (TEXT_TOKENS, 16), (TEXT_TOKENS, 32)):
+        # flash forward, B*F = 16 (one CFG half) and 32 (the vanilla pair),
+        # and the sweep's batch of 2 examples, 64 (its pair): the
+        # self-attention (Sk = S), then the cross-attention against the 77
+        # text tokens (the ragged last key tile)
+        for sk, b in ((s, 16), (s, 32), (s, BATCH2_PAIR), (TEXT_TOKENS, 16),
+                      (TEXT_TOKENS, 32), (TEXT_TOKENS, BATCH2_PAIR)):
             q, k, v = randn(b, s, hd), randn(b, sk, hd), randn(b, sk, hd)
             out, lse = fa.flash_fwd(q, k, v, HEADS, scale)
             again = fa.flash_fwd(q, k, v, HEADS, scale)
@@ -492,37 +528,41 @@ def check_flash_kernels(dev) -> dict:
                    exp_floor(b, s, sk))
             torch.cuda.empty_cache()
 
-        # flash backward, B*F = 16 (the cond pass)
-        b = 16
-        q, k, v, dout = (randn(b, s, hd) for _ in range(4))
-        out, lse = fa.flash_fwd(q, k, v, HEADS, scale)
-        grads = fa.flash_bwd(q, k, v, out, lse, dout, HEADS, scale)
-        again = fa.flash_bwd(q, k, v, out, lse, dout, HEADS, scale)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, a) for g, a in zip(grads, again)):
-            raise AssertionError(f"flash_bwd: two launches differ at {(b, s, hd)}")
-        del again
-        got, ref = [], []
-        for sl in batch_slices(b, 2 if s == 4096 else b):
-            got.extend(g[sl] for g in grads)
-            ref.extend(fa.flash_attention_bwd_plain(q[sl], k[sl], v[sl], dout[sl], HEADS, scale))
-        err, tol = max_err(got, ref)
-        del got, ref
-        ms = time_ms(lambda: fa.flash_bwd(q, k, v, out, lse, dout, HEADS, scale))
-        plain_ms = time_ms(
-            lambda: fa.flash_attention_bwd_plain(q, k, v, dout, HEADS, scale),
-            reps=2, warmup=1,
-        )
-        lib_ms, lib_grads = library_bwd(*(flash_view(x, b, s, d) for x in (q, k, v, dout)),
-                                        scale)
-        lib_dev = max((lg.transpose(1, 2).reshape(b, s, hd).float() - g.float()).abs().max().item()
-                      for lg, g in zip(lib_grads, grads))
-        del lib_grads
-        b_ms, b_by = bound(10 * b * s * s * hd,
-                           (8 * b * s * hd) * 2 + b * HEADS * s * 4)
-        record("flash_bwd", (b, s, HEADS, d), err, tol, ms, plain_ms, b_ms, b_by,
-               lib_ms, lib_dev, exp_floor(b, s, s))
-        torch.cuda.empty_cache()
+        # flash backward, B*F = 16 (the cond pass) and 32 (the sweep's
+        # batch of 2 examples)
+        for b in (16, BATCH2_HALF):
+            q, k, v, dout = (randn(b, s, hd) for _ in range(4))
+            out, lse = fa.flash_fwd(q, k, v, HEADS, scale)
+            grads = fa.flash_bwd(q, k, v, out, lse, dout, HEADS, scale)
+            again = fa.flash_bwd(q, k, v, out, lse, dout, HEADS, scale)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(grads, again)):
+                raise AssertionError(f"flash_bwd: two launches differ at {(b, s, hd)}")
+            del again
+            got, ref = [], []
+            for sl in batch_slices(b, 2 if s == 4096 else b):
+                got.extend(g[sl] for g in grads)
+                ref.extend(fa.flash_attention_bwd_plain(q[sl], k[sl], v[sl], dout[sl], HEADS,
+                                                        scale))
+            err, tol = max_err(got, ref)
+            del got, ref
+            ms = time_ms(lambda: fa.flash_bwd(q, k, v, out, lse, dout, HEADS, scale))
+            plain_ms = None  # the plain backward's f32 logits and their grads: 50 GB at 32
+            if b * s * s <= 16 * 4096 * 4096:
+                plain_ms = time_ms(
+                    lambda: fa.flash_attention_bwd_plain(q, k, v, dout, HEADS, scale),
+                    reps=2, warmup=1,
+                )
+            lib_ms, lib_grads = library_bwd(*(flash_view(x, b, s, d) for x in (q, k, v, dout)),
+                                            scale)
+            lib_dev = max((lg.transpose(1, 2).reshape(b, s, hd).float() - g.float())
+                          .abs().max().item() for lg, g in zip(lib_grads, grads))
+            del lib_grads, grads
+            b_ms, b_by = bound(10 * b * s * s * hd,
+                               (8 * b * s * hd) * 2 + b * HEADS * s * 4)
+            record("flash_bwd", (b, s, HEADS, d), err, tol, ms, plain_ms, b_ms, b_by,
+                   lib_ms, lib_dev, exp_floor(b, s, s))
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -551,9 +591,11 @@ def check_temporal_kernels(dev) -> dict:
     for s, d in ATTN_SHAPES:
         hd = HEADS * d
         scale = d ** -0.5
-        # temporal forward, batch 1 (one CFG half) and 2 (the vanilla pair)
+        # temporal forward, batch 1 (one CFG half), 2 (the vanilla pair, or
+        # a half of the sweep's batch of 2 examples) and 4 (that batch's
+        # pair, the unfused motion modules at 1280 channels)
         f = 16
-        for b in (1, 2):
+        for b in (1, 2, 4):
             q, k, v = (randn(b, f, s, hd) for _ in range(3))
             out, lse = ta.temporal_fwd(q, k, v, HEADS, scale)
             same_bits("temporal_fwd", (b, f, s, hd), (out, lse),
@@ -575,25 +617,27 @@ def check_temporal_kernels(dev) -> dict:
             record("temporal_fwd", (b, f, s, hd), err, tol, ms, plain_ms, b_ms, b_by,
                    lib_ms, lib_dev)
 
-        # temporal backward, batch 1 (the cond pass)
-        b = 1
-        q, k, v, dout = (randn(b, f, s, hd) for _ in range(4))
-        _, lse = ta.temporal_fwd(q, k, v, HEADS, scale)
-        grads = ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale)
-        same_bits("temporal_bwd", (b, f, s, hd), grads,
-                  lambda: ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale))
-        ref = ta.temporal_attention_bwd_plain(q, k, v, dout, HEADS, scale)
-        err, tol = max_err(grads, ref)
-        ms = time_ms(lambda: ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale), reps=20)
-        plain_ms = time_ms(lambda: ta.temporal_attention_bwd_plain(q, k, v, dout, HEADS, scale))
-        lib_ms, lib_grads = library_bwd(
-            *(temporal_view(x, b, f, s, d) for x in (q, k, v, dout)), scale)
-        lib_dev = max((lg.transpose(1, 2).reshape(b, f, s, hd).float() - g.float()).abs().max().item()
-                      for lg, g in zip(lib_grads, grads))
-        b_ms, b_by = bound(10 * b * s * HEADS * f * f * d,
-                           (7 * b * f * s * hd) * 2 + b * s * HEADS * f * 4)
-        record("temporal_bwd", (b, f, s, hd), err, tol, ms, plain_ms, b_ms, b_by,
-               lib_ms, lib_dev)
+        # temporal backward, batch 1 (the cond pass) and 2 (the sweep's
+        # batch of 2 examples)
+        for b in (1, 2):
+            q, k, v, dout = (randn(b, f, s, hd) for _ in range(4))
+            _, lse = ta.temporal_fwd(q, k, v, HEADS, scale)
+            grads = ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale)
+            same_bits("temporal_bwd", (b, f, s, hd), grads,
+                      lambda: ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale))
+            ref = ta.temporal_attention_bwd_plain(q, k, v, dout, HEADS, scale)
+            err, tol = max_err(grads, ref)
+            ms = time_ms(lambda: ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale), reps=20)
+            plain_ms = time_ms(
+                lambda: ta.temporal_attention_bwd_plain(q, k, v, dout, HEADS, scale))
+            lib_ms, lib_grads = library_bwd(
+                *(temporal_view(x, b, f, s, d) for x in (q, k, v, dout)), scale)
+            lib_dev = max((lg.transpose(1, 2).reshape(b, f, s, hd).float() - g.float())
+                          .abs().max().item() for lg, g in zip(lib_grads, grads))
+            b_ms, b_by = bound(10 * b * s * HEADS * f * f * d,
+                               (7 * b * f * s * hd) * 2 + b * s * HEADS * f * 4)
+            record("temporal_bwd", (b, f, s, hd), err, tol, ms, plain_ms, b_ms, b_by,
+                   lib_ms, lib_dev)
         torch.cuda.empty_cache()
 
         # the rectangular forms: FQ local query frames against the 16
@@ -920,7 +964,7 @@ def check_fused_kernels(dev) -> dict:
             m = module_on_card(lambda: Transformer3DModel(c, HEADS, d), dev, gen)
             blk = m.transformer_blocks[0]
             wt, wb = m.fused_weights(bf16), blk.fused_weights(bf16)
-            for b in (1, 2):
+            for b in (1, 2, 4):
                 bf = b * FRAMES
                 x, ctx = randn(bf, s, c), randn(b, 77, 768)
                 x5 = x.view(b, FRAMES, hw, hw, c)
@@ -942,6 +986,9 @@ def check_fused_kernels(dev) -> dict:
                         x[sl], ctx_of(sl), wt, heads=HEADS, groups=32, frames=frames_of(sl)),
                     slices, lambda: m(x5, ctx, "flash"),
                     20 * mm + attn, 2 * 2 * bf * s * c + 2 * b * 77 * 768 + wbytes, True)
+                if b == 4:  # the sweep's pair: kernel 5 only
+                    del x, x5, ctx
+                    continue
                 # the block alone (kernel 6): off the SD1.5 path, checked at
                 # the same shapes
                 ctx_f = ctx.repeat_interleave(FRAMES, dim=0)
@@ -957,7 +1004,7 @@ def check_fused_kernels(dev) -> dict:
 
             mc = module_on_card(lambda: TemporalTransformer3D(c, MotionModuleConfig()),
                                 dev, gen)
-            for b in (1, 2):
+            for b in (1, 2, 4):
                 x = randn(b, FRAMES, s, c)
                 x5 = x.view(b, FRAMES, hw, hw, c)
                 wm = mc.fused_weights(x5)
@@ -1004,7 +1051,7 @@ def check_controlnet_temporal(dev) -> None:
                     f"(C > {ft.MAX_CHANNELS}): the controlnet runs it unfused")
                 continue
             mc = module_on_card(lambda: TemporalTransformer3D(c, cfg), dev, gen)
-            for b in (1, 2):
+            for b in (1, 2, 4):
                 x = torch.randn(b, FRAMES, s, c, generator=gen, device=dev).to(bf16)
                 x5 = x.view(b, FRAMES, hw, hw, c)
                 wm = mc.fused_weights(x5)
@@ -1042,7 +1089,7 @@ def check_resnet_kernels(dev) -> dict:
         for hw, cin, cout in RESNET_SHAPES:
             m = module_on_card(lambda: ResnetBlock3D(cin, cout, 1280), dev, gen)
             w = m.fused_weights(bf16)
-            for b in (1, 2):
+            for b in (1, 2, 4):
                 x, temb = randn(b, FRAMES, hw, hw, cin), randn(b, 1280)
                 t = m.time_emb_proj(torch.nn.functional.silu(temb))
                 pix = b * FRAMES * hw * hw
@@ -2530,6 +2577,357 @@ def approx_cli(dev, wrappers, card: str, root: str, t2v: dict, i2v: dict) -> Non
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the sweep and the server
+# ---------------------------------------------------------------------------
+
+# (b)-(e) run t2v_camera and i2v_rgb with their schedules cut to these
+SWEEP_CUT = {"inference_steps": 10, "guidance_steps": 5}
+I2V_SWEEP_CUT = {"inference_steps": 10, "guidance_steps": 4}
+# (a)'s examples: the reference clip under two prompts and seeds (the
+# first is phase 7's example, whose run is its serial reference); the
+# second names a copy of the clip, so each has its own representation file
+SWEEP_EXAMPLES = (("reference.mp4", "Relics on the seabed", 42),
+                  ("reference_b.mp4", "A lighthouse on a cliff at dusk", 7))
+# (d)'s controlnet scale of each example
+I2V_SWEEP_SCALES = (0.5, 1.0)
+# a batched example against the same example run alone (final latents,
+# relative L2): at twice the rows the unfused differentiated pass may take
+# other cuBLAS and cuDNN algorithms, so the bits differ and the random
+# weights amplify the difference over the steps as they amplify any bf16
+# rounding; phase 6's bound on the latents of a run that rounds otherwise
+BATCH_TOL = 5e-2
+
+
+class Counting:
+    """Counts the calls of ``owner.name`` while active, keeping each
+    call's ``keep(args)``."""
+
+    def __init__(self, owner, name: str, keep=lambda args: None):
+        self.owner, self.name, self.keep, self.calls = owner, name, keep, []
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+
+        def spy(*args, **kwargs):
+            self.calls.append(self.keep(args))
+            return self.orig(*args, **kwargs)
+
+        setattr(self.owner, self.name, spy)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def write_cut_yaml(src: str, dst: str, cut: dict) -> str:
+    """``src`` with the schedule keys of ``cut`` replaced, written to ``dst``."""
+    with open(src) as fh:
+        lines = [f"{k}: {cut[k]}\n" if (k := line.split(":", 1)[0]) in cut else line
+                 for line in fh]
+    with open(dst, "w") as fh:
+        fh.writelines(lines)
+    return dst
+
+
+def write_examples(path: str, examples) -> str:
+    with open(path, "w") as fh:
+        for example in examples:
+            fh.write(json.dumps(example) + "\n")
+    return path
+
+
+def check_videos(tag: str, paths, names, stubbed, root: str, out: str, frames: int,
+                 side: int) -> None:
+    """Each written video is frames x side x side x 3 uint8 and not
+    constant, with the reference's names."""
+    if list(paths) != [os.path.join(root, out, n) for n in names]:
+        raise AssertionError(f"{tag} wrote {paths}, not {names}")
+    for path in paths:
+        check_video(tag, read_output([path], stubbed), frames, side)
+
+
+def sweep_name(video: str, prompt: str, seed: int, positive: str) -> str:
+    return (os.path.splitext(video)[0] + "_" + (prompt + positive).strip().replace(" ", "_")
+            + f"{seed}_{seed}.mp4")
+
+
+def http(port: int, path: str, payload=None):
+    """(status, body) of one request to the server on 127.0.0.1."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            body = r.read().decode()
+            code = r.status
+    except urllib.error.HTTPError as e:
+        body, code = e.read().decode(), e.code
+    return code, (json.loads(body) if body.startswith(("{", "[")) else body)
+
+
+def wait_job(port: int, job_id: str, statuses, timeout_s: float) -> dict:
+    deadline = time.time() + timeout_s
+    while True:
+        _, rec = http(port, f"/jobs/{job_id}")
+        if rec["status"] in statuses:
+            return rec
+        if time.time() > deadline:
+            raise AssertionError(f"serve: job {job_id} still {rec['status']} after "
+                                 f"{timeout_s:.0f} s")
+        time.sleep(0.05)
+
+
+def sweep_cli(dev, wrappers, card: str, root: str, t2v: dict) -> None:
+    """Phase 10: ``cli.sweep_main`` and ``cli.serve_main`` on phase 7's model
+    directory in ``root`` (and phase 8's i2v_rgb controlnet, phase 9's
+    weights cache): (a) a batch of 2 examples at the full t2v_camera
+    schedule, each against itself run alone; (b) the same batch at a cut
+    schedule, a representation-cache hit; (c) (b) interrupted after the
+    guided chunk and resumed; (d) an i2v_rgb batch of 2 with two controlnet
+    scales; (e) the server, 3 jobs: one alone, two as one batch."""
+    import shutil
+    import threading
+
+    from motionclone_tpu_torch import cli
+    from motionclone_tpu_torch.diffusion.guidance import load_motion_representation
+    from motionclone_tpu_torch.models.sparse_controlnet import SparseControlNetModel
+    from motionclone_tpu_torch.models.vae import AutoencoderKL
+    from motionclone_tpu_torch.pipeline import runner
+    from motionclone_tpu_torch.pipeline import sweep as sweep_mod
+    from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline
+
+    side, frames = 512, 16
+    stubbed = stub_codec(reference_clip(frames, side))
+    if stubbed is None:
+        shutil.copy(os.path.join(root, "reference.mp4"), os.path.join(root, "reference_b.mp4"))
+    wc = os.path.join(root, "weights_cache")
+    examples = write_examples(os.path.join(root, "examples_10.jsonl"), [
+        {"video_path": v, "new_prompt": p, "seed": s} for v, p, s in SWEEP_EXAMPLES])
+    t2v_cut = write_cut_yaml(os.path.join(root, "t2v.yaml"), os.path.join(root, "t2v_cut.yaml"),
+                             SWEEP_CUT)
+
+    def argv(out, reps, cfg=os.path.join(root, "t2v.yaml"), ex=examples):
+        return t2v_argv(root, dev, out) + [
+            "--inference_config", cfg, "--examples", ex, "--weights-cache", wc,
+            "--motion-representation-save-dir", os.path.join(root, reps)]
+
+    # (a) one batch of 2 at the full schedule
+    with Counting(MotionClonePipeline, "encode_text") as clip_calls:
+        a = run_cli(cli.sweep_main, argv("out_10a", "reps_10") + ["--num-devices", "2"],
+                    wrappers)
+    rt, t = a["rt"], a["rt"].timings
+    cfg = rt.infer_cfg
+    tag = "sweep (a) t2v_camera, a batch of 2"
+    log(f"{tag}: schedule {cfg.inference_steps} steps, {cfg.guidance_steps} guided "
+        f"(configs/t2v_camera.yaml's), {side}x{side}x{frames}, bf16, random weights")
+    check_launches(tag, a, controlnet=False)
+    if len(clip_calls) != 1:
+        raise AssertionError(f"{tag}: {len(clip_calls)} CLIP calls, not 1")
+    names = [sweep_name(v, p, s, cfg.positive_prompt) for v, p, s in SWEEP_EXAMPLES]
+    check_videos(tag, a["paths"], names, stubbed, root, "out_10a", frames, side)
+    median = lambda ms: sorted(ms)[len(ms) // 2]
+    per_batch = a["seconds"] - rt.load_seconds
+    log(f"{tag}: seconds per batch {per_batch:.1f} (weights load excluded; "
+        f"{a['seconds']:.1f} with it), per video {per_batch / 2:.1f}; tokenizer + CLIP "
+        f"{t['text']:.3f} s (one call), extraction {t['extract']:.2f} s, sampling "
+        f"{t['sample']:.2f} s: ms per guided step median {median(t['guided_ms']):.1f}, "
+        f"per vanilla step median {median(t['vanilla_ms']):.1f} (batch of 2), decode + "
+        f"write {t['decode_write']:.2f} s; peak device memory {a['peak_gb']:.2f} GB [{card}]")
+    batched = a["latents"]
+    del a, rt
+    torch.cuda.empty_cache()
+    # each example alone: the first is phase 7's run, the second runs now
+    alone = write_examples(os.path.join(root, "examples_10_alone.jsonl"), [
+        {"video_path": v, "new_prompt": p, "seed": s} for v, p, s in SWEEP_EXAMPLES[1:]])
+    second = run_cli(cli.t2v_main, argv("out_10s", "reps_10s", ex=alone), wrappers)
+    # the rounding control: phase 7's example alone from initial latents one
+    # bf16 ulp away, on phase 7's representation
+    rt = second["rt"]
+    rep = {k: (v.to(dev), i.to(dev)) for k, (v, i) in load_motion_representation(
+        os.path.join(root, "reps", "reference.npz")).items()}
+    uncond, cond = rt.encode_prompt(SWEEP_EXAMPLES[0][1] + cfg.positive_prompt,
+                                    cfg.negative_prompt)
+    init = rt.pipeline.initial_latents(SWEEP_EXAMPLES[0][2])
+    nudged = (init.view(torch.int16) ^ 1).view(torch.bfloat16)
+    control = rel_l2(rt.pipeline.fns.sample(nudged, uncond, cond, rep).float().cpu(),
+                     t2v["latents"])
+    del rt, rep, init, nudged
+    for i, want in enumerate((t2v["latents"], second["latents"])):
+        rel = rel_l2(batched[i: i + 1], want)
+        log(f"{tag}: example {i + 1} batched against itself alone (phase "
+            f"{7 if i == 0 else 10}): final latents relative L2 {rel:.3e} (tol "
+            f"{BATCH_TOL:.0e}); rounding control, phase 7's example alone from initial "
+            f"latents one bf16 ulp away: {control:.3e}")
+        if not rel <= BATCH_TOL:
+            raise AssertionError(f"{tag}: example {i + 1} batched deviates {rel} from alone")
+    log(f"{tag}: example 2 alone {second['seconds']:.1f} s, sampling "
+        f"{second['rt'].timings['sample']:.2f} s [{card}]")
+    del second
+    torch.cuda.empty_cache()
+
+    # (b) the same batch at a cut schedule: a representation-cache hit
+    cut = (f"schedule cut from configs/t2v_camera.yaml's 100 steps (50 guided) to "
+           f"{SWEEP_CUT['inference_steps']} ({SWEEP_CUT['guidance_steps']} guided)")
+    with Counting(AutoencoderKL, "encode") as encodes:
+        b = run_cli(cli.sweep_main, argv("out_10b", "reps_10", t2v_cut) + ["--num-devices", "2"],
+                    wrappers)
+    tag = "sweep (b) the batch again, a representation-cache hit"
+    log(f"{tag}: {cut}")
+    if encodes or "extract" in b["rt"].timings:
+        raise AssertionError(f"{tag}: {len(encodes)} VAE encodes, extraction "
+                             f"{'ran' if 'extract' in b['rt'].timings else 'skipped'}")
+    check_launches(tag, b, controlnet=False)
+    check_videos(tag, b["paths"], names, stubbed, root, "out_10b", frames, side)
+    log(f"{tag}: no VAE encode, no extraction; {b['seconds']:.1f} s [{card}]")
+    cut_latents = b["latents"]
+    del b
+    torch.cuda.empty_cache()
+
+    # (c) (b) with --resume, interrupted after the guided chunk, run again
+    def stop(done, total):
+        if done == SWEEP_CUT["guidance_steps"]:
+            raise Interrupted
+
+    argv_c = argv("out_10c", "reps_10", t2v_cut) + ["--num-devices", "2", "--resume"]
+    try:
+        run_cli(cli.sweep_main, argv_c, wrappers, on_chunk=stop)
+        raise AssertionError("sweep (c): the run was not interrupted")
+    except Interrupted:
+        pass
+    left = [f for f in os.listdir(os.path.join(root, "out_10c")) if f.startswith(".resume_")]
+    if len(left) != 1 or not left[0].startswith(".resume_sweep_"):
+        raise AssertionError(f"sweep (c): the interrupted run left {left}")
+    c = run_cli(cli.sweep_main, argv_c, wrappers)
+    tag = "sweep (c) resume"
+    log(f"{tag}: {cut}; interrupted after the guided chunk, {left[0]} kept")
+    if c["rt"].timings["guided_ms"] or not c["rt"].timings["vanilla_ms"]:
+        raise AssertionError(f"{tag}: the rerun did not continue at the vanilla chunk")
+    same_or_close(f"{tag}: rerun after the guided chunk against (b)'s uninterrupted batch, "
+                  f"final latents", c["latents"], cut_latents)
+    del c
+    torch.cuda.empty_cache()
+
+    # (d) an i2v_rgb batch of 2 with two controlnet scales
+    i2v_cut = write_cut_yaml(os.path.join(root, "i2v_rgb.yaml"),
+                             os.path.join(root, "i2v_rgb_cut.yaml"), I2V_SWEEP_CUT)
+    i2v_examples = write_examples(os.path.join(root, "examples_10d.jsonl"), [
+        {"video_path": v, "new_prompt": p, "seed": s, "condition_image_paths": ["condition.png"],
+         "image_index": [0], "controlnet_scale": scale}
+        for (v, p, s), scale in zip(SWEEP_EXAMPLES, I2V_SWEEP_SCALES)])
+    keep = lambda args: (args[1].shape[0], args if len(args) > 6 and torch.is_tensor(args[6])
+                         else None)
+    with Counting(SparseControlNetModel, "forward", keep) as passes:
+        d = run_cli(cli.sweep_main, argv("out_10d", "reps_10d", i2v_cut, i2v_examples)
+                    + ["--num-devices", "2"], wrappers)
+    rt = d["rt"]
+    tag = "sweep (d) i2v_rgb, a batch of 2"
+    log(f"{tag}: schedule cut from configs/i2v_rgb.yaml's 100 steps (40 guided) to "
+        f"{I2V_SWEEP_CUT['inference_steps']} ({I2V_SWEEP_CUT['guidance_steps']} guided); "
+        f"controlnet scales {I2V_SWEEP_SCALES}")
+    check_launches(tag, d, controlnet=True)
+    rows = [n for n, _ in passes]
+    if rows != [2] + [4] * I2V_SWEEP_CUT["inference_steps"]:
+        raise AssertionError(f"{tag}: controlnet passes on {rows} rows, not 2 in extraction "
+                             f"and 4 in every step")
+    args = next(a for n, a in passes if n == 4 and a is not None)
+    cnet = rt.pipeline.controlnet
+    with torch.no_grad():
+        down, mid = cnet(*args[1:], impl="fused")
+        unit_down, unit_mid = cnet(*args[1:6], torch.ones_like(args[6]), impl="fused")
+    scales = args[6].float().flatten().tolist()
+    if scales != [float(torch.tensor(x, dtype=torch.bfloat16)) for x in I2V_SWEEP_SCALES * 2]:
+        raise AssertionError(f"{tag}: the CFG pair's scales are {scales}")
+    worst = 0.0
+    for r, u in zip(down + (mid,), unit_down + (unit_mid,)):
+        if not bool(torch.isfinite(r.float()).all()) or not float(r.abs().max()) > 0:
+            raise AssertionError(f"{tag}: a residual is non-finite or zero")
+        for row, scale in enumerate(scales):
+            want = u[row].float() * scale
+            worst = max(worst, ((r[row].float() - want).abs().max()
+                                / want.abs().max().clamp_min(1e-30)).item())
+    log(f"{tag}: {len(rows)} controlnet passes (2 rows in extraction, 4 per step); each "
+        f"example's residuals are its own scale times the unit-scale residuals within "
+        f"{worst:.2e} of their largest (tol 1e-02, one bf16 rounding)")
+    if worst > 1e-2:
+        raise AssertionError(f"{tag}: residuals off their example's scale by {worst}")
+    check_videos(tag, d["paths"], [sweep_name(v, p, s, rt.infer_cfg.positive_prompt)
+                                   for v, p, s in SWEEP_EXAMPLES], stubbed, root, "out_10d",
+                 frames, side)
+    log(f"{tag}: {d['seconds']:.1f} s, sampling {rt.timings['sample']:.2f} s, peak device "
+        f"memory {d['peak_gb']:.2f} GB [{card}]")
+    del d, rt, args, down, mid, unit_down, unit_mid, passes
+    torch.cuda.empty_cache()
+
+    # (e) the server: 3 jobs, the first alone, the other two as one batch
+    jobs = [{"video_path": "reference.mp4", "new_prompt": "Relics on the seabed", "seed": 42},
+            {"video_path": "reference_b.mp4", "new_prompt": "A lighthouse on a cliff at dusk",
+             "seed": 7},
+            {"video_path": "reference.mp4", "new_prompt": "A fox in the snow", "seed": 5}]
+    before = set(threading.enumerate())
+    servers = []
+    argv_e = argv("out_10e", "reps_10e", t2v_cut) + ["--batch-max", "2", "--port", "0",
+                                                     "--host", "127.0.0.1"]
+    main = threading.Thread(target=cli.serve_main, kwargs=dict(argv=argv_e,
+                                                              ready=servers.append))
+    tag = "serve (e)"
+    t0 = time.perf_counter()
+    with Counting(sweep_mod, "run_sweep", lambda args: len(args[1])) as batches, \
+            Counting(runner.MotionCloneRuntime, "run_example") as singles:
+        main.start()
+        try:
+            while not servers and main.is_alive() and time.perf_counter() - t0 < 120:
+                time.sleep(0.05)
+            if not servers:
+                raise AssertionError(f"{tag}: the server did not start")
+            port = servers[0].port
+            log(f"{tag}: listening on 127.0.0.1:{port} after {time.perf_counter() - t0:.1f} s; "
+                f"{cut}")
+            codes, ids = [], []
+            for i, job in enumerate(jobs):
+                code, body = http(port, "/generate", job)
+                codes.append(code)
+                ids.append(body["job_id"])
+                if i == 0:  # the others queue behind it
+                    wait_job(port, ids[0], ("running", "done", "failed"), 60)
+            bad = http(port, "/generate", {"new_prompt": "no video"})
+            recs = [wait_job(port, i, ("done", "failed"), 300) for i in ids]
+            health, metrics = http(port, "/health")[1], http(port, "/metrics")[1]
+        finally:
+            if servers:
+                servers[0].shutdown()
+            main.join(timeout=60)
+    served_s = time.perf_counter() - t0
+    if main.is_alive() or servers[0]._worker.is_alive():
+        raise AssertionError(f"{tag}: the server's threads did not stop")
+    if codes != [202] * 3 or bad[0] != 400:
+        raise AssertionError(f"{tag}: POST statuses {codes}, malformed {bad}")
+    if [r["status"] for r in recs] != ["done"] * 3:
+        raise AssertionError(f"{tag}: jobs ended {[(r['status'], r['error']) for r in recs]}")
+    if batches != [2] or len(singles) != 1:
+        raise AssertionError(f"{tag}: {len(singles)} lone jobs and batches of {batches}, not "
+                             f"one lone job and one batch of 2")
+    for rec, job in zip(recs, jobs):
+        name = sweep_name(job["video_path"], job["new_prompt"], job["seed"],
+                          cfg.positive_prompt)
+        if rec["output_path"] != os.path.join(root, "out_10e", name):
+            raise AssertionError(f"{tag}: a job wrote {rec['output_path']}, not {name}")
+        check_video(tag, read_output([rec["output_path"]], stubbed), frames, side)
+    if (health["queue_depth"], health["worker_alive"]) != (0, True) or \
+            "motionclone_jobs_done 3" not in metrics or "motionclone_jobs_failed 0" not in metrics:
+        raise AssertionError(f"{tag}: health {health}, metrics {metrics}")
+    deadline = time.time() + 10
+    while set(threading.enumerate()) - before and time.time() < deadline:
+        time.sleep(0.05)
+    if set(threading.enumerate()) - before:
+        raise AssertionError(f"{tag}: threads left running: {set(threading.enumerate()) - before}")
+    log(f"{tag}: 3 jobs done (one alone, two as one batch), the malformed body answered 400, "
+        f"/health and /metrics read, every thread joined; job seconds "
+        f"{[round(r['seconds'], 1) for r in recs]}; {served_s:.1f} s with the load [{card}]")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2751,7 +3149,13 @@ def main() -> int:
         t0 = time.perf_counter()
         approx_cli(dev, wrappers, card, root, t2v, i2v)
         log(f"phase approx CLI: {time.perf_counter() - t0:.1f} s")
-        del t2v, i2v
+        del i2v
+        torch.cuda.empty_cache()
+        # phase 10: the sweep and the server
+        t0 = time.perf_counter()
+        sweep_cli(dev, wrappers, card, root, t2v)
+        log(f"phase sweep and serve: {time.perf_counter() - t0:.1f} s")
+        del t2v
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,9 +1,11 @@
 """Command line of the port: ``python3 -m motionclone_tpu_torch.cli`` runs
-:func:`t2v_main`, ``python3 -m motionclone_tpu_torch.i2v`` :func:`i2v_main`.
+:func:`t2v_main`, ``python3 -m motionclone_tpu_torch.i2v`` :func:`i2v_main`,
+``python3 -m motionclone_tpu_torch.sweep`` :func:`sweep_main` and
+``python3 -m motionclone_tpu_torch.serve`` :func:`serve_main`.
 
-Port of the t2v and i2v entry points of ``motionclone_tpu/cli.py``, with
-the same flags and defaults and one more, ``--device`` (``cuda`` by
-default; ``cpu`` runs the kernels' plain PyTorch versions).  ``--approx``
+Port of the entry points of ``motionclone_tpu/cli.py``, with the same flags
+and defaults and one more, ``--device`` (``cuda`` by default; ``cpu`` runs
+the kernels' plain PyTorch versions).  ``--approx``
 (the approx caches, :func:`parse_approx`), ``--resume`` (per-chunk resume
 of sampling) and ``--weights-cache DIR`` (the converted-weights cache) work
 as in the JAX package.  Flags of the JAX package that the port does not
@@ -28,12 +30,15 @@ from motionclone_tpu_torch.config import InferenceConfig, load_examples, load_in
 from motionclone_tpu_torch.pipeline.runner import MotionCloneRuntime
 
 # flag -> (its default, why the port refuses another value)
+# (items are named by title, which a renumbering of the queue leaves alone)
 UNPORTED = {
-    "frame_shard": (0, "frame sharding from the CLI (torchrun, one rank per GPU) is "
-                       "ROADMAP.md queue 1 item 7; parallel/frames.py has the library path"),
+    "frame_shard": (0, "frame sharding from the CLI (torchrun, one rank per GPU) belongs "
+                       "to ROADMAP.md's \"Multi-device layouts from the CLI\"; "
+                       "parallel/frames.py has the library path"),
     "frame_shard_mode": ("shardmap", "the GSPMD frame-sharding flavour is not ported "
                                      "(ROADMAP.md queue 1, 'Do not port')"),
-    "cfg_pair": (False, "the cfg mesh axis is ROADMAP.md queue 1 item 7"),
+    "cfg_pair": (False, "the cfg mesh axis belongs to ROADMAP.md's \"Multi-device layouts "
+                        "from the CLI\""),
 }
 
 
@@ -244,6 +249,133 @@ def i2v_main(argv: Optional[Sequence[str]] = None):
                 f"i2v example has {len(example.condition_image_paths)} condition images "
                 f"but {len(example.image_index)} image_index entries: {example}")
     return run_serial(args, cfg, examples)
+
+
+def sweep_main(argv: Optional[Sequence[str]] = None):
+    """The sweep CLI: every example of ``--examples`` in batches of
+    ``--num-devices`` examples per sampling pass on this process's card
+    (``pipeline/sweep.py``); under ``--distributed`` (torchrun), or with
+    ``--num-processes N --process-id I``, this process sweeps its stride of
+    the examples only, share-nothing (``parallel/distributed.py``).
+    Returns (runtime, mp4 paths); a rank with no example returns (None, [])
+    without loading weights."""
+    from motionclone_tpu_torch.parallel.distributed import (
+        maybe_initialize_from_args,
+        partition_examples,
+    )
+    from motionclone_tpu_torch.pipeline.sweep import run_sweep
+
+    parser = build_parser("configs/t2v_camera.yaml", "configs/t2v_camera.jsonl")
+    parser.add_argument("--num-devices", type=int, default=0,
+                        help="examples per sampling pass, batched on this process's card "
+                             "(0: 1)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="multi-process sweep under torchrun (RANK, WORLD_SIZE, "
+                             "LOCAL_RANK): each process sweeps its stride of the examples "
+                             "on cuda:LOCAL_RANK, share-nothing, no collectives")
+    parser.add_argument("--coordinator", type=str, default="", metavar="HOST:PORT",
+                        help="implies --distributed; accepted for the JAX CLI's sake and "
+                             "never contacted (no process group is needed)")
+    parser.add_argument("--num-processes", type=int, default=0,
+                        help="distributed process count (with --process-id)")
+    parser.add_argument("--process-id", type=int, default=-1,
+                        help="this process's distributed rank (with --num-processes)")
+    args = parser.parse_args(argv)
+    _check_flags(args)
+    multi_process = maybe_initialize_from_args(args)
+    examples = load_examples(args.examples)
+    if multi_process:
+        examples = partition_examples(examples, args.process_id, args.num_processes)
+        print(f"process {args.process_id}/{args.num_processes}: {len(examples)} examples "
+              f"on {args.device}")
+        if not examples:
+            return None, []
+    else:
+        print(f"{len(examples)} examples on {args.device}")
+    runtime = _setup(args)
+    paths = run_sweep(
+        runtime, examples,
+        motion_rep_dir=args.motion_representation_save_dir,
+        output_dir=args.generated_videos_save_dir,
+        default_seed=args.default_seed,
+        config_root=args.config_root,
+        num_devices=args.num_devices,
+        resume=args.resume,
+    )
+    for p in paths:
+        print(p, "is done")
+    return runtime, paths
+
+
+def serve_main(argv: Optional[Sequence[str]] = None, ready=None) -> None:
+    """The warm-runtime HTTP job server (``serve.py``) on one card: the
+    weights load once, then jobs POSTed to ``/generate`` run one at a
+    time, or with ``--batch-max B`` up to B queued jobs at once through
+    the sweep (grouped by condition-image count; a lone job takes
+    ``run_example``).  ``ready(server)``, when given, is called once the
+    server listens; ``server.shutdown()`` from another thread then ends
+    the call."""
+    from motionclone_tpu_torch.config import Example
+    from motionclone_tpu_torch.pipeline.sweep import run_sweep
+    from motionclone_tpu_torch.serve import MotionCloneServer
+
+    parser = build_parser("configs/t2v_camera.yaml", "configs/t2v_camera.jsonl")
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--max-queue", type=int, default=64,
+                        help="maximum queued jobs before POST /generate returns 503")
+    parser.add_argument("--batch-max", type=int, default=0,
+                        help="throughput batching: drain up to this many queued jobs per "
+                             "pass and sample them as one batch (pipeline/sweep.py). "
+                             "0 = 1, the one card of this process: strictly serial")
+    parser.add_argument("--job-timeout", type=float, default=1800.0,
+                        help="per-job wall-clock bound in seconds: a job (or batch) "
+                             "exceeding it is failed and the queue keeps draining; its "
+                             "thread keeps the card until its call returns. 0 disables")
+    args = parser.parse_args(argv)
+    _check_flags(args)
+    runtime = _setup(args)
+    batch_max = max(args.batch_max, 1)
+    if args.frame_shard and batch_max > 1:
+        # a frame-sharded runtime serves one job at a time (the JAX
+        # package's rule; --frame-shard is refused above until it is ported)
+        print("--frame-shard set: forcing --batch-max 1")
+        batch_max = 1
+    where = dict(motion_rep_dir=args.motion_representation_save_dir,
+                 output_dir=args.generated_videos_save_dir, default_seed=args.default_seed,
+                 config_root=args.config_root, resume=args.resume)
+
+    def run_job(example_dict):
+        return runtime.run_example(Example.from_json(example_dict), **where)
+
+    run_jobs_batch = None
+    if batch_max > 1:
+        def run_jobs_batch(example_dicts):
+            examples = [Example.from_json(d) for d in example_dicts]
+            # a sweep takes one condition-image count: group, sweep each
+            # group as one batch, restore the order
+            groups = {}
+            for i, ex in enumerate(examples):
+                groups.setdefault(len(ex.condition_image_paths), []).append(i)
+            paths = [None] * len(examples)
+            for indices in groups.values():
+                group_paths = run_sweep(runtime, [examples[i] for i in indices],
+                                        num_devices=len(indices), **where)
+                for i, p in zip(indices, group_paths):
+                    paths[i] = p
+            return paths
+
+    server = MotionCloneServer(run_job, run_jobs_batch=run_jobs_batch, batch_max=batch_max,
+                               host=args.host, port=args.port, max_queue=args.max_queue,
+                               job_timeout=args.job_timeout or None)
+    print(f"motionclone-serve listening on http://{args.host}:{server.port} "
+          "(POST /generate, GET /jobs /health /metrics)", flush=True)
+    if ready is not None:
+        ready(server)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.shutdown()
 
 
 if __name__ == "__main__":

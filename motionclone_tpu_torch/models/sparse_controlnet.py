@@ -204,7 +204,7 @@ class SparseControlNetModel(nn.Module):
         encoder_hidden_states: torch.Tensor,  # (B or 1, L, cross_attention_dim)
         controlnet_cond: torch.Tensor,  # (B, F, H', W', conditioning_channels)
         conditioning_mask: Optional[torch.Tensor] = None,  # (B, F, H', W', 1)
-        conditioning_scale: float = 1.0,
+        conditioning_scale=1.0,  # a float, or (B, 1, 1, 1, 1): one per example
         impl: str = "flash",
     ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
         """Returns (down residuals, one per UNet skip; mid residual)."""

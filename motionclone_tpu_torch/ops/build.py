@@ -132,9 +132,27 @@ def load_library() -> ctypes.CDLL:
     return _library
 
 
+# the kernels take their dims, and count rows and elements, in 32-bit ints
+# (their pointer offsets are 64-bit): no tensor may hold 2**31 elements
+INT32_MAX = 2**31 - 1
+
+
+def check_extent(*tensors) -> None:
+    """Refuse, before a launch, a tensor whose element count a 32-bit int
+    cannot hold (a batch of many examples at full size)."""
+    for t in tensors:
+        if t is not None and t.numel() > INT32_MAX:
+            raise ValueError(
+                f"a tensor of shape {tuple(t.shape)} holds {t.numel()} elements: the "
+                f"kernels count elements in 32-bit ints, so they take at most {INT32_MAX}; "
+                f"run fewer examples per pass (--num-devices)")
+
+
 def pointers(*tensors) -> ctypes.Array:
     """A C array of the tensors' device pointers (None for a null pointer),
-    the first argument of the fused modules' entry points."""
+    the first argument of the fused modules' entry points; checks each
+    tensor's extent."""
+    check_extent(*tensors)
     return (ctypes.c_void_p * len(tensors))(
         *(None if t is None else t.data_ptr() for t in tensors)
     )
@@ -142,7 +160,10 @@ def pointers(*tensors) -> ctypes.Array:
 
 def ints(*values: int) -> ctypes.Array:
     """A C array of ints, the dims argument of the fused modules' entry
-    points."""
+    points (a value outside int32 raises: ctypes would wrap it)."""
+    for v in values:
+        if not -INT32_MAX - 1 <= v <= INT32_MAX:
+            raise ValueError(f"dim {v} does not fit the kernels' 32-bit ints")
     return (ctypes.c_int * len(values))(*values)
 
 

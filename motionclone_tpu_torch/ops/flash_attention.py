@@ -37,7 +37,7 @@ from typing import Tuple
 
 import torch
 
-from motionclone_tpu_torch.ops.build import check, load_library
+from motionclone_tpu_torch.ops.build import check, check_extent, load_library
 
 # head dims with a compiled kernel (SD1.5: 320/640/1280 channels, 8 heads)
 KERNEL_HEAD_DIMS = (40, 80, 160)
@@ -86,6 +86,7 @@ def flash_attention_bwd_plain(
 
 
 def _check_inputs(name: str, heads: int, *tensors: torch.Tensor) -> int:
+    check_extent(*tensors)
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")

@@ -38,7 +38,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from motionclone_tpu_torch.ops.build import check, load_library
+from motionclone_tpu_torch.ops.build import check, check_extent, load_library
 
 KERNEL_HEAD_DIMS = (40, 80, 160)
 KERNEL_FRAMES = 16  # k/v frames of both forms, q frames of the square form
@@ -169,6 +169,7 @@ def _check_inputs(name: str, heads: int, rect: bool,
                   qs: Sequence[torch.Tensor], kvs: Sequence[torch.Tensor]) -> int:
     """Validate tensors of q's shape (q, dout) and of k's (k, v) for the
     square or the rectangular kernel; returns the head dim."""
+    check_extent(*qs, *kvs)
     shape = qs[0].shape
     if len(shape) != 4 or any(t.shape != shape for t in qs) or any(
         t.shape != (shape[0], KERNEL_FRAMES, *shape[2:]) for t in kvs

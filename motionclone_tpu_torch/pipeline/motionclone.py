@@ -22,7 +22,9 @@ Port of the exact path of ``motionclone_tpu/pipeline/motionclone.py``
 With a ``controlnet`` (``models/sparse_controlnet.py``, the i2v workloads)
 each function takes ``cn_cond = (cond, mask, scale)``: the frame-scattered
 condition, its mask (``scatter_condition``) and the conditioning scale, a
-Python float; ``cn_cond=None`` means no conditioning.  The controlnet runs
+Python float or, for a batch of examples, one per example as a (B, 1, 1,
+1, 1) tensor (tiled over the CFG pair as the condition is);
+``cn_cond=None`` means no conditioning.  The controlnet runs
 without grad on the path of the passes that are not differentiated, so its
 residuals are constants of the guidance gradient, as in the JAX package:
 once per sampling step on the CFG pair (batch 2, the condition tiled over
@@ -50,7 +52,8 @@ its partial guidance loss; ``guided_step`` returns the loss summed over the
 ranks, outside autograd.  Sharding needs ``use_inflated_groupnorm`` and a
 ``video_length`` that the group's size divides; a group of size 1 runs
 unsharded.  A controlnet under a group of more than one rank raises: the
-frame-sharded controlnet is ROADMAP.md queue 1 item 7.
+frame-sharded controlnet belongs to ROADMAP.md's "Multi-device layouts from
+the CLI".
 
 The approx caches (the JAX package's ``--approx``; output-changing, opt-in
 through ``make_sampling_fns``'s ``uncond_interval``, ``guidance_interval``,
@@ -75,6 +78,9 @@ rerun continues from the last finished chunk, with the JAX package's keys
 group each rank keeps its own frames under ``<resume_path>.rank<r>.npz``,
 and the ranks continue only from one step that every rank's file holds.
 
+Every function takes a leading batch axis of B examples (the sweep's
+batches): the guidance loss sums a per-example mean, and
+:class:`MotionClonePipeline` draws each example's noise from its own seed.
 The lower-level functions take explicit noise and latents, so tests can
 feed numpy inputs.  Entry points run on CUDA unless ``device="cpu"`` is
 passed.
@@ -84,7 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -108,8 +114,11 @@ from motionclone_tpu_torch.parallel.frames import FrameGroup
 from motionclone_tpu_torch.utils import rng
 
 MotionRep = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
-# (frame-scattered condition, its mask, conditioning scale)
-CnCond = Tuple[torch.Tensor, torch.Tensor, float]
+# (frame-scattered condition, its mask, conditioning scale: a float, or a
+# (B, 1, 1, 1, 1) tensor of one scale per example)
+CnCond = Tuple[torch.Tensor, torch.Tensor, Union[float, torch.Tensor]]
+# one seed, or one per example of a batch
+Seeds = Union[int, Sequence[int]]
 
 
 def resolve_device(device) -> torch.device:
@@ -300,8 +309,9 @@ def make_sampling_fns(
     group = check_frame_group(frame_group, unet.cfg, infer_cfg)
     if controlnet is not None and group is not None:
         raise NotImplementedError(
-            "a controlnet under frame sharding is ROADMAP.md queue 1 item 7 (the "
-            "frame-sharded controlnet); run the i2v workloads unsharded")
+            "a controlnet under frame sharding belongs to ROADMAP.md's \"Multi-device "
+            "layouts from the CLI\" (the frame-sharded controlnet); run the i2v "
+            "workloads unsharded")
     device = unet.conv_in.weight.device
     plain_impl = resolve_impl(attention_impl, device)
     ddim = make_ddim_params(sched_cfg, device)
@@ -324,13 +334,16 @@ def make_sampling_fns(
 
     def residuals(latents, t: int, emb, cn_cond: Optional[CnCond]):
         """The controlnet's (down, mid) residuals for ``latents``, without
-        grad; the condition is tiled over a batch twice its own (the CFG
-        pair).  None without a controlnet or a condition."""
+        grad; the condition (and a per-example scale) is tiled over a batch
+        twice its own (the CFG pair).  None without a controlnet or a
+        condition."""
         if controlnet is None or cn_cond is None:
             return None
         cond, mask, scale = cn_cond
         if latents.shape[0] == 2 * cond.shape[0]:
             cond, mask = torch.cat([cond, cond]), torch.cat([mask, mask])
+            if torch.is_tensor(scale):
+                scale = torch.cat([scale, scale])
         with torch.no_grad():
             return controlnet(latents, t, emb, cond, mask, scale, impl=plain_impl)
 
@@ -628,7 +641,9 @@ class MotionClonePipeline:
     moved to the device and dtype before it conditions a pass.  Every noise tensor is drawn by
     ``utils.rng.draw_normal`` in its own domain of the seed (the VAE
     posterior, the extraction noise, the initial latents), so one seed gives
-    three independent draws.  Under a frame group every rank draws the
+    three independent draws.  A batch of B examples passes B seeds: each
+    example's noise is the draw of its own seed at batch 1, stacked, as the
+    JAX package's sweep draws it.  Under a frame group every rank draws the
     global noise from the seed and takes its frames, so sharded and
     unsharded runs start from the same tensors; the text encoder and the
     VAE run unsharded (:meth:`gather_latents` before the decode).
@@ -679,24 +694,38 @@ class MotionClonePipeline:
         """Token ids (B, 77) -> text embeddings (B, 77, hidden)."""
         return self.text_encoder(input_ids.to(self.device))
 
+    def _draw(self, shape, seed: Seeds, domain: int) -> torch.Tensor:
+        """``shape``'s noise in ``domain``: of ``seed``, or with one seed
+        per example, each example's draw at batch 1, stacked."""
+        if isinstance(seed, (int, np.integer)):
+            return rng.draw_normal(shape, seed, domain, self.device)
+        if len(seed) != shape[0]:
+            raise ValueError(f"{len(seed)} seeds for a batch of {shape[0]}")
+        return torch.cat([rng.draw_normal((1,) + tuple(shape[1:]), s, domain, self.device)
+                          for s in seed])
+
     @torch.no_grad()
-    def encode_video(self, video: torch.Tensor, seed: int,
+    def encode_video(self, video: torch.Tensor, seed: Seeds,
                      domain: int = rng.VAE_POSTERIOR) -> torch.Tensor:
         """Pixels (F, H, W, 3) in [-1, 1] -> scaled latents (1, F, h, w, 4)
         with a posterior draw in ``domain`` of ``seed`` (the reference
         video's by default; the i2v condition images' is
-        ``rng.CN_IMAGE_POSTERIOR``)."""
+        ``rng.CN_IMAGE_POSTERIOR``); a batch (B, F, H, W, 3) takes one seed
+        per example."""
         from motionclone_tpu_torch.models.vae import sample_latents
 
-        x = video.to(device=self.device, dtype=self.dtype)[None]
+        x = video.to(device=self.device, dtype=self.dtype)
+        if x.dim() == 4:
+            x = x[None]
         mean, logvar = self.vae.encode(x)
-        eps = rng.draw_normal(mean.shape, seed, domain, self.device)
+        eps = self._draw(mean.shape, seed, domain)
         z = sample_latents(mean, logvar, eps)
         return z * self.vae.cfg.scaling_factor
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """Latents (1, F, h, w, 4) -> pixels (F, H, W, 3) in [-1, 1]."""
+        """Latents (1, F, h, w, 4) -> pixels (F, H, W, 3) in [-1, 1] (one
+        example: a batch decodes each example's slice)."""
         z = latents.to(self.dtype) / self.vae.cfg.scaling_factor
         return self.vae.decode(z)[0]
 
@@ -711,43 +740,49 @@ class MotionClonePipeline:
             return None
         cond, mask, scale = cn_cond
         mv = lambda x: x.to(device=self.device, dtype=self.dtype)
-        return mv(cond), mv(mask), float(scale)
+        return mv(cond), mv(mask), mv(scale) if torch.is_tensor(scale) else float(scale)
 
     def extract_motion_representation(
-        self, video_latents: torch.Tensor, uncond_emb: torch.Tensor, seed: int,
+        self, video_latents: torch.Tensor, uncond_emb: torch.Tensor, seed: Seeds,
         cn_cond: Optional[CnCond] = None,
     ) -> MotionRep:
         """One truncated forward on the full video's latents -> the sparse
-        motion representation (the rank's query frames when sharded)."""
-        noise = rng.draw_normal(video_latents.shape, seed, rng.EXTRACT_NOISE, self.device)
+        motion representation (the rank's query frames when sharded); a
+        batch takes one seed per example."""
+        noise = self._draw(video_latents.shape, seed, rng.EXTRACT_NOISE)
         return self.fns.extract(video_latents.to(self.dtype), noise.to(self.dtype),
                                 uncond_emb.to(self.dtype), self._cn_cond(cn_cond))
 
-    def initial_latents(self, seed: int) -> torch.Tensor:
+    def initial_latents(self, seed: Seeds) -> torch.Tensor:
         """The initial latents drawn from ``seed``: the whole video's noise
-        (1, F, h, w, 4), or the rank's frames of it when sharded."""
+        (1, F, h, w, 4), or the rank's frames of it when sharded; with one
+        seed per example, (B, F, h, w, 4)."""
         cfg = self.infer_cfg
-        shape = (1, cfg.video_length, cfg.height // 8, cfg.width // 8,
+        b = 1 if isinstance(seed, (int, np.integer)) else len(seed)
+        shape = (b, cfg.video_length, cfg.height // 8, cfg.width // 8,
                  self.unet_cfg.in_channels)
-        latents = rng.draw_normal(shape, seed, rng.INIT_LATENTS, self.device).to(self.dtype)
+        latents = self._draw(shape, seed, rng.INIT_LATENTS).to(self.dtype)
         if self.fns.frame_group is not None:
             latents = self.fns.frame_group.local_frames(latents)
         return latents
 
     def sample_latents(
         self, uncond_emb: torch.Tensor, cond_emb: torch.Tensor,
-        motion_rep: MotionRep, seed: int,
+        motion_rep: MotionRep, seed: Seeds,
         on_step: Optional[Callable[[int, bool], None]] = None,
         cn_cond: Optional[CnCond] = None,
         resume_path: Optional[str] = None,
         on_chunk: Optional[Callable[[int, int], None]] = None,
         chunk_steps: int = 50,
+        resume_tag: str = "",
     ) -> torch.Tensor:
-        """Guided DDIM sampling from seeded noise -> final latents (the
-        rank's frames when sharded); ``resume_path``, ``on_chunk`` and
-        ``chunk_steps`` are those of the sampling functions' ``sample``."""
+        """Guided DDIM sampling from seeded noise (one seed per example of
+        a batch) -> final latents (the rank's frames when sharded);
+        ``resume_path``, ``resume_tag``, ``on_chunk`` and ``chunk_steps``
+        are those of the sampling functions' ``sample``."""
         latents = self.initial_latents(seed)
         return self.fns.sample(latents, uncond_emb.to(self.dtype),
                                cond_emb.to(self.dtype), motion_rep, on_step=on_step,
                                cn_cond=self._cn_cond(cn_cond), chunk_steps=chunk_steps,
-                               resume_path=resume_path, on_chunk=on_chunk)
+                               resume_path=resume_path, on_chunk=on_chunk,
+                               resume_tag=resume_tag)

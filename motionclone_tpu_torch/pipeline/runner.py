@@ -105,6 +105,15 @@ def _validate_motion_representation(rep, path: str, cfg: InferenceConfig) -> Non
                 f"the config expects video_length={cfg.video_length}")
 
 
+def output_name(example: Example, seed: int, positive_prompt: str) -> str:
+    """The reference's mp4 name: the video's stem, the prompt with the
+    positive suffix, the seed twice (the motion seed and the sampling seed,
+    which the reference takes equal)."""
+    stem = os.path.splitext(os.path.basename(example.video_path))[0]
+    prompt = example.new_prompt + positive_prompt
+    return stem + "_" + prompt.strip().replace(" ", "_") + str(seed) + "_" + str(seed) + ".mp4"
+
+
 def _asset(config_root: str, path: str) -> str:
     return os.path.join(config_root, path) if path else ""
 
@@ -267,10 +276,11 @@ class MotionCloneRuntime:
 
     # -- latents ----------------------------------------------------------
 
-    def encode_video(self, video: np.ndarray, seed: int,
+    def encode_video(self, video: np.ndarray, seed,
                      domain: int = rng.VAE_POSTERIOR) -> torch.Tensor:
         """Pixels (F, H, W, 3) in [-1, 1] -> scaled latents (1, F, h, w, 4)
-        with a posterior draw in ``domain`` of ``seed``."""
+        with a posterior draw in ``domain`` of ``seed``; a batch (B, F, H,
+        W, 3) takes one seed per example."""
         return self.pipeline.encode_video(torch.from_numpy(np.ascontiguousarray(video)), seed,
                                           domain)
 
@@ -315,6 +325,54 @@ class MotionCloneRuntime:
         video = self.pipeline.decode_latents(latents)
         video01 = (video.float() / 2 + 0.5).clamp(0.0, 1.0)
         return torch.round(video01 * 255.0).to(torch.uint8).cpu().numpy()
+
+    def sample_timed(self, uncond_emb, cond_emb, rep, seed, cn_cond, resume_path,
+                     timings: Dict[str, object], log, resume_tag: str = "") -> torch.Tensor:
+        """``pipeline.sample_latents`` (one seed, or one per example of a
+        batch) with each step timed: fills ``timings["sample"]`` (wall
+        seconds) and the milliseconds of each guided and vanilla step, full
+        and skip steps apart, and logs their medians.  On a card each
+        step's end is a CUDA event, read after the one synchronisation at
+        the end, so the host never waits inside the loop."""
+        cfg = self.infer_cfg
+        cuda = self.device.type == "cuda"
+
+        def mark():
+            if not cuda:
+                return time.perf_counter()
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(torch.cuda.current_stream(self.device))
+            return event
+
+        marks = []
+        self._sync()
+        t0 = time.perf_counter()
+        start = mark()
+        latents = self.pipeline.sample_latents(
+            uncond_emb, cond_emb, rep, seed=seed,
+            on_step=lambda i, guided: marks.append((i, guided, mark())), cn_cond=cn_cond,
+            resume_path=resume_path, resume_tag=resume_tag)
+        self._sync()
+        timings["sample"] = time.perf_counter() - t0
+        full = self.pipeline.fns.schedule().full
+        steps = {key: [] for key in ("guided_ms", "guided_skip_ms", "vanilla_ms",
+                                     "vanilla_skip_ms")}
+        for i, guided, end in marks:
+            key = ("guided" if guided else "vanilla") + ("_ms" if full[i] else "_skip_ms")
+            steps[key].append(start.elapsed_time(end) if cuda else (end - start) * 1e3)
+            start = end
+        timings.update(steps)
+        median = lambda ms: f"{statistics.median(ms):.1f}" if ms else "-"
+        log(f"guided sampling ({cfg.inference_steps} steps, {cfg.guidance_steps} guided): "
+            f"{timings['sample']:.1f}s; median ms per guided step "
+            f"{median(steps['guided_ms'])} (skip steps {median(steps['guided_skip_ms'])}), "
+            f"per vanilla step {median(steps['vanilla_ms'])} "
+            f"(skip steps {median(steps['vanilla_skip_ms'])})")
+        return latents
+
+    def write_latents(self, path: str, latents: torch.Tensor) -> None:
+        """Decode one example's latents (1, F, h, w, 4) and write the mp4."""
+        write_video(path, self.decode_latents(latents), fps=8)
 
     # -- one example ------------------------------------------------------
 
@@ -406,50 +464,16 @@ class MotionCloneRuntime:
             self._sync()
             timings["condition"] = time.perf_counter() - t0
             log(f"condition images: {timings['condition']:.2f}s")
-        out_name = (stem + "_" + new_prompt.strip().replace(" ", "_")
-                    + str(seed_motion) + "_" + str(seed) + ".mp4")
+        out_name = output_name(example, seed, cfg.positive_prompt)
         out_path = os.path.join(output_dir, out_name)
-        # each step's end is marked without blocking the host: a CUDA event
-        # on the card, read after the one synchronisation at the end
-        cuda = self.device.type == "cuda"
-
-        def mark():
-            if not cuda:
-                return time.perf_counter()
-            event = torch.cuda.Event(enable_timing=True)
-            event.record(torch.cuda.current_stream(self.device))
-            return event
-
         resume_path = (os.path.join(output_dir, ".resume_" + out_name + ".npz")
                        if resume else None)
-        marks = []
-        self._sync()
-        t0 = time.perf_counter()
-        start = mark()
-        latents = self.pipeline.sample_latents(
-            uncond_emb, cond_emb, rep, seed=seed,
-            on_step=lambda i, guided: marks.append((i, guided, mark())), cn_cond=cn_cond,
-            resume_path=resume_path)
-        self._sync()
-        timings["sample"] = time.perf_counter() - t0
-        full = self.pipeline.fns.schedule().full
-        steps = {key: [] for key in ("guided_ms", "guided_skip_ms", "vanilla_ms",
-                                     "vanilla_skip_ms")}
-        for i, guided, end in marks:
-            key = ("guided" if guided else "vanilla") + ("_ms" if full[i] else "_skip_ms")
-            steps[key].append(start.elapsed_time(end) if cuda else (end - start) * 1e3)
-            start = end
-        timings.update(steps)
-        median = lambda ms: f"{statistics.median(ms):.1f}" if ms else "-"
-        log(f"guided sampling ({cfg.inference_steps} steps, {cfg.guidance_steps} guided): "
-            f"{timings['sample']:.1f}s; median ms per guided step "
-            f"{median(steps['guided_ms'])} (skip steps {median(steps['guided_skip_ms'])}), "
-            f"per vanilla step {median(steps['vanilla_ms'])} "
-            f"(skip steps {median(steps['vanilla_skip_ms'])})")
+        latents = self.sample_timed(uncond_emb, cond_emb, rep, seed, cn_cond, resume_path,
+                                    timings, log)
 
         # 3. decode and write the video
         t0 = time.perf_counter()
-        write_video(out_path, self.decode_latents(latents), fps=8)
+        self.write_latents(out_path, latents)
         timings["decode_write"] = time.perf_counter() - t0
         log(f"decode + write: {timings['decode_write']:.1f}s")
         return out_path

@@ -290,7 +290,7 @@ def test_controlnet_residuals_carry_no_gradient(unet_pair, models, monkeypatch):
 
 def test_controlnet_under_a_frame_group_raises(unet_pair, models):
     group = FrameGroup(rank=0, size=2, backend="gloo")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="Multi-device layouts from the CLI"):
         t_make_fns(unet_pair[2], tcfg.NoiseScheduleConfig(), _infer(tcfg),
                    frame_group=group, controlnet=models["latent"][2])
 
