@@ -80,8 +80,9 @@ Phase 6  frame sharding: the main path of phase 3 (VAE decode on rank 0)
          must launch the predicted counts, 3r and 4r among them; rank 0's
          gathered latents, motion representation and summed loss must agree
          with phase 3's run within SHARD_TOLS, printed beside the rounding
-         control.  ``--sharded-only`` runs phases 0, 1 and 6 (with the
-         unsharded run it compares with) and prints no kernels line.
+         control.  ``--sharded-only`` runs phases 0, 1, 6 and 11 (with the
+         unsharded run they compare with; phase 11 then writes its model
+         directory itself) and prints no kernels line.
 
 Phase 7  the t2v CLI: the port's ``cli.t2v_main`` on the card, as a user runs
          it, from a model directory written to a temporary directory: phase
@@ -166,6 +167,27 @@ Phase 10 the sweep and the server, on phases 7-9's model directory and
          video, ``/health`` and ``/metrics`` read; then the server is
          stopped and every thread it started joined.  Each cut run prints
          a line saying so.
+Phase 11 the multi-device layouts through the CLIs, each run ``python3 -m
+         torch.distributed.run --standalone --nproc-per-node R`` over this
+         script in its ``--layout-rank`` mode (which calls the CLI with the
+         launch counts set to 0 just before and read just after), at
+         ``--frame-shard 2 --dist-backend gloo --device cuda:0`` (ranks
+         sharing card 0: no speed figure; ``--backend nccl``: ``--device
+         cuda``, one card per rank, which (b) and (d) need 4 of) on phases
+         7-10's model directory and weights cache, every schedule cut to
+         LAYOUT_CUT, phase 3's 4 steps (a line says so): (a) ``t2v_main`` (2 ranks), (b)
+         ``t2v_main --cfg-pair`` (4 ranks: (cfg, frames)), (c) ``i2v_main``
+         i2v_rgb (2 ranks; the controlnet's motion modules on kernel 3r),
+         (d) ``sweep_main`` on 2 examples (4 ranks: data 2 x frames 2), (e)
+         ``serve_main`` with one job POSTed to rank 0's server, which is
+         then stopped.  Each rank's launches must equal
+         ``predicted_layout_launches`` (its CFG half's under (b)); every
+         rank of a video must gather the same latents, within SHARD_TOLS
+         of the unsharded CLI run at the same cut (run first, in this
+         process), printed beside phase 3's rounding control; each example
+         one 16 x 512 x 512 x 3 uint8 mp4, not constant, under the
+         reference's name; (e) equal to (a) bit for bit (or within
+         RERUN_TOL, said so); torchrun must exit 0 and leave no process.
 
 The line before the last is the kernels JSON; the last line is the result
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -2928,6 +2950,338 @@ def sweep_cli(dev, wrappers, card: str, root: str, t2v: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the multi-device layouts through the CLIs under torchrun
+# ---------------------------------------------------------------------------
+
+# every run of phase 11 (and its unsharded references) cuts the schedule to
+# phase 3's: 4 steps, 2 guided, warm-up and cool-down 1 (at 10 steps, 5
+# guided, phase 11 took 504 s of the script's 1200 on one H100 80GB HBM3:
+# each gloo step waits seconds on the host's collectives; PERF.md)
+LAYOUT_CUT = {"inference_steps": 4, "guidance_steps": 2, "warm_up_steps": 1,
+              "cool_up_steps": 1}
+LAYOUT_SHARDS = 2  # --frame-shard of every run
+# one controlnet pass per rank of a frame-sharded run: its motion modules
+# gather their keys and values, so PREDICTED_CONTROLNET_LAUNCHES' 4 launches
+# of kernel 7 and 4 of kernel 3 become 8 of kernel 3r (one attention block)
+PREDICTED_SHARDED_CONTROLNET_LAUNCHES = {
+    "fused_spatial_transformer": 4, "fused_resnet_block": 5, "flash_fwd": 3,
+    "temporal_fwd_rect": 8,
+}
+LAYOUT_RUN_TIMEOUT_S = 400.0
+
+
+def predicted_layout_launches(guided: int, vanilla: int, extraction: bool, controlnet: bool,
+                              half=None) -> dict:
+    """One rank's launches in a frame-sharded CLI run at the exact schedule
+    (``guided`` + ``vanilla`` steps) from PREDICTED_SHARDED_LAUNCHES:
+    extraction where it ran, and per step the controlnet pass (i2v) and the
+    rank's passes.  ``half``: None where the rank runs both CFG halves, 0
+    or 1 its half under --cfg-pair (the unconditional half runs one plain
+    forward per guided step, the conditional half the guidance pass; each
+    half a plain forward per vanilla step: a pass launches alike at batch
+    1 and 2)."""
+    out = {}
+    for name, (ext, per_g, per_v) in PREDICTED_SHARDED_LAUNCHES.items():
+        cn = PREDICTED_SHARDED_CONTROLNET_LAUNCHES.get(name, 0) if controlnet else 0
+        step = {None: per_g, 0: per_v, 1: per_g - per_v}[half]
+        out[name] = ((ext + cn) if extraction else 0) + guided * (cn + step) \
+            + vanilla * (cn + per_v)
+    return out
+
+
+def layout_rank_main(kind: str, result_dir: str, argv: list) -> int:
+    """One rank of a phase-11 run (``chip_smoke.py --layout-rank KIND
+    --result-dir DIR -- ARGV`` under torchrun): the CLI ``kind`` (t2v, i2v,
+    sweep or serve) on ARGV with every launch count set to 0 just before
+    and read just after; writes the rank's counts, gathered latents,
+    timings and memory to DIR/rank<r>.pt."""
+    from motionclone_tpu_torch import cli
+    from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    stubbed = stub_codec(reference_clip(16, 512))
+    wrappers = kernel_wrappers()
+    gathered, runtimes = [], []
+    gather, setup = MotionClonePipeline.gather_latents, cli._setup
+
+    def spy_gather(self, latents):
+        out = gather(self, latents)
+        gathered.append(out.float().cpu())
+        return out
+
+    def spy_setup(*args, **kwargs):
+        runtimes.append(setup(*args, **kwargs))
+        return runtimes[-1]
+
+    MotionClonePipeline.gather_latents, cli._setup = spy_gather, spy_setup
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served = None
+    if kind == "serve":
+        with open(os.path.join(result_dir, "job.json")) as fh:
+            served = serve_one_job(cli, argv, json.load(fh)) if rank == 0 else \
+                cli.serve_main(argv)
+        paths = [] if served is None else [served["record"]["output_path"]]
+    else:
+        main = {"t2v": cli.t2v_main, "i2v": cli.i2v_main, "sweep": cli.sweep_main}[kind]
+        _, paths = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rt = runtimes[-1]
+    layout = rt.layout
+    timings = {k: v for k, v in rt.timings.items()}
+    torch.save(dict(
+        rank=rank, launches={n: w.launches for n, w in wrappers.items()},
+        latents=gathered, paths=paths, seconds=seconds, load_seconds=rt.load_seconds,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, timings=timings,
+        half=None if layout.pair is None else layout.pair.rank,
+        data_index=layout.data_index, lead=layout.is_lead, served=served,
+        written=stubbed if layout.is_lead else None,
+    ), os.path.join(result_dir, f"rank{rank}.pt"))
+    return 0
+
+
+def serve_one_job(cli, argv: list, job: dict) -> dict:
+    """Rank 0 of phase 11(e): ``cli.serve_main`` in a thread, ``job``
+    POSTed to it, its record once done, then the server stopped and the
+    thread joined."""
+    import threading
+
+    servers = []
+    main = threading.Thread(target=cli.serve_main, kwargs=dict(argv=argv, ready=servers.append))
+    main.start()
+    t0 = time.perf_counter()
+    while not servers and main.is_alive() and time.perf_counter() - t0 < 120:
+        time.sleep(0.05)
+    if not servers:
+        raise AssertionError("serve (e): the server did not start")
+    try:
+        code, body = http(servers[0].port, "/generate", job)
+        if code != 202:
+            raise AssertionError(f"serve (e): POST answered {code} {body}")
+        record = wait_job(servers[0].port, body["job_id"], ("done", "failed"), 300)
+    finally:
+        servers[0].shutdown()
+        main.join(timeout=60)
+    return {"record": record, "joined": not main.is_alive()}
+
+
+def run_layout(tag: str, kind: str, ranks: int, argv: list, root: str, job=None) -> tuple:
+    """``kind``'s CLI on ``argv`` under ``python3 -m torch.distributed.run
+    --standalone --nproc-per-node ranks``, each rank this script in
+    ``--layout-rank`` mode; returns every rank's result (rank order) and the
+    seconds of the call.  Raises with the output's end if torchrun fails or
+    outlives LAYOUT_RUN_TIMEOUT_S, or if a process of the call is left."""
+    import signal
+
+    out = os.path.join(root, "ranks_" + tag.split()[0].strip("()"))
+    os.makedirs(out)
+    if job is not None:
+        with open(os.path.join(out, "job.json"), "w") as fh:
+            json.dump(job, fh)
+    here = os.path.abspath(__file__)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(ranks), here, "--layout-rank", kind, "--result-dir", out, "--"] + argv
+    logpath = os.path.join(out, "log.txt")
+    t0 = time.perf_counter()
+    with open(logpath, "w") as fh:
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(here), start_new_session=True)
+        try:
+            code = proc.wait(timeout=LAYOUT_RUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            code = "killed at the time limit"
+    seconds = time.perf_counter() - t0
+    with open(logpath) as fh:
+        text = fh.read()
+    left = [cmd for _, cmd in descendants() if "--layout-rank" in cmd]
+    if code != 0 or left:
+        raise AssertionError(f"{tag}: torchrun exited {code} after {seconds:.1f} s; processes "
+                             f"left: {left}\n{text[-8000:]}")
+    for line in text.splitlines():
+        if line.startswith(("[reference", "[sweep")) or line.endswith("is done"):
+            log(f"  {tag} | {line}")
+    results = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+               for r in range(ranks)]
+    return results, seconds
+
+
+def check_layout_run(tag: str, results: list, seconds: float, refs: list, control: float,
+                     controlnet: bool, card: str, root: str, out: str, names: list,
+                     stubbed) -> list:
+    """Phase 11's checks of one run: each rank's launches against
+    ``predicted_layout_launches`` (3r at least once); every rank of a video
+    gathered the same latents, within SHARD_TOLS of the unsharded run at the
+    same cut (``refs``: one per data group's example), printed beside phase
+    3's rounding control; one 16 x 512 x 512 x 3 uint8 video per example,
+    not constant, under the reference's name.  Returns each data group's
+    latents."""
+    g = LAYOUT_CUT["guidance_steps"]
+    v = LAYOUT_CUT["inference_steps"] - g
+    faults, median = [], (lambda ms: sorted(ms)[len(ms) // 2] if ms else float("nan"))
+    log(f"{tag}: {len(results)} ranks, {seconds:.1f} s of torchrun [{card}]")
+    for res in results:
+        r, t = res["rank"], res["timings"]
+        want = predicted_layout_launches(g, v, "extract" in t, controlnet, res["half"])
+        differs = [f"{n} {res['launches'][n]}/{want[n]}" for n in want
+                   if res["launches"][n] != want[n]]
+        if differs or res["launches"]["temporal_fwd_rect"] < 1:
+            faults.append(f"rank {r} launches (measured/predicted) {differs}")
+        log(f"{tag} rank {r} (data group {res['data_index']}, "
+            f"{'both CFG halves' if res['half'] is None else ('uncond', 'cond')[res['half']] + ' half'}): "
+            f"launches {'as predicted' if not differs else 'DIFFER: ' + ', '.join(differs)} "
+            f"(3r {res['launches']['temporal_fwd_rect']}, 4r "
+            f"{res['launches']['temporal_bwd_rect']}, extraction "
+            f"{'ran' if 'extract' in t else 'cached'}); load {res['load_seconds']:.1f} s, CLI "
+            f"{res['seconds']:.1f} s, sampling {t['sample']:.2f} s, ms per guided step median "
+            f"{median(t['guided_ms']):.1f}, per vanilla step {median(t['vanilla_ms']):.1f}; "
+            f"peak {res['peak_gb']:.2f} GB")
+    latents = {}
+    for res in results:
+        got = res["latents"][-1]
+        first = latents.setdefault(res["data_index"], got)
+        if not torch.equal(got, first):
+            faults.append(f"rank {res['rank']} gathered other latents than its video's lead")
+    for d, got in sorted(latents.items()):
+        rel = rel_l2(got, refs[d])
+        ok = rel <= SHARD_TOLS["latents_rel_l2"]
+        log(f"{tag} example {d + 1} against the unsharded CLI run at the same cut: final "
+            f"latents relative L2 {rel:.4e} (tol {SHARD_TOLS['latents_rel_l2']:g}) "
+            f"{'OK' if ok else 'FAIL'}; phase 3's bf16 rounding control {control:.4e}")
+        if not ok:
+            faults.append(f"example {d + 1} latents relative L2 {rel}")
+    if faults:
+        raise AssertionError(f"{tag}: " + "; ".join(faults))
+    written = {}
+    for res in results:
+        written.update(res["written"] or {})
+    paths = sorted(p for res in results if res["lead"] for p in res["paths"])
+    want_paths = sorted(os.path.join(root, out, n) for n in names)
+    mp4s = sorted(os.path.join(root, out, n) for n in os.listdir(os.path.join(root, out))
+                  if n.endswith(".mp4")) if stubbed is None else sorted(written)
+    if paths != want_paths or mp4s != want_paths:
+        raise AssertionError(f"{tag}: wrote {mp4s} (leads report {paths}), not {want_paths}")
+    for path in paths:
+        check_video(tag, read_output([path], written if stubbed is not None else None), 16, 512)
+    return [latents[d] for d in sorted(latents)]
+
+
+def layouts_cli(dev, wrappers, card: str, root: str, reference: dict, backend: str) -> None:
+    """Phase 11: the CLIs under torchrun at --frame-shard 2 on phases 7-10's
+    model directory in ``root`` (written here where it is not there, as
+    under --sharded-only), schedules cut to LAYOUT_CUT: (a) t2v (2 ranks),
+    (b) t2v with --cfg-pair (4), (c) i2v_rgb (2; the controlnet's 3r), (d)
+    the sweep of 2 examples (4: data 2), (e) the server with one job (2),
+    each against the unsharded CLI run at the same cut, (e) against (a)."""
+    import shutil
+
+    from motionclone_tpu_torch import cli
+
+    side, frames = 512, 16
+    clip = reference_clip(frames, side)
+    stubbed = stub_codec(clip)
+    t0 = time.perf_counter()
+    if not os.path.exists(os.path.join(root, "t2v.yaml")):
+        saved = write_model_dir(root, dev, sd15_configs())
+        if stubbed is None:
+            from motionclone_tpu_torch.io import video as video_io
+
+            video_io.write_video(os.path.join(root, "reference.mp4"), clip, fps=8)
+        write_adapter_lora(root, saved["unet"])
+        write_controlnet(root, dev, sd15_configs()[0], "rgb")
+        if stubbed is None:
+            write_png(os.path.join(root, "condition.png"), clip[0])
+        write_i2v_config(root, "rgb")
+        del saved
+        torch.cuda.empty_cache()
+        log(f"layouts: model directory written in {time.perf_counter() - t0:.1f} s")
+    if stubbed is None and not os.path.exists(os.path.join(root, "reference_b.mp4")):
+        shutil.copy(os.path.join(root, "reference.mp4"), os.path.join(root, "reference_b.mp4"))
+    t2v_cut = write_cut_yaml(os.path.join(root, "t2v.yaml"),
+                             os.path.join(root, "t2v_layout.yaml"), LAYOUT_CUT)
+    i2v_cut = write_cut_yaml(os.path.join(root, "i2v_rgb.yaml"),
+                             os.path.join(root, "i2v_rgb_layout.yaml"), LAYOUT_CUT)
+    examples = [{"video_path": v, "new_prompt": p, "seed": s} for v, p, s in SWEEP_EXAMPLES]
+    ex = {"one": write_examples(os.path.join(root, "examples_11.jsonl"), examples[:1]),
+          "second": write_examples(os.path.join(root, "examples_11b.jsonl"), examples[1:]),
+          "sweep": write_examples(os.path.join(root, "examples_11d.jsonl"), examples),
+          "i2v": write_examples(os.path.join(root, "examples_11c.jsonl"), [
+              {"video_path": "reference.mp4", "new_prompt": I2V_PROMPTS["rgb"],
+               "condition_image_paths": ["condition.png"], "image_index": [0]}])}
+    wc = os.path.join(root, "weights_cache")
+
+    def argv(out, reps, cfg=t2v_cut, examples=ex["one"], i2v=False):
+        base = (i2v_argv(root, "rgb", dev, out) if i2v else t2v_argv(root, dev, out))
+        return base + ["--inference_config", cfg, "--examples", examples, "--weights-cache", wc,
+                       "--motion-representation-save-dir", os.path.join(root, reps)]
+
+    layout = ["--frame-shard", str(LAYOUT_SHARDS), "--dist-backend", backend] + (
+        ["--device", "cuda:0"] if backend == "gloo" else ["--device", "cuda"])
+    where = ("ranks sharing card 0 over gloo, every gather staged through host memory: no "
+             "speed figure" if backend == "gloo" else "one card per rank over nccl")
+    cut = (f"schedules cut from configs/t2v_camera.yaml's 100 steps (50 guided) and "
+           f"configs/i2v_rgb.yaml's 100 (40 guided) to {LAYOUT_CUT['inference_steps']} "
+           f"({LAYOUT_CUT['guidance_steps']} guided, warm-up and cool-down "
+           f"{LAYOUT_CUT['warm_up_steps']}: phase 3's)")
+    log(f"layouts: --frame-shard {LAYOUT_SHARDS} through the CLIs under torchrun, {where}; "
+        f"{cut}")
+    # the unsharded CLI runs at the same cut, in this process
+    refs = {}
+    for key, main, args in (
+            ("t2v", cli.t2v_main, argv("out_11_ref", "reps_11_ref")),
+            ("second", cli.t2v_main, argv("out_11_ref", "reps_11_ref", examples=ex["second"])),
+            ("i2v", cli.i2v_main, argv("out_11_ref_i2v", "reps_11_ref_i2v", i2v_cut,
+                                       ex["i2v"], True))):
+        run = run_cli(main, args, wrappers)
+        refs[key] = run["latents"]
+        log(f"layouts: unsharded {key} run at the cut {run['seconds']:.1f} s, sampling "
+            f"{run['rt'].timings['sample']:.2f} s, peak {run['peak_gb']:.2f} GB [{card}]")
+        del run
+        torch.cuda.empty_cache()
+    control = deviations(reference["control"], reference)["latents_rel_l2"]
+    names = [sweep_name(v, p, s, positive_prompt(t2v_cut)) for v, p, s in SWEEP_EXAMPLES]
+    t2v_name = names[0]
+    i2v_name = sweep_name("reference.mp4", I2V_PROMPTS["rgb"], 76739, positive_prompt(i2v_cut))
+
+    a = check_layout_run("(a) t2v --frame-shard 2", *run_layout(
+        "(a) t2v", "t2v", 2, argv("out_11a", "reps_11a") + layout, root),
+        [refs["t2v"]], control, False, card, root, "out_11a", [t2v_name], stubbed)
+    check_layout_run("(b) t2v --frame-shard 2 --cfg-pair", *run_layout(
+        "(b) t2v", "t2v", 4, argv("out_11b", "reps_11a") + layout + ["--cfg-pair"], root),
+        [refs["t2v"]], control, False, card, root, "out_11b", [t2v_name], stubbed)
+    check_layout_run("(c) i2v_rgb --frame-shard 2", *run_layout(
+        "(c) i2v", "i2v", 2, argv("out_11c", "reps_11c", i2v_cut, ex["i2v"], True) + layout,
+        root), [refs["i2v"]], control, True, card, root, "out_11c", [i2v_name], stubbed)
+    check_layout_run("(d) sweep --frame-shard 2, data 2", *run_layout(
+        "(d) sweep", "sweep", 4, argv("out_11d", "reps_11a", examples=ex["sweep"]) + layout
+        + ["--num-devices", "1"], root), [refs["t2v"], refs["second"]], control, False, card,
+        root, "out_11d", names, stubbed)
+    results, seconds = run_layout("(e) serve", "serve", 2, argv("out_11e", "reps_11a") + layout
+                                  + ["--port", "0", "--batch-max", "2"], root, job=examples[0])
+    served = results[0]["served"]
+    if served["record"]["status"] != "done" or not served["joined"]:
+        raise AssertionError(f"serve (e): {served}")
+    e = check_layout_run("(e) serve --frame-shard 2, one job", results, seconds, [refs["t2v"]],
+                         control, False, card, root, "out_11e", [t2v_name], stubbed)
+    log(f"(e) serve: the job done in {served['record']['seconds']:.1f} s, the server stopped "
+        f"and its thread joined on rank 0, the other rank's loop ended")
+    same_or_close("(e) serve's latents against (a)'s", e[0], a[0])
+
+
+def positive_prompt(path: str) -> str:
+    """The positive prompt of a workload YAML (it enters the mp4 names)."""
+    from motionclone_tpu_torch.config import load_inference_config
+
+    return load_inference_config(path).positive_prompt
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3061,11 +3415,11 @@ def main() -> int:
     parser.add_argument("--shards", type=int, default=2,
                         help="frame shards of phase 6 (default 2)")
     parser.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
-                        help="phase 6's backend: gloo puts every rank on card 0, "
+                        help="phases 6 and 11's backend: gloo puts every rank on card 0, "
                              "nccl rank r on card r (default gloo)")
     parser.add_argument("--sharded-only", action="store_true",
-                        help="run phases 0, 1 and 6 only, with the unsharded run "
-                             "phase 6 compares with")
+                        help="run phases 0, 1, 6 and 11 only, with the unsharded run "
+                             "phases 6 and 11 compare with")
     args = parser.parse_args()
     # phase 0: device
     if not torch.cuda.is_available():
@@ -3104,6 +3458,13 @@ def main() -> int:
         t0 = time.perf_counter()
         sharded_path(dev, reference, args.shards, args.backend)
         log(f"phase sharded path: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="cli_") as root:
+            t0 = time.perf_counter()
+            layouts_cli(dev, wrappers, card, root, reference, args.backend)
+            log(f"phase layouts: {time.perf_counter() - t0:.1f} s")
         return finish(card)
 
     # phase 2: kernels against their plain versions
@@ -3156,6 +3517,11 @@ def main() -> int:
         sweep_cli(dev, wrappers, card, root, t2v)
         log(f"phase sweep and serve: {time.perf_counter() - t0:.1f} s")
         del t2v
+        torch.cuda.empty_cache()
+        # phase 11: the multi-device layouts through the CLIs under torchrun
+        t0 = time.perf_counter()
+        layouts_cli(dev, wrappers, card, root, reference, args.backend)
+        log(f"phase layouts: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3177,6 +3543,9 @@ def finish(card: str) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--layout-rank"]:
+        # one rank of a phase-11 run: --layout-rank KIND --result-dir DIR -- ARGV
+        sys.exit(layout_rank_main(sys.argv[2], sys.argv[4], sys.argv[6:]))
     adopt_orphans()
     try:
         code = main()

@@ -8,10 +8,22 @@ and defaults and one more, ``--device`` (``cuda`` by default; ``cpu`` runs
 the kernels' plain PyTorch versions).  ``--approx``
 (the approx caches, :func:`parse_approx`), ``--resume`` (per-chunk resume
 of sampling) and ``--weights-cache DIR`` (the converted-weights cache) work
-as in the JAX package.  Flags of the JAX package that the port does not
-have yet still parse: ``--frame-shard``, ``--frame-shard-mode`` and
-``--cfg-pair`` exit with a message naming their ``ROADMAP.md`` item when
-given another value than the default.  ``--attention-impl xla|chunked`` and
+as in the JAX package.
+
+``--frame-shard N`` and ``--cfg-pair`` are the JAX package's multi-device
+layouts, run under torchrun with one process per rank
+(``parallel/frames.Layout``): t2v, i2v and the server take a world of N
+ranks (2N with ``--cfg-pair``), the sweep any multiple of that, as data
+groups that share nothing.  ``--dist-backend`` names the process group's
+backend: ``nccl`` (the default; rank r on ``cuda:LOCAL_RANK``) or ``gloo``
+(ranks on the CPU, or sharing one card: ``--device cuda:K`` keeps every
+rank on card K); nothing switches it.  For example, on the CPU:
+
+    torchrun --nproc-per-node 2 -m motionclone_tpu_torch.cli \\
+        --frame-shard 2 --dist-backend gloo --device cpu ...
+
+``--frame-shard-mode gspmd`` (the JAX package's GSPMD flavour) exits,
+naming its ``ROADMAP.md`` list.  ``--attention-impl xla|chunked`` and
 ``--without-xformers`` select the port's unfused ("flash") path and say so;
 ``--visible_gpu`` and ``--compile-cache`` are accepted and print that they
 do nothing.
@@ -27,18 +39,12 @@ from typing import Optional, Sequence
 import torch
 
 from motionclone_tpu_torch.config import InferenceConfig, load_examples, load_inference_config
-from motionclone_tpu_torch.pipeline.runner import MotionCloneRuntime
+from motionclone_tpu_torch.pipeline.runner import MotionCloneRuntime, check_layout_flags
 
 # flag -> (its default, why the port refuses another value)
-# (items are named by title, which a renumbering of the queue leaves alone)
 UNPORTED = {
-    "frame_shard": (0, "frame sharding from the CLI (torchrun, one rank per GPU) belongs "
-                       "to ROADMAP.md's \"Multi-device layouts from the CLI\"; "
-                       "parallel/frames.py has the library path"),
     "frame_shard_mode": ("shardmap", "the GSPMD frame-sharding flavour is not ported "
                                      "(ROADMAP.md queue 1, 'Do not port')"),
-    "cfg_pair": (False, "the cfg mesh axis belongs to ROADMAP.md's \"Multi-device layouts "
-                        "from the CLI\""),
 }
 
 
@@ -73,11 +79,27 @@ def build_parser(default_config: str, default_examples: str,
                         help="checkpoint the sampling loop's latents after each chunk "
                              "(in the output directory) and continue an interrupted run "
                              "from the last finished chunk")
-    parser.add_argument("--frame-shard", type=int, default=0, metavar="N",
-                        help="not ported yet")
+    parser.add_argument(
+        "--frame-shard", type=int, default=0, metavar="N",
+        help="split the frame axis over N local devices (N must divide "
+        "--L). t2v/i2v: single-video latency scaling; sweeps: composes "
+        "with example data-parallelism over a (data, [cfg,] frames) mesh "
+        "(examples per batch = devices / N / cfg). The port runs one "
+        "process per device under torchrun --nproc-per-node")
     parser.add_argument("--frame-shard-mode", type=str, default="shardmap",
-                        choices=["shardmap", "gspmd"], help="not ported")
-    parser.add_argument("--cfg-pair", action="store_true", help="not ported yet")
+                        choices=["shardmap", "gspmd"],
+                        help="shardmap (the port's only flavour: explicit temporal-attention "
+                             "gathers, the fused kernels per rank); gspmd is not ported")
+    parser.add_argument(
+        "--cfg-pair", action="store_true",
+        help="split each classifier-free-guidance pair over a 'cfg' mesh "
+        "axis of size 2. With --frame-shard N: a composed (cfg, frames) "
+        "mesh over 2N devices (single-video latency); in sweeps: a "
+        "(data, cfg) mesh (best when chips outnumber examples)")
+    parser.add_argument("--dist-backend", type=str, default="nccl", choices=["nccl", "gloo"],
+                        help="the process group's backend under --frame-shard / --cfg-pair: "
+                             "nccl (one card per rank, cuda:LOCAL_RANK) or gloo (ranks on "
+                             "the CPU, or sharing one card with --device cuda:K)")
     parser.add_argument(
         "--approx", type=str, default="", metavar="MODE[:K]",
         help="OUTPUT-CHANGING speed mode; default is the exact pipeline. "
@@ -154,14 +176,46 @@ def parse_approx(spec: str) -> tuple:
     return uncond_k, intervals["guidance-cache"], extrap, step_k, step_w
 
 
-def _check_flags(args) -> None:
-    """Refuse the flags the port does not have, and parse ``--approx`` into
-    ``args.approx_knobs``, before any file is read."""
+def _check_flags(args, sweep: bool = False) -> None:
+    """Refuse the flags the port does not have, parse ``--approx`` into
+    ``args.approx_knobs``, and check the layout flags against torchrun's
+    world and the backend against the device (pointing ``args.device`` at
+    the rank's card), before any file is read.  ``sweep``: the world may
+    hold several data groups, and ``--cfg-pair`` needs no
+    ``--frame-shard``."""
     for flag, (default, why) in UNPORTED.items():
         if getattr(args, flag) != default:
             raise SystemExit(f"--{flag.replace('_', '-')} is not available in the PyTorch "
                              f"port: {why}")
     args.approx_knobs = parse_approx(args.approx)
+    try:
+        args.frame_shard, args.cfg_pair = check_layout_flags(args.frame_shard, args.cfg_pair,
+                                                             args.L, sweep)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if not (args.frame_shard or args.cfg_pair):
+        return
+    per = max(args.frame_shard, 1) * (2 if args.cfg_pair else 1)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world % per if sweep else world != per:
+        raise SystemExit(
+            f"--frame-shard {args.frame_shard}{' --cfg-pair' if args.cfg_pair else ''} runs "
+            f"{per} ranks per video, one process each: run under torchrun --nproc-per-node "
+            f"{per}{' (or a multiple: the data groups)' if sweep else ''}; this world has "
+            f"{world}")
+    if sweep and args.num_processes:
+        raise SystemExit("--num-processes does not compose with --frame-shard / --cfg-pair: "
+                         "run the layout under torchrun")
+    device = torch.device(args.device)
+    if args.dist_backend == "nccl" and device.type != "cuda":
+        raise SystemExit(f"--dist-backend nccl runs on CUDA devices; with --device "
+                         f"{args.device} pass --dist-backend gloo")
+    if args.dist_backend == "nccl" and device.index is not None and world > 1:
+        raise SystemExit(f"--device {args.device} puts every rank on one card, which nccl "
+                         f"refuses; pass --dist-backend gloo, or --device cuda for one card "
+                         f"per rank")
+    if device.type == "cuda" and device.index is None:
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
 
 
 def _load_config(args) -> InferenceConfig:
@@ -169,7 +223,7 @@ def _load_config(args) -> InferenceConfig:
                                  video_length=args.L)
 
 
-def _setup(args, cfg: Optional[InferenceConfig] = None) -> MotionCloneRuntime:
+def _setup(args, cfg: Optional[InferenceConfig] = None, layout=None) -> MotionCloneRuntime:
     if args.visible_gpu:
         print("--visible_gpu does nothing here; select the card with "
               "CUDA_VISIBLE_DEVICES or --device cuda:N")
@@ -194,6 +248,8 @@ def _setup(args, cfg: Optional[InferenceConfig] = None) -> MotionCloneRuntime:
         attention_impl=args.attention_impl, config_root=args.config_root,
         uncond_interval=uncond_k, guidance_interval=guidance_k, uncond_extrap=uncond_w,
         step_interval=step_k, step_extrap=step_w, weights_cache=args.weights_cache,
+        frame_shard=args.frame_shard, cfg_pair=args.cfg_pair, dist_backend=args.dist_backend,
+        layout=layout,
     )
     if args.weights_cache:
         written = (f" (entry written in {runtime.cache_write_seconds:.1f}s)"
@@ -217,8 +273,11 @@ def run_serial(args, cfg: Optional[InferenceConfig] = None, examples=None):
             config_root=args.config_root,
             resume=args.resume,
         )
-        print(out_path, "is done")
+        if runtime.is_lead:
+            print(out_path, "is done")
         paths.append(out_path)
+    if runtime.layout is not None:
+        runtime.layout.close()
     return runtime, paths
 
 
@@ -256,9 +315,13 @@ def sweep_main(argv: Optional[Sequence[str]] = None):
     ``--num-devices`` examples per sampling pass on this process's card
     (``pipeline/sweep.py``); under ``--distributed`` (torchrun), or with
     ``--num-processes N --process-id I``, this process sweeps its stride of
-    the examples only, share-nothing (``parallel/distributed.py``).
-    Returns (runtime, mp4 paths); a rank with no example returns (None, [])
-    without loading weights."""
+    the examples only, share-nothing (``parallel/distributed.py``).  Under
+    torchrun with ``--frame-shard N`` and/or ``--cfg-pair`` the world splits
+    into data groups of N (x 2) ranks, the JAX package's (data, [cfg,]
+    frames) mesh: data group d sweeps ``partition_examples(examples, d,
+    data)`` through its frame-sharded or pair-split pipeline, and no
+    collective crosses data groups.  Returns (runtime, mp4 paths); a rank
+    with no example returns (None, []) without loading weights."""
     from motionclone_tpu_torch.parallel.distributed import (
         maybe_initialize_from_args,
         partition_examples,
@@ -281,10 +344,22 @@ def sweep_main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--process-id", type=int, default=-1,
                         help="this process's distributed rank (with --num-processes)")
     args = parser.parse_args(argv)
-    _check_flags(args)
-    multi_process = maybe_initialize_from_args(args)
+    _check_flags(args, sweep=True)
     examples = load_examples(args.examples)
-    if multi_process:
+    layout = None
+    if args.frame_shard or args.cfg_pair:
+        from motionclone_tpu_torch.parallel.frames import Layout
+
+        layout = Layout.from_env(frames=max(args.frame_shard, 1),
+                                 cfg=2 if args.cfg_pair else 1, backend=args.dist_backend)
+        examples = partition_examples(examples, layout.data_index, layout.data)
+        if layout.is_lead:
+            print(f"data group {layout.data_index}/{layout.data} (cfg {layout.cfg} x frames "
+                  f"{layout.frames} ranks): {len(examples)} examples on {args.device}")
+        if not examples:
+            layout.close()
+            return None, []
+    elif maybe_initialize_from_args(args):
         examples = partition_examples(examples, args.process_id, args.num_processes)
         print(f"process {args.process_id}/{args.num_processes}: {len(examples)} examples "
               f"on {args.device}")
@@ -292,7 +367,7 @@ def sweep_main(argv: Optional[Sequence[str]] = None):
             return None, []
     else:
         print(f"{len(examples)} examples on {args.device}")
-    runtime = _setup(args)
+    runtime = _setup(args, layout=layout)
     paths = run_sweep(
         runtime, examples,
         motion_rep_dir=args.motion_representation_save_dir,
@@ -302,8 +377,11 @@ def sweep_main(argv: Optional[Sequence[str]] = None):
         num_devices=args.num_devices,
         resume=args.resume,
     )
-    for p in paths:
-        print(p, "is done")
+    if runtime.is_lead:
+        for p in paths:
+            print(p, "is done")
+    if layout is not None:
+        layout.close()
     return runtime, paths
 
 
@@ -314,7 +392,10 @@ def serve_main(argv: Optional[Sequence[str]] = None, ready=None) -> None:
     the sweep (grouped by condition-image count; a lone job takes
     ``run_example``).  ``ready(server)``, when given, is called once the
     server listens; ``server.shutdown()`` from another thread then ends
-    the call."""
+    the call.  Under torchrun with ``--frame-shard`` (and ``--cfg-pair``)
+    rank 0 serves HTTP, one job at a time (``--batch-max`` 1, the JAX
+    package's rule), and sends each job to the other ranks, which run it
+    in lockstep (``serve.LockstepJobs``) until the server stops."""
     from motionclone_tpu_torch.config import Example
     from motionclone_tpu_torch.pipeline.sweep import run_sweep
     from motionclone_tpu_torch.serve import MotionCloneServer
@@ -338,8 +419,9 @@ def serve_main(argv: Optional[Sequence[str]] = None, ready=None) -> None:
     batch_max = max(args.batch_max, 1)
     if args.frame_shard and batch_max > 1:
         # a frame-sharded runtime serves one job at a time (the JAX
-        # package's rule; --frame-shard is refused above until it is ported)
-        print("--frame-shard set: forcing --batch-max 1")
+        # package's rule: its sweep would mix two layouts)
+        print("--frame-shard set: forcing --batch-max 1 (frame-sharded runtimes serve "
+              "jobs serially; use an unsharded runtime for throughput batching)")
         batch_max = 1
     where = dict(motion_rep_dir=args.motion_representation_save_dir,
                  output_dir=args.generated_videos_save_dir, default_seed=args.default_seed,
@@ -347,6 +429,17 @@ def serve_main(argv: Optional[Sequence[str]] = None, ready=None) -> None:
 
     def run_job(example_dict):
         return runtime.run_example(Example.from_json(example_dict), **where)
+
+    lockstep = None
+    if runtime.layout is not None:
+        from motionclone_tpu_torch.serve import LockstepJobs
+
+        lockstep = LockstepJobs(runtime.layout.video)
+        if not runtime.layout.is_lead:
+            lockstep.follow(run_job)
+            runtime.layout.close()
+            return
+        run_job = lockstep.leading(run_job)
 
     run_jobs_batch = None
     if batch_max > 1:
@@ -376,6 +469,9 @@ def serve_main(argv: Optional[Sequence[str]] = None, ready=None) -> None:
         server.serve_forever()
     except KeyboardInterrupt:
         server.shutdown()
+    if lockstep is not None:
+        lockstep.stop()
+        runtime.layout.close()
 
 
 if __name__ == "__main__":

@@ -22,6 +22,13 @@ strictly (``weights/load.controlnet_state_dict``).  ``impl`` ("flash" or
 "fused") routes every resnet, spatial transformer and motion module as in
 the UNet: the fused kernels 5, 7 (one attention block) and 8 where their
 predicates take the shapes.
+
+With a ``frame_group`` (``parallel/frames.py``; the JAX package's
+``frames_axis``) the sample, the condition and its mask hold the rank's
+frames, as the UNet's do: everything runs per frame on them but the
+motion modules, which gather their keys and values over the group and
+attend with the local queries (kernel 3r, positional-encoding rows from
+rank * f of the 32-row table; kernel 7 is off).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from motionclone_tpu_torch.models.unet_blocks import (
     DownBlock3D,
     UNetMidBlock3DCrossAttn,
 )
+from motionclone_tpu_torch.parallel.frames import FrameGroup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +214,7 @@ class SparseControlNetModel(nn.Module):
         conditioning_mask: Optional[torch.Tensor] = None,  # (B, F, H', W', 1)
         conditioning_scale=1.0,  # a float, or (B, 1, 1, 1, 1): one per example
         impl: str = "flash",
+        frame_group: Optional[FrameGroup] = None,
     ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
         """Returns (down residuals, one per UNet skip; mid residual)."""
         cfg = self.cfg
@@ -239,11 +248,11 @@ class SparseControlNetModel(nn.Module):
         skips = [x]
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlock3D):
-                x, block_skips, _ = block(x, temb, context, (), impl)
+                x, block_skips, _ = block(x, temb, context, (), impl, frame_group)
             else:
-                x, block_skips, _ = block(x, temb, (), impl)
+                x, block_skips, _ = block(x, temb, (), impl, frame_group)
             skips.extend(block_skips)
-        x, _ = self.mid_block(x, temb, context, (), impl)
+        x, _ = self.mid_block(x, temb, context, (), impl, frame_group)
 
         down = tuple(_pointwise(s, head) * conditioning_scale
                      for s, head in zip(skips, self.controlnet_down_blocks))

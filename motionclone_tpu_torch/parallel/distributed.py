@@ -13,6 +13,11 @@ accepted for the JAX CLI's sake and contacted by nobody) or from torchrun's
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``).  Each rank runs on
 ``cuda:LOCAL_RANK`` (``LOCAL_RANK`` unset: 0) unless ``--device`` names
 another device than ``cuda``.
+
+Under ``--frame-shard`` / ``--cfg-pair`` a sweep's unit of work is a data
+group of ranks instead of one rank (``parallel/frames.Layout``, the JAX
+package's (data, [cfg,] frames) mesh): data group d of D sweeps
+``partition_examples(examples, d, D)``, and the groups stay share-nothing.
 """
 
 from __future__ import annotations

@@ -51,9 +51,26 @@ and ``sample`` take and return the rank's latents.  Each rank differentiates
 its partial guidance loss; ``guided_step`` returns the loss summed over the
 ranks, outside autograd.  Sharding needs ``use_inflated_groupnorm`` and a
 ``video_length`` that the group's size divides; a group of size 1 runs
-unsharded.  A controlnet under a group of more than one rank raises: the
-frame-sharded controlnet belongs to ROADMAP.md's "Multi-device layouts from
-the CLI".
+unsharded.  A controlnet runs frame-sharded too (its motion modules gather
+over the group); the functions then take the full condition and mask
+(``scatter_condition``'s, all F frames) and split them, and a call without
+``cn_cond`` raises, as the JAX package's ``_check_smap_cn_cond`` does.
+
+``cfg_pair`` (``parallel/frames.py``'s ``Layout.pair``: this rank and the
+rank of the other CFG half at the same frames) is the JAX package's ``cfg``
+mesh axis (``guided_step_smap_pair``, ``vanilla_step_smap_pair``, and
+``guided_step_pair`` without frame sharding): pair rank 0 runs the
+unconditional half, pair rank 1 the conditional one.  A guided step runs
+the controlnet at batch B on the half's own embedding, then the
+unconditional forward (rank 0) or the conditional forward and backward
+(rank 1; JAX's uncond half also runs a backward whose gradient it masks to
+zero, which the port skips); one exchange over the pair
+(``exchange_pair``) gives every rank both predictions, the conditional
+gradient and the loss, and each applies the ramp, CFG and DDIM as the
+serial step does.  A vanilla step runs a batch-B forward per half and
+exchanges the predictions.  Both halves issue the same pair collectives in
+the same order; their frame collectives run in disjoint groups.  The
+approx caches do not compose with the pair (refused, as in JAX).
 
 The approx caches (the JAX package's ``--approx``; output-changing, opt-in
 through ``make_sampling_fns``'s ``uncond_interval``, ``guidance_interval``,
@@ -75,8 +92,9 @@ step that computes no guidance returns a loss of 0.
 rerun continues from the last finished chunk, with the JAX package's keys
 (``latents`` in f32, ``steps_done``, ``timesteps``, ``chunk_steps``,
 ``tag``), so a checkpoint means the same in either package.  Under a frame
-group each rank keeps its own frames under ``<resume_path>.rank<r>.npz``,
-and the ranks continue only from one step that every rank's file holds.
+group or a CFG pair each rank keeps its own latents under
+``<resume_path>.rank<r>.npz`` (r the global rank), and the ranks continue
+only from one step that every rank of the video holds.
 
 Every function takes a leading batch axis of B examples (the sweep's
 batches): the guidance loss sums a per-example mean, and
@@ -94,6 +112,7 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from motionclone_tpu_torch.config import InferenceConfig, NoiseScheduleConfig, UNet3DConfig
 from motionclone_tpu_torch.diffusion.ddim import (
@@ -110,7 +129,7 @@ from motionclone_tpu_torch.diffusion.guidance import (
 )
 from motionclone_tpu_torch.models.sparse_controlnet import SparseControlNetModel
 from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
-from motionclone_tpu_torch.parallel.frames import FrameGroup
+from motionclone_tpu_torch.parallel.frames import FrameGroup, exchange_pair
 from motionclone_tpu_torch.utils import rng
 
 MotionRep = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -234,6 +253,7 @@ class SamplingFns:
     schedule: Callable[..., Schedule]
     timesteps: np.ndarray
     frame_group: Optional[FrameGroup] = None  # None: unsharded
+    cfg_pair: Optional[FrameGroup] = None  # None: both CFG halves on this rank
 
 
 def resolve_impl(attention_impl: str, device: torch.device) -> str:
@@ -278,10 +298,12 @@ def make_sampling_fns(
     uncond_extrap: float = 0.0,
     step_interval: int = 1,
     step_extrap: float = 0.0,
+    cfg_pair: Optional[FrameGroup] = None,
 ) -> SamplingFns:
     """Build extract / guided_step / vanilla_step / sample around ``unet``
     (its parameters' device and dtype set where the work runs), sharded
-    over ``frame_group``'s ranks when it has more than one, conditioned by
+    over ``frame_group``'s ranks when it has more than one, the CFG pair
+    split over ``cfg_pair``'s two ranks when given, conditioned by
     ``controlnet`` where a ``cn_cond`` is passed.
 
     The approx caches (output-changing; all off by default):
@@ -307,11 +329,15 @@ def make_sampling_fns(
             "step_extrap extrapolates the step cache: build "
             "make_sampling_fns(..., step_interval>1) to enable it")
     group = check_frame_group(frame_group, unet.cfg, infer_cfg)
-    if controlnet is not None and group is not None:
-        raise NotImplementedError(
-            "a controlnet under frame sharding belongs to ROADMAP.md's \"Multi-device "
-            "layouts from the CLI\" (the frame-sharded controlnet); run the i2v "
-            "workloads unsharded")
+    pair = cfg_pair
+    if pair is not None and pair.size != 2:
+        raise ValueError(f"the cfg axis must have size 1 or 2 (the CFG pair), got {pair.size}")
+    if pair is not None and (uncond_interval > 1 or guidance_interval > 1 or step_interval > 1):
+        raise ValueError(
+            "the cross-step caches (--approx) do not compose with CFG-pair "
+            "splitting: the pair formulations evaluate both halves jointly")
+    # the ranks that sample one video: their resume files and agreement
+    video_groups = tuple(x for x in (group, pair) if x is not None)
     device = unet.conv_in.weight.device
     plain_impl = resolve_impl(attention_impl, device)
     ddim = make_ddim_params(sched_cfg, device)
@@ -332,6 +358,22 @@ def make_sampling_fns(
     )
     g = infer_cfg.guidance_steps
 
+    def local_cn(cn_cond: Optional[CnCond]) -> Optional[CnCond]:
+        """The rank's frames of a full condition and mask; under a frame
+        group a controlnet needs them on every call."""
+        if group is None or controlnet is None:
+            return cn_cond
+        if cn_cond is None:
+            raise ValueError(
+                "frame-sharded controlnet pipelines need cn_cond on every call; "
+                "run unconditioned examples unsharded")
+        cond, mask, scale = cn_cond
+        if cond.shape[1] != infer_cfg.video_length:
+            raise ValueError(f"a frame-sharded controlnet takes the full "
+                             f"{infer_cfg.video_length} frames of the condition, got "
+                             f"{cond.shape[1]}")
+        return group.local_frames(cond), group.local_frames(mask), scale
+
     def residuals(latents, t: int, emb, cn_cond: Optional[CnCond]):
         """The controlnet's (down, mid) residuals for ``latents``, without
         grad; the condition (and a per-example scale) is tiled over a batch
@@ -345,7 +387,8 @@ def make_sampling_fns(
             if torch.is_tensor(scale):
                 scale = torch.cat([scale, scale])
         with torch.no_grad():
-            return controlnet(latents, t, emb, cond, mask, scale, impl=plain_impl)
+            return controlnet(latents, t, emb, cond, mask, scale, impl=plain_impl,
+                              frame_group=group)
 
     def residual_kwargs(res, sl: slice = slice(None)):
         # the UNet's keyword arguments for the residuals' batch rows ``sl``
@@ -357,6 +400,7 @@ def make_sampling_fns(
 
     def extract(video_latents, noise, uncond_emb, cn_cond: Optional[CnCond] = None
                 ) -> MotionRep:
+        cn_cond = local_cn(cn_cond)
         if group is not None:
             if video_latents.shape[1] != infer_cfg.video_length:
                 raise ValueError(
@@ -415,9 +459,8 @@ def make_sampling_fns(
         # the reference's CFG base: cond + s * (cond - uncond)
         return cond_pred + cfg_scale * (cond_pred - uncond_pred)
 
-    def guided_step(latents, t: int, tp: int, ramp: float, uncond_emb, cond_emb,
-                    motion_rep: MotionRep, cn_cond: Optional[CnCond] = None):
-        """Returns (new latents, guidance loss)."""
+    def guided_serial(latents, t: int, tp: int, ramp: float, uncond_emb, cond_emb,
+                      motion_rep: MotionRep, cn_cond: Optional[CnCond]):
         b = latents.shape[0]
         res = pair_residuals(latents, t, uncond_emb, cond_emb, cn_cond)
         uncond_pred = plain_pass(latents, t, uncond_emb, res, slice(None, b))
@@ -428,11 +471,50 @@ def make_sampling_fns(
                         score=grad * ramp, guidance_scale=1.0)
         return new, loss
 
-    def vanilla_step(latents, t: int, tp: int, uncond_emb, cond_emb,
-                     cn_cond: Optional[CnCond] = None):
+    def vanilla_serial(latents, t: int, tp: int, uncond_emb, cond_emb,
+                       cn_cond: Optional[CnCond]):
         res = pair_residuals(latents, t, uncond_emb, cond_emb, cn_cond)
         uncond_pred, cond_pred = pair_pass(latents, t, uncond_emb, cond_emb, res)
         return ddim_step(ddim, combine(cond_pred, uncond_pred), t, tp, latents)
+
+    def half_emb(uncond_emb, cond_emb):
+        # this rank's CFG half: pair rank 0 is the unconditional one
+        return cond_emb if pair.rank == 1 else uncond_emb
+
+    def guided_pair(latents, t: int, tp: int, ramp: float, uncond_emb, cond_emb,
+                    motion_rep: MotionRep, cn_cond: Optional[CnCond]):
+        emb = half_emb(uncond_emb, cond_emb)
+        res = residuals(latents, t, emb, cn_cond)
+        if pair.rank == 1:
+            pred, grad, loss = guidance_pass(latents, t, emb, motion_rep, res, slice(None))
+        else:
+            pred = plain_pass(latents, t, emb, res)
+            grad = torch.zeros_like(latents)
+            loss = torch.zeros((), dtype=torch.float32, device=latents.device)
+        (uncond_pred, _, _), (cond_pred, grad, loss) = exchange_pair(pair, [pred, grad, loss])
+        new = ddim_step(ddim, combine(cond_pred, uncond_pred), t, tp, latents,
+                        score=grad * ramp, guidance_scale=1.0)
+        return new, loss
+
+    def vanilla_pair(latents, t: int, tp: int, uncond_emb, cond_emb,
+                     cn_cond: Optional[CnCond]):
+        emb = half_emb(uncond_emb, cond_emb)
+        pred = plain_pass(latents, t, emb, residuals(latents, t, emb, cn_cond))
+        (uncond_pred,), (cond_pred,) = exchange_pair(pair, [pred])
+        return ddim_step(ddim, combine(cond_pred, uncond_pred), t, tp, latents)
+
+    exact_guided = guided_serial if pair is None else guided_pair
+    exact_vanilla = vanilla_serial if pair is None else vanilla_pair
+
+    def guided_step(latents, t: int, tp: int, ramp: float, uncond_emb, cond_emb,
+                    motion_rep: MotionRep, cn_cond: Optional[CnCond] = None):
+        """Returns (new latents, guidance loss)."""
+        return exact_guided(latents, t, tp, ramp, uncond_emb, cond_emb, motion_rep,
+                            local_cn(cn_cond))
+
+    def vanilla_step(latents, t: int, tp: int, uncond_emb, cond_emb,
+                     cn_cond: Optional[CnCond] = None):
+        return exact_vanilla(latents, t, tp, uncond_emb, cond_emb, local_cn(cn_cond))
 
     def guided_step_approx(carry: _ApproxCarry, t: int, tp: int, ramp: float, flags,
                            uncond_emb, cond_emb, motion_rep: MotionRep, cn_cond):
@@ -565,16 +647,20 @@ def make_sampling_fns(
         frame group each rank keeps its own frames in
         ``<resume_path>.rank<r>.npz``, and the group continues from them
         only where every rank's file holds the same step; else every rank
-        starts again from ``init_latents``.  The exact schedule runs
-        through the same steps as the caches, with every flag true."""
+        starts again from ``init_latents``; under a CFG pair too, over the
+        video's ranks.  The exact schedule runs through the same steps as
+        the caches, with every flag true (under a CFG pair, the pair
+        steps)."""
+        cn_cond = local_cn(cn_cond)
         k_u, k_g, w_u, k_s, w_s = intervals(uncond_refresh, guidance_refresh,
                                             uncond_extrap_w, step_refresh, step_extrap_w)
         flags = flags_of(chunk_steps, k_u, k_g, k_s)
         w_u, w_s = (_const_col(len(timesteps), w) for w in (w_u, w_s))
         fingerprint = np.asarray(timesteps, np.int32)
         total = len(timesteps)
-        if resume_path and group is not None:
-            resume_path = f"{resume_path}.rank{group.rank}.npz"
+        if resume_path and video_groups:
+            rank = dist.get_rank() if dist.is_initialized() else video_groups[0].rank
+            resume_path = f"{resume_path}.rank{rank}.npz"
         latents, steps_done = init_latents, 0  # init_noise_sigma == 1 for DDIM
         if resume_path and os.path.exists(resume_path):
             with np.load(resume_path) as d:
@@ -585,12 +671,13 @@ def make_sampling_fns(
                     steps_done = int(d["steps_done"])
                     latents = torch.from_numpy(d["latents"]).to(device=init_latents.device,
                                                                 dtype=init_latents.dtype)
-        if resume_path and group is not None:
+        if resume_path and video_groups:
             # a run killed between two ranks' writes leaves their files a
             # chunk apart; each rank keeps only its last checkpoint, so the
-            # group continues only where every rank stopped at one step
-            done = group.gather_frames(
-                torch.tensor([steps_done], dtype=torch.int64, device=init_latents.device), dim=0)
+            # video continues only where every rank stopped at one step
+            done = torch.tensor([steps_done], dtype=torch.int64, device=init_latents.device)
+            for ranks in video_groups:  # over the frames, then the pair: every rank's
+                done = ranks.gather_frames(done, dim=0)
             if (done != steps_done).any():
                 latents, steps_done = init_latents, 0
         for lo, hi in chunks(chunk_steps):
@@ -602,7 +689,12 @@ def make_sampling_fns(
                 t, tp = int(timesteps[i]), int(t_prev[i])
                 step_flags = (flags.full[i], flags.uncond[i], flags.guidance[i],
                               float(w_u[i]), float(w_s[i]))
-                if guided:
+                if pair is not None:  # exact only: every flag is true
+                    carry.latents = (
+                        guided_pair(carry.latents, t, tp, float(ramps[i]), uncond_emb,
+                                    cond_emb, motion_rep, cn_cond)[0] if guided
+                        else vanilla_pair(carry.latents, t, tp, uncond_emb, cond_emb, cn_cond))
+                elif guided:
                     guided_step_approx(carry, t, tp, float(ramps[i]), step_flags,
                                        uncond_emb, cond_emb, motion_rep, cn_cond)
                 else:
@@ -626,7 +718,8 @@ def make_sampling_fns(
 
     return SamplingFns(extract=extract, guided_step=guided_step,
                        vanilla_step=vanilla_step, sample=sample,
-                       timesteps=timesteps, frame_group=group, schedule=schedule)
+                       timesteps=timesteps, frame_group=group, schedule=schedule,
+                       cfg_pair=pair)
 
 
 class MotionClonePipeline:
@@ -635,7 +728,7 @@ class MotionClonePipeline:
     ``unet`` (and the optional ``vae`` / ``text_encoder``) are moved to
     ``device`` and ``dtype``; the default is CUDA in bfloat16, and so is the
     optional ``controlnet``.  ``attention_impl``, ``frame_group``,
-    ``controlnet`` and the approx knobs (``uncond_interval``,
+    ``cfg_pair``, ``controlnet`` and the approx knobs (``uncond_interval``,
     ``guidance_interval``, ``uncond_extrap``, ``step_interval``,
     ``step_extrap``) are those of :func:`make_sampling_fns`; a ``cn_cond`` is
     moved to the device and dtype before it conditions a pass.  Every noise tensor is drawn by
@@ -668,6 +761,7 @@ class MotionClonePipeline:
         uncond_extrap: float = 0.0,
         step_interval: int = 1,
         step_extrap: float = 0.0,
+        cfg_pair: Optional[FrameGroup] = None,
     ):
         infer_cfg.validate()
         self.device = resolve_device(device)
@@ -687,7 +781,7 @@ class MotionClonePipeline:
             self.unet, sched_cfg, infer_cfg, attention_impl, frame_group, self.controlnet,
             uncond_interval=uncond_interval, guidance_interval=guidance_interval,
             uncond_extrap=uncond_extrap, step_interval=step_interval,
-            step_extrap=step_extrap)
+            step_extrap=step_extrap, cfg_pair=cfg_pair)
 
     @torch.no_grad()
     def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
@@ -734,6 +828,24 @@ class MotionClonePipeline:
         themselves when unsharded)."""
         group = self.fns.frame_group
         return latents if group is None else group.gather_frames(latents)
+
+    def local_motion_rep(self, rep: MotionRep) -> MotionRep:
+        """A whole video's motion representation -> the rank's query
+        frames (axis 3; the representation itself when unsharded)."""
+        group = self.fns.frame_group
+        if group is None:
+            return rep
+        return {k: (group.local_frames(v, 3), group.local_frames(i, 3))
+                for k, (v, i) in rep.items()}
+
+    def gather_motion_rep(self, rep: MotionRep) -> MotionRep:
+        """The whole video's motion representation from each rank's query
+        frames (the representation itself when unsharded)."""
+        group = self.fns.frame_group
+        if group is None:
+            return rep
+        return {k: (group.gather_frames(v, 3), group.gather_frames(i, 3))
+                for k, (v, i) in rep.items()}
 
     def _cn_cond(self, cn_cond: Optional[CnCond]) -> Optional[CnCond]:
         if cn_cond is None:

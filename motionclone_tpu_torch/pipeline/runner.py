@@ -17,6 +17,14 @@ on ``device`` (CUDA unless the caller asks for the CPU), exact or through
 the approx caches; with ``weights_cache`` the loaded state dicts come from
 ``weights/cache.py`` on a warm start, and ``run_example(resume=True)``
 continues an interrupted sampling run from its last finished chunk.
+
+Under a multi-device layout (``frame_shard``, ``cfg_pair``; one process
+per rank under torchrun, ``parallel/frames.Layout``) every rank of a video
+loads the same weights and runs the same example: the video's lead rank
+(its rank 0) decides whether the cached motion representation is used and
+tells the others, writes the representation gathered over every query
+frame, gathers the latents, decodes them and writes the one mp4; a
+weights-cache miss is written by the lead alone while the others wait.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from motionclone_tpu_torch.models.sparse_controlnet import (
 from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
 from motionclone_tpu_torch.models.unet_blocks import match_guidance
 from motionclone_tpu_torch.models.vae import AutoencoderKL
+from motionclone_tpu_torch.parallel.frames import Layout
 from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline, resolve_device
 from motionclone_tpu_torch.utils import rng
 from motionclone_tpu_torch.weights.load import (
@@ -138,6 +147,29 @@ def weights_cache_key(pretrained_model_path: str, infer_cfg: InferenceConfig,
                                "adapter_lora_scale": infer_cfg.adapter_lora_scale})
 
 
+def check_layout_flags(frame_shard: int, cfg_pair: bool, video_length: int,
+                       sweep: bool = False) -> Tuple[int, bool]:
+    """The layout flags checked as the JAX runtime (``sweep``: the JAX
+    sweep) checks them, before any file is read; returns (frame shards,
+    cfg pair), (0, False) to run unsharded."""
+    if cfg_pair and not frame_shard and not sweep:
+        raise ValueError(
+            "cfg_pair composes with --frame-shard here (torchrun --nproc-per-node 2N); "
+            "for CFG-pair splitting without frame sharding use the sweep's --cfg-pair "
+            "(data, cfg) mode")
+    if frame_shard == 1:
+        # a 1-wide frames axis adds no parallelism
+        if sweep:
+            print("frame_shard=1 is a no-op; running the plain data sweep")
+            return 0, cfg_pair
+        print("frame-shard 1 is a no-op; running unsharded")
+        return 0, False
+    if frame_shard < 0 or (frame_shard and video_length % frame_shard):
+        raise ValueError(f"--frame-shard {frame_shard} must be >= 1 and divide "
+                         f"video_length={video_length}")
+    return frame_shard, cfg_pair
+
+
 class MotionCloneRuntime:
     """Loaded weights and the pipeline for one workload config.
 
@@ -156,7 +188,18 @@ class MotionCloneRuntime:
     entry; ``weights_cache_state`` says "hit", "miss" or "off".
     ``load_seconds`` holds the time the weights took from files to modules
     on the device; a miss's write of the entry is not in it, but in
-    ``cache_write_seconds``."""
+    ``cache_write_seconds``.
+
+    ``frame_shard`` N > 1 splits every video's frames over N ranks and
+    ``cfg_pair`` its CFG pair over two: the JAX package's (cfg, frames)
+    mesh, here a :class:`~motionclone_tpu_torch.parallel.frames.Layout` of
+    torchrun's world, which must hold N (2N with ``cfg_pair``) ranks,
+    joined over ``dist_backend``.  As in the JAX package N must divide
+    ``video_length``, N = 1 runs unsharded, and ``cfg_pair`` needs
+    ``frame_shard``; the port also needs ``use_inflated_groupnorm`` (the
+    JAX package falls back to its GSPMD flavour, which the port does not
+    have).  ``layout`` gives the layout itself instead (the sweep's
+    (data, cfg, frames)); ``self.layout`` is None when unsharded."""
 
     def __init__(
         self,
@@ -173,21 +216,41 @@ class MotionCloneRuntime:
         step_interval: int = 1,
         step_extrap: float = 0.0,
         weights_cache: str = "",
+        frame_shard: int = 0,
+        cfg_pair: bool = False,
+        dist_backend: str = "nccl",
+        layout: Optional[Layout] = None,
     ):
         self.device = resolve_device(device)
         self.infer_cfg = infer_cfg
         self.dtype = dtype
         t0 = time.perf_counter()
+        if layout is None:
+            frame_shard, cfg_pair = check_layout_flags(frame_shard, cfg_pair,
+                                                       infer_cfg.video_length)
+        frames = layout.frames if layout is not None else max(frame_shard, 1)
         self.unet_cfg, self.sched_cfg = load_model_config(
             os.path.join(config_root, infer_cfg.model_config))
         self.unet_cfg = apply_unet_diffusers_config(self.unet_cfg, pretrained_model_path)
+        if frames > 1 and not self.unet_cfg.use_inflated_groupnorm:
+            raise ValueError(
+                "--frame-shard requires use_inflated_groupnorm (GroupNorm statistics over "
+                "all frames would be computed per rank); the GSPMD flavour that the JAX "
+                "package falls back to is not ported")
         self.vae_cfg = vae_config_from_dir(pretrained_model_path)
         self.clip_cfg = clip_config_from_dir(pretrained_model_path)
+        if layout is None and (frame_shard or cfg_pair):
+            layout = Layout.from_env(frames=frames, cfg=2 if cfg_pair else 1,
+                                     backend=dist_backend, data=1)
+        self.layout = layout
+        lead = layout is None or layout.is_lead
 
         if infer_cfg.controlnet_path and not infer_cfg.controlnet_config:
             raise ValueError("controlnet_path is set but controlnet_config is not: "
                              "the controlnet's YAML gives its topology")
         sds, key = None, None
+        if weights_cache and not lead:
+            layout.video.barrier()  # the lead reads, or writes on a miss, first
         if weights_cache:
             key = weights_cache_key(pretrained_model_path, infer_cfg, dtype, config_root)
             sds = load_params(weights_cache, key)
@@ -208,9 +271,12 @@ class MotionCloneRuntime:
                 controlnet_path=j(infer_cfg.controlnet_path))
             if weights_cache:
                 sds = {c: {k: v.to(dtype) for k, v in sd.items()} for c, sd in sds.items()}
+            if weights_cache and lead:
                 t_save = time.perf_counter()
                 save_params(weights_cache, key, sds)
                 self.cache_write_seconds = time.perf_counter() - t_save
+        if weights_cache and lead and layout is not None:
+            layout.video.barrier()
         unet = load_into(lambda: UNet3DConditionModel(self.unet_cfg), sds["unet"], dtype, "unet")
         vae = load_into(lambda: AutoencoderKL(self.vae_cfg), sds["vae"], dtype, "vae")
         clip = load_into(lambda: CLIPTextModel(self.clip_cfg), sds["text_encoder"], dtype,
@@ -231,6 +297,8 @@ class MotionCloneRuntime:
             controlnet=controlnet, uncond_interval=uncond_interval,
             guidance_interval=guidance_interval, uncond_extrap=uncond_extrap,
             step_interval=step_interval, step_extrap=step_extrap,
+            frame_group=None if layout is None else layout.frame_group,
+            cfg_pair=None if layout is None else layout.pair,
         )
         self._sync()
         self.load_seconds = time.perf_counter() - t0 - self.cache_write_seconds
@@ -239,6 +307,23 @@ class MotionCloneRuntime:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @property
+    def is_lead(self) -> bool:
+        """Whether this rank decides the caches and writes the outputs of
+        its videos (every unsharded runtime does)."""
+        return self.layout is None or self.layout.is_lead
+
+    def lead_decides(self, value):
+        """The lead's ``value`` on every rank of the video (``value``
+        itself when unsharded): each rank computes it, the lead's wins."""
+        return value if self.layout is None else self.layout.video.broadcast_object(value)
+
+    def prepare_motion_rep(self, rep) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """A whole video's representation -> this rank's share of it on the
+        device (its query frames under a frame group)."""
+        return self.pipeline.local_motion_rep(
+            {k: (v.to(self.device), i.to(self.device)) for k, (v, i) in rep.items()})
 
     # -- text -------------------------------------------------------------
 
@@ -408,7 +493,7 @@ class MotionCloneRuntime:
         os.makedirs(output_dir, exist_ok=True)
 
         def log(msg):
-            if verbose:
+            if verbose and self.is_lead:
                 print(f"[{example.video_path}] {msg}", flush=True)
 
         def encode_prompt(*args):
@@ -432,7 +517,7 @@ class MotionCloneRuntime:
 
         # 1. the motion representation, cached on disk under the video stem
         rep_meta = motion_rep_meta(cfg, seed_motion)
-        rep_path, cached = locate_cached_rep(motion_rep_dir, stem, rep_meta)
+        rep_path, cached = self.lead_decides(locate_cached_rep(motion_rep_dir, stem, rep_meta))
         if cached is None:
             if os.path.exists(rep_path):
                 log(f"cached {os.path.basename(rep_path)} was extracted under "
@@ -443,16 +528,19 @@ class MotionCloneRuntime:
             uncond_emb, _ = encode_prompt("", "")
             cn_cond = (self.extraction_condition(example, video, video_latents, cn_scale)
                        if conditioned else None)
-            rep = self.pipeline.extract_motion_representation(
-                video_latents, uncond_emb, seed=seed_motion, cn_cond=cn_cond)
-            save_motion_representation(rep_path, rep, meta=rep_meta)
+            rep = self.pipeline.gather_motion_rep(self.pipeline.extract_motion_representation(
+                video_latents, uncond_emb, seed=seed_motion, cn_cond=cn_cond))
+            # what the file holds: f32 values, uint8 indices, on the host
+            rep = {k: (v.float().cpu(), i.cpu()) for k, (v, i) in rep.items()}
+            if self.is_lead:
+                save_motion_representation(rep_path, rep, meta=rep_meta)
             timings["extract"] = time.perf_counter() - t0
             log(f"motion representation extracted: {timings['extract']:.1f}s")
         else:
             log(f"motion representation reused from {cached}")
-        rep = load_motion_representation(rep_path)
+            rep = load_motion_representation(rep_path)
         _validate_motion_representation(rep, rep_path, cfg)
-        rep = {k: (v.to(self.device), i.to(self.device)) for k, (v, i) in rep.items()}
+        rep = self.prepare_motion_rep(rep)
 
         # 2. guided sampling; the reference seeds it with seed_motion
         seed = seed_motion
@@ -471,9 +559,11 @@ class MotionCloneRuntime:
         latents = self.sample_timed(uncond_emb, cond_emb, rep, seed, cn_cond, resume_path,
                                     timings, log)
 
-        # 3. decode and write the video
-        t0 = time.perf_counter()
-        self.write_latents(out_path, latents)
-        timings["decode_write"] = time.perf_counter() - t0
-        log(f"decode + write: {timings['decode_write']:.1f}s")
+        # 3. decode and write the video (the lead, from every rank's frames)
+        latents = self.pipeline.gather_latents(latents)
+        if self.is_lead:
+            t0 = time.perf_counter()
+            self.write_latents(out_path, latents)
+            timings["decode_write"] = time.perf_counter() - t0
+            log(f"decode + write: {timings['decode_write']:.1f}s")
         return out_path

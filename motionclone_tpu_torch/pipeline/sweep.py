@@ -8,7 +8,11 @@ takes.  ``num_devices`` keeps the JAX package's meaning, examples per
 sampling pass (its ``data`` axis's size); a port process drives one card,
 so a pass is a batch of ``num_devices`` examples on that card (1 by
 default).  Several cards run share-nothing ranks, each its own stride of
-the examples (``parallel/distributed.py``).
+the examples (``parallel/distributed.py``).  Under a multi-device layout
+(the JAX package's (data, [cfg,] frames) mesh, ``runtime.layout``) the
+runtime's ranks sample each batch together, frame-sharded and/or with the
+CFG pair split, and the batch's lead rank decides the representation cache
+and writes the representations and the mp4s, as ``run_example`` does.
 
 Per batch, as the JAX sweep does:
 
@@ -140,7 +144,7 @@ def _run_batch(runtime, chunk, n_real, cfg, motion_rep_dir, output_dir, default_
     runtime.timings = timings
 
     def log(msg):
-        if verbose:
+        if verbose and runtime.is_lead:
             print(f"[sweep batch of {b}, {n_real} real] {msg}", flush=True)
 
     seeds = [e.seed if e.seed is not None else default_seed for e in chunk]
@@ -151,8 +155,8 @@ def _run_batch(runtime, chunk, n_real, cfg, motion_rep_dir, output_dir, default_
 
     # 1. the motion-representation cache: a hit only for the whole batch
     rep = None
-    hits = [locate_cached_rep(motion_rep_dir, stem, meta)[1]
-            for stem, meta in zip(stems, metas)]
+    hits = runtime.lead_decides([locate_cached_rep(motion_rep_dir, stem, meta)[1]
+                                 for stem, meta in zip(stems, metas)])
     if all(hit is not None for hit in hits):
         per_ex = [load_motion_representation(hit) for hit in hits]
         keys = set(per_ex[0])
@@ -183,11 +187,11 @@ def _run_batch(runtime, chunk, n_real, cfg, motion_rep_dir, output_dir, default_
             cn_extract = _batched_condition(
                 [runtime.extraction_condition(e, videos[i], latents[i: i + 1], scales[i])
                  for i, e in enumerate(chunk)], scales, runtime.dtype)
-        rep = pipe.extract_motion_representation(latents, emb[2 * b:].repeat(b, 1, 1),
-                                                 seed=seeds, cn_cond=cn_extract)
+        rep = pipe.gather_motion_rep(pipe.extract_motion_representation(
+            latents, emb[2 * b:].repeat(b, 1, 1), seed=seeds, cn_cond=cn_extract))
         # each real example's representation, always as .npz (a user's
         # reference .pt is never overwritten)
-        for i in range(n_real):
+        for i in range(n_real if runtime.is_lead else 0):
             save_motion_representation(
                 os.path.join(motion_rep_dir, stems[i] + ".npz"),
                 {k: (v[i: i + 1], ix[i: i + 1]) for k, (v, ix) in rep.items()},
@@ -195,7 +199,7 @@ def _run_batch(runtime, chunk, n_real, cfg, motion_rep_dir, output_dir, default_
         runtime._sync()
         timings["extract"] = time.perf_counter() - t0
         log(f"motion representations extracted: {timings['extract']:.1f}s")
-    rep = {k: (v.to(runtime.device), i.to(runtime.device)) for k, (v, i) in rep.items()}
+    rep = runtime.prepare_motion_rep(rep)
 
     # 4. guided sampling of the batch
     cn_cond = None
@@ -211,16 +215,16 @@ def _run_batch(runtime, chunk, n_real, cfg, motion_rep_dir, output_dir, default_
     if resume:
         tag = resume_tag(chunk, seeds)
         resume_path = os.path.join(output_dir, f".resume_sweep_{tag}.npz")
-    latents = runtime.sample_timed(uncond_emb, cond_emb, rep, seeds, cn_cond, resume_path,
-                                   timings, log, resume_tag=tag)
+    latents = pipe.gather_latents(runtime.sample_timed(
+        uncond_emb, cond_emb, rep, seeds, cn_cond, resume_path, timings, log, resume_tag=tag))
 
-    # 5. decode and write the real examples
+    # 5. decode and write the real examples (the lead)
     t0 = time.perf_counter()
-    paths = []
-    for i in range(n_real):
-        path = os.path.join(output_dir, output_name(chunk[i], seeds[i], cfg.positive_prompt))
-        runtime.write_latents(path, latents[i: i + 1])
-        paths.append(path)
-    timings["decode_write"] = time.perf_counter() - t0
-    log(f"decode + write: {timings['decode_write']:.1f}s")
+    paths = [os.path.join(output_dir, output_name(chunk[i], seeds[i], cfg.positive_prompt))
+             for i in range(n_real)]
+    if runtime.is_lead:
+        for i, path in enumerate(paths):
+            runtime.write_latents(path, latents[i: i + 1])
+        timings["decode_write"] = time.perf_counter() - t0
+        log(f"decode + write: {timings['decode_write']:.1f}s")
     return paths

@@ -31,6 +31,14 @@ server gives the latents of the same example run on the main thread.  A
 job that outlives its timeout is failed and the queue keeps draining, but
 its thread cannot be killed: it keeps using the card until its call
 returns, and its result is then discarded.
+
+Under a multi-device layout (``--frame-shard``; one process per rank under
+torchrun) rank 0 serves HTTP and :class:`LockstepJobs` sends each job it
+runs to the other ranks of the video, which run the same ``run_example``
+with it; a job that fails, fails on every rank and the queue keeps
+draining; when the server stops, a last message ends the other ranks'
+loop.  A job that outlives its timeout still holds the ranks: the next job
+waits for it before it is sent.
 """
 
 from __future__ import annotations
@@ -39,8 +47,10 @@ import json
 import queue
 import threading
 import time
+import traceback
 import uuid
 from dataclasses import dataclass, field
+from datetime import timedelta
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Optional
 
@@ -279,6 +289,55 @@ def _worker_loop(
         finally:
             for _ in jobs:
                 store.work.task_done()
+
+
+class LockstepJobs:
+    """Rank 0's jobs, run in lockstep by every rank of a video's group
+    (``parallel/frames.FrameGroup``, whose rank 0 serves HTTP).  The job
+    dicts travel over a gloo group of their own whose collectives wait as
+    long as the server stays idle (``IDLE_LIMIT_S``).  Every rank calls
+    the constructor at the same point (it makes a process group)."""
+
+    IDLE_LIMIT_S = 30 * 24 * 3600.0
+
+    def __init__(self, video):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.ranks = list(video.ranks)
+        self.group = dist.new_group(self.ranks, backend="gloo",
+                                    timeout=timedelta(seconds=self.IDLE_LIMIT_S))
+        self._lock = threading.Lock()  # one job on the ranks at a time
+
+    def _broadcast(self, message=None):
+        box = [message]
+        self._dist.broadcast_object_list(box, src=self.ranks[0], group=self.group)
+        return box[0]
+
+    def leading(self, run_job: Callable[[Dict[str, Any]], str]):
+        """``run_job`` on rank 0: each job goes to the other ranks first."""
+        def run(example: Dict[str, Any]) -> str:
+            with self._lock:
+                self._broadcast(("job", example))
+                return run_job(example)
+        return run
+
+    def follow(self, run_job: Callable[[Dict[str, Any]], str]) -> None:
+        """The other ranks: run each job rank 0 sends until it stops; a
+        failed job is reported here and fails on rank 0 as well."""
+        while True:
+            message = self._broadcast()
+            if message is None:
+                return
+            try:
+                run_job(message[1])
+            except Exception:  # job-scoped, as on rank 0
+                traceback.print_exc()
+
+    def stop(self) -> None:
+        """Rank 0, after the server stopped: end the other ranks' loop."""
+        with self._lock:
+            self._broadcast(None)
 
 
 def _validate_example(payload: Any) -> Dict[str, Any]:

@@ -38,11 +38,12 @@ def _imported_roots(tree: ast.AST):
             yield node.module.split(".")[0]
 
 
-# the rank bodies of the frame-sharding tests start in processes of their
+# the rank bodies of the frame-sharding and layout tests start in processes of their
 # own, which must not pay for importing JAX; the port's scripts run on the
 # card's machine, which has no JAX
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py",
-                                               ROOT / "tests" / "test_torch_frame_shard_ranks.py"]
+                                               ROOT / "tests" / "test_torch_frame_shard_ranks.py",
+                                               ROOT / "tests" / "test_torch_layouts_ranks.py"]
                          + sorted((ROOT / "scripts").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):

@@ -21,7 +21,9 @@ topology) serves every case:
   ``MotionClonePipeline`` driven by hand from the same modules, embeddings
   and ``draw_normal`` noise (exact); a second run reuses the cached
   representation;
-* every flag the port does not have yet exits with its ROADMAP.md item;
+* the layout flags outside torchrun exit before any file is read:
+  ``--frame-shard-mode gspmd`` naming its ROADMAP.md list,
+  ``--frame-shard`` and ``--cfg-pair`` naming torchrun;
 * the weights cache: a warm runtime's modules equal a cold one's bit for
   bit, and a touched source, another dtype or LoRA scale, or an entry
   without the controlnet misses;
@@ -396,18 +398,27 @@ def test_t2v_main_runs_the_slice_to_an_mp4(model_dir, monkeypatch, capsys):
     assert "rep" not in seen and torch.equal(seen["latents"], want)
 
 
-_UNPORTED_ARGV = {"frame_shard": ["--frame-shard", "2"],
-                  "frame_shard_mode": ["--frame-shard-mode", "gspmd"],
-                  "cfg_pair": ["--cfg-pair"]}
+# the JAX package's layout flags, each with its default and the refusal
+# that applies to it outside torchrun: the GSPMD flavour is not ported (its
+# ROADMAP.md list), --frame-shard needs a torchrun world of its size, and
+# t2v/i2v take --cfg-pair only with --frame-shard
+_UNPORTED_ARGV = {"frame_shard": (["--frame-shard", "2"], 0, "torchrun --nproc-per-node 2"),
+                  "frame_shard_mode": (["--frame-shard-mode", "gspmd"], "shardmap",
+                                       "ROADMAP.md"),
+                  "cfg_pair": (["--cfg-pair"], False, "torchrun --nproc-per-node 2N")}
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED))
+@pytest.mark.parametrize("flag", sorted(_UNPORTED_ARGV))
 def test_unported_flags_exit_with_their_roadmap_item(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # exits before it reads a file
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv, default, message = _UNPORTED_ARGV[flag]
     defaults = build_parser("a.yaml", "b.jsonl").parse_args([])
-    assert getattr(defaults, flag) == UNPORTED[flag][0]
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        t2v_main(ARGS + _UNPORTED_ARGV[flag])
+    assert getattr(defaults, flag) == default
+    if flag in UNPORTED:
+        assert UNPORTED[flag][0] == default
+    with pytest.raises(SystemExit, match=message):
+        t2v_main(ARGS + argv)
     assert not os.listdir(tmp_path)
 
 
@@ -602,11 +613,13 @@ def test_i2v_main_runs_the_slice_to_an_mp4(i2v_dir, flavour, monkeypatch):
     assert not torch.equal(want, pipe.fns.sample(init, uncond, cond_emb, rep))
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED))
+@pytest.mark.parametrize("flag", sorted(_UNPORTED_ARGV))
 def test_i2v_unported_flags_exit_with_their_roadmap_item(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # exits before it reads a file
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        i2v_main(_i2v_argv("latent") + _UNPORTED_ARGV[flag])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv, _, message = _UNPORTED_ARGV[flag]
+    with pytest.raises(SystemExit, match=message):
+        i2v_main(_i2v_argv("latent") + argv)
     assert not os.listdir(tmp_path)
 
 

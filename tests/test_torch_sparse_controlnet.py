@@ -21,7 +21,9 @@ path:
   at 2e-3, as tests/test_torch_pipeline.py holds the t2v slice.  The
   controlnet here reads the latents (``set_noisy_sample_input_to_zero``
   off), so a gradient through it would move the guided steps off JAX's;
-* a controlnet under a frame group of two ranks raises."""
+* a controlnet under a frame group of two ranks refuses a call without
+  ``cn_cond`` (the JAX package's ``_check_smap_cn_cond``) or with a
+  condition of the rank's frames only."""
 
 import dataclasses
 import os
@@ -289,10 +291,26 @@ def test_controlnet_residuals_carry_no_gradient(unet_pair, models, monkeypatch):
 
 
 def test_controlnet_under_a_frame_group_raises(unet_pair, models):
+    """A frame-sharded controlnet needs cn_cond on every call (the JAX
+    package's ``_check_smap_cn_cond``), and the full condition to split;
+    both refusals come before any collective."""
     group = FrameGroup(rank=0, size=2, backend="gloo")
-    with pytest.raises(NotImplementedError, match="Multi-device layouts from the CLI"):
-        t_make_fns(unet_pair[2], tcfg.NoiseScheduleConfig(), _infer(tcfg),
-                   frame_group=group, controlnet=models["latent"][2])
+    fns = t_make_fns(unet_pair[2], tcfg.NoiseScheduleConfig(), _infer(tcfg),
+                     frame_group=group, controlnet=models["latent"][2])
+    lat = torch.zeros(B, F_, HW, HW, 4)
+    emb = torch.zeros(B, 7, 16)
+    rep = {"m": (torch.zeros(1, 1, 1, F_ // 2, 1), torch.zeros(1, 1, 1, F_ // 2, 1))}
+    with pytest.raises(ValueError, match="need cn_cond on every call"):
+        fns.extract(lat, lat, emb)
+    with pytest.raises(ValueError, match="need cn_cond on every call"):
+        fns.sample(lat[:, :F_ // 2], emb, emb, rep)
+    with pytest.raises(ValueError, match="need cn_cond on every call"):
+        fns.guided_step(lat[:, :F_ // 2], 801, 781, 1.0, emb, emb, rep)
+    with pytest.raises(ValueError, match="need cn_cond on every call"):
+        fns.vanilla_step(lat[:, :F_ // 2], 801, 781, emb, emb)
+    half = torch.zeros(B, F_ // 2, HW, HW, 4)
+    with pytest.raises(ValueError, match="full 4 frames of the condition"):
+        fns.vanilla_step(half, 801, 781, emb, emb, (half, half[..., :1], 1.0))
 
 
 def test_chip_smoke_predicts_the_controlnet_route_at_sd15_width():

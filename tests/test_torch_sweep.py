@@ -341,16 +341,23 @@ def test_sweep_main_carries_approx(sweep_dir, monkeypatch):
         int((~full).sum()) > 0
 
 
-_UNPORTED_ARGV = {"frame_shard": ["--frame-shard", "2"],
-                  "frame_shard_mode": ["--frame-shard-mode", "gspmd"],
-                  "cfg_pair": ["--cfg-pair"]}
+# the JAX package's layout flags and the refusal that applies to each
+# outside torchrun: the GSPMD flavour is not ported (its ROADMAP.md list);
+# --frame-shard and --cfg-pair (the sweep's (data, cfg) layout) need a
+# torchrun world of their ranks per video
+_UNPORTED_ARGV = {"frame_shard": (["--frame-shard", "2"], "torchrun --nproc-per-node 2"),
+                  "frame_shard_mode": (["--frame-shard-mode", "gspmd"], "ROADMAP.md"),
+                  "cfg_pair": (["--cfg-pair"], "torchrun --nproc-per-node 2")}
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED))
+@pytest.mark.parametrize("flag", sorted(_UNPORTED_ARGV))
 def test_sweep_main_refuses_unported_flags(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # exits before it reads a file
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        sweep_main(_sweep_argv(str(tmp_path)) + _UNPORTED_ARGV[flag])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv, message = _UNPORTED_ARGV[flag]
+    assert (flag in UNPORTED) == (message == "ROADMAP.md")
+    with pytest.raises(SystemExit, match=message):
+        sweep_main(_sweep_argv(str(tmp_path)) + argv)
     assert not os.listdir(tmp_path)
 
 
