@@ -189,6 +189,25 @@ Phase 11 the multi-device layouts through the CLIs, each run ``python3 -m
          reference's name; (e) equal to (a) bit for bit (or within
          RERUN_TOL, said so); torchrun must exit 0 and leave no process.
 
+Phase 12 plain generation and the parity harness, on phase 3's pipeline
+         (rebuilt from its seed) and phases 7-11's model directory: (a)
+         ``sample_latents_plain`` at configs/t2v_camera.yaml's 100 steps on
+         the "leading" schedule, whose launches must equal
+         ``predicted_launches`` of its plain schedule (a vanilla step's
+         each); prints the seconds, the ms-per-step median (CUDA events)
+         and peak memory.  (b) its ``save_probs_path`` dump at phase 3's
+         4-step cut: launches equal to ``predicted_probs_launches`` (the
+         guidance blocks' motion modules leave their kernel for the plain
+         probability route), one map per guidance module of (4, 2, S,
+         heads, 16, 16) float32 whose rows sum to 1 within 1e-3, the
+         latents within RERUN_TOL of the undumped run; prints the dump's
+         host bytes.  (c) ``pipeline.parity.run_parity(workloads=("rgb",))``
+         with phase 8's i2v_rgb config and example as
+         ``<root>/configs/i2v_rgb.{yaml,jsonl}``, scored against phase 8's
+         video (same seed, 76739): one generated, one matched, PSNR and
+         SSIM at least PARITY_LIMITS.  The kernels line's ``plain_launches``
+         are (a)'s.
+
 The line before the last is the kernels JSON; the last line is the result
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result.  On its way out, whatever the outcome,
@@ -1568,8 +1587,9 @@ def reference_check(dev, wrappers) -> None:
     """The port on the card (bf16, kernels) against the port on the CPU
     (f32, plain versions, unfused) at a reduced depth that keeps the card's
     kernel shapes: SD1.5 channels 320/640, 8 heads (head dims 40/80), 16
-    frames, 16x16 latents; one guided and one vanilla step from the same
-    inputs, on the card's default (fused) path and on its "flash" path.
+    frames, 16x16 latents; one guided and one vanilla step and plain
+    sampling (``sample_plain``, 4 steps) from the same inputs, on the
+    card's default (fused) path and on its "flash" path.
     Then one linear-projection Transformer3DModel (320 channels, 8 heads),
     whose block takes kernel 6 on the fused path."""
     from motionclone_tpu_torch.config import NoiseScheduleConfig
@@ -1605,12 +1625,13 @@ def reference_check(dev, wrappers) -> None:
         with torch.no_grad():
             pred, _ = unet(mv(lat), t, mv(cond),
                            attention_impl=resolve_impl(impl, torch.device(d)))
+        plain = fns.sample_plain(mv(lat), mv(uncond), mv(cond))
         launches[name] = {n: w.launches for n, w in wrappers.items()}
         results[name] = {
             "rep_values": torch.cat([v.flatten() for v, _ in rep.values()]),
             "noise_pred": pred,
             "guided_update": guided - mv(lat), "vanilla_update": vanilla - mv(lat),
-            "loss": loss.reshape(1),
+            "plain_update": plain - mv(lat), "loss": loss.reshape(1),
         }
     log(f"reference launches, card fused path: {launches['card fused']}")
     for name in ("fused_spatial_transformer", "fused_temporal_module", "fused_resnet_block"):
@@ -1623,9 +1644,10 @@ def reference_check(dev, wrappers) -> None:
     # carry CFG, cond + 7.5 * (cond - uncond), which multiplies the error of
     # the small cond - uncond difference by 8.5, and the guidance gradient.
     # The fused path rounds to bf16 where the unfused one does, so both
-    # paths are held to the same tolerances.
+    # paths are held to the same tolerances; plain sampling (4 "leading"
+    # vanilla steps) to the vanilla step's.
     tols = {"rep_values": 3e-2, "noise_pred": 3e-2, "guided_update": 1e-1,
-            "vanilla_update": 1e-1, "loss": 1e-1}
+            "vanilla_update": 1e-1, "plain_update": 1e-1, "loss": 1e-1}
     for path in ("card fused", "card flash"):
         for key, tol in tols.items():
             a = results["cpu"][key].float()
@@ -3286,6 +3308,170 @@ def positive_prompt(path: str) -> str:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 12: plain generation, its probability dump and the parity harness
+# ---------------------------------------------------------------------------
+
+# phase 12 (c): phase 8's i2v_rgb video regenerated by run_parity, scored
+# against itself on disk
+PARITY_LIMITS = {"psnr_mean": 40.0, "ssim_mean": 0.99}
+
+
+def predicted_probs_launches(pipe, steps: int) -> dict:
+    """The launches of ``steps`` plain steps that dump the probabilities
+    (``sample_plain_probs``): a vanilla step's each, less what the guidance
+    blocks' motion modules launch on their own route at the CFG pair's
+    shape, from ``fused_route`` (the shapes alone): kernel 7, or kernel 3
+    once per attention block; each takes the plain probability route
+    instead, which launches no kernel."""
+    from motionclone_tpu_torch.models.unet_blocks import match_guidance
+
+    cfg = pipe.infer_cfg
+    guidance = tuple(cfg.motion_guidance_blocks)
+    out = {name: per_v * steps for name, (_, _, per_v) in PREDICTED_LAUNCHES.items()}
+    levels = len(pipe.unet_cfg.block_out_channels)
+    for i, block in enumerate(pipe.unet.up_blocks):
+        side = (cfg.height // 8) >> (levels - 1 - i)  # up block i's input side
+        for j, mm in enumerate(block.motion_modules or ()):
+            if not match_guidance(f"up_blocks.{i}.motion_modules.{j}", guidance):
+                continue
+            tt = mm.temporal_transformer
+            shape = (2, cfg.video_length, side, side, block.resnets[j].conv1.out_channels)
+            if tt.fused_route(shape, "cuda"):
+                out["fused_temporal_module"] -= steps
+            else:
+                out["temporal_fwd"] -= steps * len(tt.transformer_blocks[0].attention_blocks)
+    return out
+
+
+def compare_launches(tag: str, launches: dict, want: dict) -> None:
+    differs = [name for name in want if launches[name] != want[name]]
+    for name in want:
+        log(f"{tag} launches {name:25s} measured {launches[name]:5d} predicted "
+            f"{want[name]:5d}{'  DIFFERS' if name in differs else ''}")
+    if differs:
+        raise AssertionError(f"{tag}: launches differ from the prediction: {differs}")
+
+
+def plain_path(dev, wrappers, card: str, root: str) -> dict:
+    """Phase 12 on phase 3's pipeline (its seeded weights and token ids)
+    and phases 7-8's model directory in ``root``: (a)
+    ``sample_latents_plain`` at the full t2v_camera plain schedule, (b) its
+    ``save_probs_path`` dump at phase 3's 4-step cut against the undumped
+    run, (c) ``run_parity`` on phase 8's i2v_rgb example against phase 8's
+    video.  Returns (a)'s launches."""
+    import shutil
+
+    from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline
+    from motionclone_tpu_torch.pipeline.parity import run_parity
+
+    t0 = time.perf_counter()
+    pipe, ids, _ = build_pipeline(dev)
+    emb = pipe.encode_text(ids)
+    uncond, cond = emb[:1], emb[1:]
+    full_cfg = t2v_config(inference_steps=100, guidance_steps=50, warm_up_steps=10,
+                          cool_up_steps=10)
+    full = MotionClonePipeline(pipe.unet_cfg, pipe.sched_cfg, full_cfg, pipe.unet,
+                               device=dev, dtype=pipe.dtype)
+    n = len(full.fns.plain_timesteps)
+    log(f"plain: phase 3's pipeline set up in {time.perf_counter() - t0:.1f} s")
+
+    # (a) the full plain schedule
+    for w in wrappers.values():
+        w.launches = 0
+    marks = []
+
+    def on_step(i, guided):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = full.sample_latents_plain(uncond, cond, seed=3, on_step=on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = sorted(a.elapsed_time(b) for a, b in zip([start] + marks[:-1], marks))
+    shape = (1, full_cfg.video_length, full_cfg.height // 8, full_cfg.width // 8,
+             pipe.unet_cfg.in_channels)
+    if len(ms) != n or tuple(out.shape) != shape or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"plain (a): {len(ms)} steps, latents {tuple(out.shape)} (want "
+                             f"{shape}) or non-finite values")
+    compare_launches("plain (a)", launches, predicted_launches(
+        full.fns.schedule(plain=True), 0, False, False))
+    log(f"plain (a): sample_latents_plain, configs/t2v_camera.yaml's {n} steps on the "
+        f"\"leading\" schedule (t {full.fns.plain_timesteps[0]} .. "
+        f"{full.fns.plain_timesteps[-1]}), {full_cfg.width}x{full_cfg.height}x"
+        f"{full_cfg.video_length}, {str(pipe.dtype)[6:]}, random weights: "
+        f"{seconds:.2f} s, ms per step median {ms[len(ms) // 2]:.1f} (min {ms[0]:.1f}, "
+        f"max {ms[-1]:.1f}), peak device memory {peak_gb:.2f} GB [{card}]")
+    del full, out
+
+    # (b) the save_probs dump at phase 3's cut, against the undumped run
+    path = os.path.join(root, "plain_probs.npz")
+    steps = len(pipe.fns.plain_timesteps)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dumped = pipe.sample_latents_plain(uncond, cond, seed=3, save_probs_path=path)
+    torch.cuda.synchronize()
+    dump_s = time.perf_counter() - t0
+    compare_launches("plain (b) dump", {name: w.launches for name, w in wrappers.items()},
+                     predicted_probs_launches(pipe, steps))
+    undumped = pipe.sample_latents_plain(uncond, cond, seed=3)
+    ucfg = pipe.unet_cfg
+    n_rep = ((ucfg.layers_per_block + 1) * ucfg.motion_module.num_transformer_block
+             * len(ucfg.motion_module.attention_block_types))
+    with np.load(path) as d:
+        probs = {k: d[k] for k in d.files}
+    host_bytes = sum(v.nbytes for v in probs.values())
+    worst = max(float(np.abs(v.sum(-1) - 1.0).max()) for v in probs.values())
+    if len(probs) != n_rep or any(v.shape[:2] != (steps, 2) or v.dtype != np.float32
+                                  or not np.isfinite(v).all() for v in probs.values()):
+        raise AssertionError(f"plain (b): the dump holds {len(probs)} maps (want {n_rep}) "
+                             f"of {sorted({v.shape for v in probs.values()})}")
+    dev_l2 = rel_l2(dumped, undumped)
+    log(f"plain (b): save_probs_path at phase 3's cut ({steps} steps): {len(probs)} maps of "
+        f"{next(iter(probs.values())).shape} float32, {host_bytes} bytes on the host "
+        f"({os.path.getsize(path)} in the file), in {dump_s:.2f} s; rows sum to 1 within "
+        f"{worst:.2e} (limit 1e-3); latents against the undumped run: relative L2 "
+        f"{dev_l2:.3e} (limit {RERUN_TOL:.0e}; the dumped modules take the plain "
+        f"probability route) [{card}]")
+    if worst > 1e-3 or dev_l2 > RERUN_TOL:
+        raise AssertionError(f"plain (b): row sums off by {worst}, latents by {dev_l2}")
+    del pipe, dumped, undumped, probs
+    torch.cuda.empty_cache()
+
+    # (c) run_parity on phase 8's i2v_rgb example, scored against phase 8's video
+    reference = os.path.join(root, "out_rgb")
+    if not any(f.endswith(".mp4") for f in os.listdir(reference)):
+        raise AssertionError("plain (c) scores files on disk: phase 8 wrote no mp4 (cv2 "
+                             "absent?)")
+    os.makedirs(os.path.join(root, "configs"), exist_ok=True)
+    shutil.copy(os.path.join(root, "i2v_rgb.yaml"), os.path.join(root, "configs",
+                                                                 "i2v_rgb.yaml"))
+    shutil.copy(os.path.join(root, "examples_rgb.jsonl"),
+                os.path.join(root, "configs", "i2v_rgb.jsonl"))
+    t0 = time.perf_counter()
+    summary = run_parity(reference, os.path.join(root, "parity_out"), config_root=root,
+                         pretrained_model_path=os.path.join(root, "sd"), workloads=("rgb",),
+                         device=str(dev), verbose=False)
+    parity_s = time.perf_counter() - t0
+    log(f"plain (c): run_parity(workloads=('rgb',)) against phase 8's video in "
+        f"{parity_s:.1f} s: {json.dumps(summary)} [{card}]")
+    if (summary["generated"], summary["matched"]) != (1, 1) or any(
+            summary[k] < limit for k, limit in PARITY_LIMITS.items()):
+        raise AssertionError(f"plain (c): {summary} (limits {PARITY_LIMITS})")
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = {
     "flash_fwd": ("motionclone_tpu_torch/csrc/flash_attention.cu",
                   "motionclone_tpu/ops/flash_attention.py:204"),
@@ -3522,6 +3708,10 @@ def main() -> int:
         t0 = time.perf_counter()
         layouts_cli(dev, wrappers, card, root, reference, args.backend)
         log(f"phase layouts: {time.perf_counter() - t0:.1f} s")
+        # phase 12: plain generation, its probability dump and the parity harness
+        t0 = time.perf_counter()
+        plain = plain_path(dev, wrappers, card, root)
+        log(f"phase plain and parity: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3529,7 +3719,7 @@ def main() -> int:
         launches = sharded if name.endswith("_rect") else reference["launches"]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches[name],
-                            **rows[name]))
+                            plain_launches=plain[name], **rows[name]))
     log(json.dumps({"kernels": kernels}))
     return finish(card)
 

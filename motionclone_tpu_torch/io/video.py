@@ -64,6 +64,28 @@ def write_video(path: str, frames: np.ndarray, fps: int = 8) -> None:
         writer.release()
 
 
+def write_video_grid(path: str, videos: np.ndarray, n_rows: int = 6, fps: int = 8) -> None:
+    """Tile a batch of videos (B, F, H, W, 3), uint8 or float in [0, 1],
+    into one clip, ``n_rows`` videos to a row of the grid (the reference's
+    ``save_videos_grid``; the last row is padded with black), and encode
+    it with :func:`write_video`."""
+    if videos.ndim != 5:
+        raise ValueError(f"expected (B, F, H, W, 3), got {videos.shape}")
+    if videos.dtype != np.uint8:
+        videos = (np.clip(videos, 0.0, 1.0) * 255).astype(np.uint8)
+    b, f, h, w, c = videos.shape
+    cols = min(n_rows, b)
+    rows = -(-b // cols)
+    pad = rows * cols - b
+    if pad:
+        videos = np.concatenate([videos, np.zeros((pad, f, h, w, c), np.uint8)])
+    # (rows * cols, F, H, W, 3) -> (F, rows * H, cols * W, 3)
+    grid = (videos.reshape(rows, cols, f, h, w, c).transpose(2, 0, 3, 1, 4, 5)
+            .reshape(f, rows * h, cols * w, c))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    write_video(path, grid, fps=fps)
+
+
 def sample_indices(total_frames: int, video_length: int) -> np.ndarray:
     """``video_length`` frame indices spread evenly over the clip."""
     return np.linspace(0, total_frames - 1, video_length).astype(np.int64)

@@ -17,7 +17,16 @@ Port of the exact path of ``motionclone_tpu/pipeline/motionclone.py``
 * ``sample`` runs the guided phase then the vanilla phase as a Python loop,
   in chunks (below), through the cached steps with every flag true on the
   exact schedule; ``guided_step`` and ``vanilla_step`` are the exact steps
-  alone, for callers that drive one step.
+  alone, for callers that drive one step;
+* ``sample_plain`` is plain AnimateDiff generation without motion guidance
+  (the reference's legacy ``AnimationPipeline.__call__``): the diffusers
+  "leading" DDIM spacing (``plain_timesteps``), every step a vanilla step,
+  in chunks through the same cached steps (the build's uncond and step
+  caches act on it; the guidance cache has nothing to act on);
+  ``sample_plain_probs`` is its exact schedule that also returns every
+  step's temporal-attention probabilities of the guidance blocks from the
+  batch-2 CFG forward (the reference's ``save_probs`` dump), copied to the
+  host after each chunk.
 
 With a ``controlnet`` (``models/sparse_controlnet.py``, the i2v workloads)
 each function takes ``cn_cond = (cond, mask, scale)``: the frame-scattered
@@ -249,9 +258,17 @@ class SamplingFns:
     vanilla_step: Callable[..., torch.Tensor]
     sample: Callable[..., torch.Tensor]
     # schedule(chunk_steps=50, uncond_refresh=None, guidance_refresh=None,
-    # step_refresh=None) -> Schedule: the flags ``sample`` runs with
+    # step_refresh=None, plain=False) -> Schedule: the flags ``sample`` runs
+    # with (``sample_plain``'s with ``plain``)
     schedule: Callable[..., Schedule]
     timesteps: np.ndarray
+    # sample_plain(init_latents, uncond_emb, cond_emb, cn_cond=None,
+    # chunk_steps=50, on_step=None) -> latents
+    sample_plain: Callable[..., torch.Tensor]
+    # sample_plain_probs(init_latents, uncond_emb, cond_emb, cn_cond=None,
+    # chunk_steps=10) -> (latents, {module: float32 (steps, 2B, S, heads, F, F)})
+    sample_plain_probs: Callable[..., Tuple[torch.Tensor, Dict[str, np.ndarray]]]
+    plain_timesteps: np.ndarray
     frame_group: Optional[FrameGroup] = None  # None: unsharded
     cfg_pair: Optional[FrameGroup] = None  # None: both CFG halves on this rank
 
@@ -300,7 +317,8 @@ def make_sampling_fns(
     step_extrap: float = 0.0,
     cfg_pair: Optional[FrameGroup] = None,
 ) -> SamplingFns:
-    """Build extract / guided_step / vanilla_step / sample around ``unet``
+    """Build extract / guided_step / vanilla_step / sample / sample_plain /
+    sample_plain_probs around ``unet``
     (its parameters' device and dtype set where the work runs), sharded
     over ``frame_group``'s ranks when it has more than one, the CFG pair
     split over ``cfg_pair``'s two ranks when given, conditioned by
@@ -313,7 +331,8 @@ def make_sampling_fns(
     ``step_interval`` > 1 runs the full step every K steps (DDIM only in
     between); ``uncond_extrap`` and ``step_extrap`` in [0, 1] weight the
     linear extrapolation of the uncond and step caches (0 holds them).
-    ``sample`` can override each at run time."""
+    ``sample`` can override each at run time; ``sample_plain`` runs the
+    build's uncond and step caches (the JAX package's too)."""
     if uncond_interval < 1:
         raise ValueError(f"uncond_interval must be >= 1, got {uncond_interval}")
     if guidance_interval < 1:
@@ -357,6 +376,10 @@ def make_sampling_fns(
         infer_cfg.guidance_steps, infer_cfg.warm_up_steps, infer_cfg.cool_up_steps
     )
     g = infer_cfg.guidance_steps
+    # plain generation: the diffusers "leading" spacing over the whole range
+    ts_plain = build_timesteps(infer_cfg.inference_steps, sched_cfg.num_train_timesteps,
+                               steps_offset=sched_cfg.steps_offset, spacing="leading")
+    tp_plain = prev_timesteps(ts_plain)
 
     def local_cn(cn_cond: Optional[CnCond]) -> Optional[CnCond]:
         """The rank's frames of a full condition and mask; under a frame
@@ -571,11 +594,23 @@ def make_sampling_fns(
             noise_pred = carry.noise.extrapolate(t, w_s)
         carry.latents = ddim_step(ddim, noise_pred, t, tp, latents)
 
-    def chunks(chunk_steps: int) -> Iterator[Tuple[int, int]]:
-        """[lo, hi) of each chunk: the guided phase, then the vanilla one."""
+    def vanilla_chunk_step(carry: _ApproxCarry, t: int, tp: int, flags, uncond_emb,
+                           cond_emb, cn_cond):
+        """A vanilla step of a chunk: the pair step under a CFG pair (exact
+        only: every flag is true), else the cached step."""
+        if pair is not None:
+            carry.latents = vanilla_pair(carry.latents, t, tp, uncond_emb, cond_emb, cn_cond)
+        else:
+            vanilla_step_approx(carry, t, tp, flags, uncond_emb, cond_emb, cn_cond)
+
+    def chunks(chunk_steps: int, n_guided: int = g,
+               total: int = len(timesteps)) -> Iterator[Tuple[int, int]]:
+        """[lo, hi) of each chunk: the ``n_guided`` guided steps, then the
+        vanilla ones up to ``total`` (``sample``'s schedule by default;
+        plain generation has no guided step)."""
         if chunk_steps < 1:
             raise ValueError(f"chunk_steps must be >= 1, got {chunk_steps}")
-        for begin, end in ((0, g), (g, len(timesteps))):
+        for begin, end in ((0, n_guided), (n_guided, total)):
             for lo in range(begin, end, chunk_steps):
                 yield lo, min(lo + chunk_steps, end)
 
@@ -607,23 +642,28 @@ def make_sampling_fns(
         w_s = step_extrap if step_extrap_w is None else step_extrap_w
         return k_u, k_g, w_u, k_s, w_s
 
-    def flags_of(chunk_steps: int, k_u: int, k_g: int, k_s: int) -> Schedule:
+    def flags_of(chunk_steps: int, k_u: int, k_g: int, k_s: int, n_guided: int = g,
+                 total: int = len(timesteps)) -> Schedule:
+        """The chunk-relative flags of a schedule of ``n_guided`` guided
+        steps of ``total`` (see :func:`chunks`)."""
         full, fresh_u, fresh_g = [], [], []
-        for lo, hi in chunks(chunk_steps):
+        for lo, hi in chunks(chunk_steps, n_guided, total):
             size = hi - lo
             # the finer caches count executed (full) steps
             executed = _refresh_flags(size, k_s)
             full.append(executed)
             fresh_u.append(_refresh_flags(size, k_u, executed))
-            fresh_g.append(_refresh_flags(size, k_g, executed) if lo < g
+            fresh_g.append(_refresh_flags(size, k_g, executed) if lo < n_guided
                            else np.ones(size, bool))
         return Schedule(*(np.concatenate(f) for f in (full, fresh_u, fresh_g)))
 
     def schedule(chunk_steps: int = 50, uncond_refresh: Optional[int] = None,
                  guidance_refresh: Optional[int] = None,
-                 step_refresh: Optional[int] = None) -> Schedule:
+                 step_refresh: Optional[int] = None, plain: bool = False) -> Schedule:
         k_u, k_g, _, k_s, _ = intervals(uncond_refresh, guidance_refresh, None,
                                         step_refresh, None)
+        if plain:
+            return flags_of(chunk_steps, k_u, k_g, k_s, 0, len(ts_plain))
         return flags_of(chunk_steps, k_u, k_g, k_s)
 
     def sample(init_latents, uncond_emb, cond_emb, motion_rep: MotionRep,
@@ -689,17 +729,14 @@ def make_sampling_fns(
                 t, tp = int(timesteps[i]), int(t_prev[i])
                 step_flags = (flags.full[i], flags.uncond[i], flags.guidance[i],
                               float(w_u[i]), float(w_s[i]))
-                if pair is not None:  # exact only: every flag is true
-                    carry.latents = (
-                        guided_pair(carry.latents, t, tp, float(ramps[i]), uncond_emb,
-                                    cond_emb, motion_rep, cn_cond)[0] if guided
-                        else vanilla_pair(carry.latents, t, tp, uncond_emb, cond_emb, cn_cond))
-                elif guided:
+                if not guided:
+                    vanilla_chunk_step(carry, t, tp, step_flags, uncond_emb, cond_emb, cn_cond)
+                elif pair is not None:  # exact only: every flag is true
+                    carry.latents = guided_pair(carry.latents, t, tp, float(ramps[i]),
+                                                uncond_emb, cond_emb, motion_rep, cn_cond)[0]
+                else:
                     guided_step_approx(carry, t, tp, float(ramps[i]), step_flags,
                                        uncond_emb, cond_emb, motion_rep, cn_cond)
-                else:
-                    vanilla_step_approx(carry, t, tp, step_flags, uncond_emb, cond_emb,
-                                        cn_cond)
                 if on_step is not None:
                     on_step(i, guided)
             latents = carry.latents
@@ -716,10 +753,83 @@ def make_sampling_fns(
             os.remove(resume_path)
         return latents
 
+    def sample_plain(init_latents, uncond_emb, cond_emb, cn_cond: Optional[CnCond] = None,
+                     chunk_steps: int = 50,
+                     on_step: Optional[Callable[[int, bool], None]] = None):
+        """Plain generation on the "leading" schedule, every step a vanilla
+        step, in chunks of ``chunk_steps`` through the cached steps with the
+        build's uncond and step caches (``schedule(chunk_steps,
+        plain=True)``'s flags; every flag true without them);
+        ``on_step(index, False)`` is called after each step."""
+        cn_cond = local_cn(cn_cond)
+        flags = schedule(chunk_steps, plain=True)
+        w_u, w_s = (float(np.float32(w)) for w in (uncond_extrap, step_extrap))
+        latents = init_latents  # init_noise_sigma == 1 for DDIM
+        for lo, hi in chunks(chunk_steps, 0, len(ts_plain)):
+            carry = _ApproxCarry.start(latents)  # every chunk starts from empty caches
+            for i in range(lo, hi):
+                vanilla_chunk_step(carry, int(ts_plain[i]), int(tp_plain[i]),
+                                   (flags.full[i], flags.uncond[i], True, w_u, w_s),
+                                   uncond_emb, cond_emb, cn_cond)
+                if on_step is not None:
+                    on_step(i, False)
+            latents = carry.latents
+        return latents
+
+    def probs_step(latents, t: int, tp: int, uncond_emb, cond_emb, cn_cond):
+        """A vanilla step whose CFG forward (no cut) also returns the
+        guidance blocks' temporal-attention probabilities -> (new latents,
+        {module: (2B, S, heads, f, F)}, the unconditional rows first).  The
+        modules that return them take the plain probability route.  Under
+        a CFG pair each half runs its own forward and the pair exchanges
+        the predictions and the maps."""
+        b = latents.shape[0]
+        if pair is None:
+            res = pair_residuals(latents, t, uncond_emb, cond_emb, cn_cond)
+            lat, emb = torch.cat([latents, latents]), torch.cat([uncond_emb, cond_emb])
+        else:
+            emb = half_emb(uncond_emb, cond_emb)
+            lat, res = latents, residuals(latents, t, emb, cn_cond)
+        with torch.no_grad():
+            pred, probs = unet(lat, t, emb, guidance_blocks=guidance,
+                               attention_impl=plain_impl, frame_group=group,
+                               **residual_kwargs(res))
+        if pair is None:
+            uncond_pred, cond_pred = pred[:b], pred[b:]
+        else:
+            keys = sorted(probs)
+            uncond, cond = exchange_pair(pair, [pred] + [probs[k] for k in keys])
+            uncond_pred, cond_pred = uncond[0], cond[0]
+            probs = {k: torch.cat([u, c]) for k, u, c in zip(keys, uncond[1:], cond[1:])}
+        return ddim_step(ddim, combine(cond_pred, uncond_pred), t, tp, latents), probs
+
+    def sample_plain_probs(init_latents, uncond_emb, cond_emb,
+                           cn_cond: Optional[CnCond] = None, chunk_steps: int = 10):
+        """:func:`sample_plain`'s exact schedule through :func:`probs_step`
+        -> (latents, {module: float32 numpy (steps, 2B, S, heads, F, F)}).
+        Each chunk's maps go to the host before the next chunk runs; under
+        a frame group their query frames are gathered, so that every rank
+        holds the whole video's."""
+        cn_cond = local_cn(cn_cond)
+        latents, collected = init_latents, []
+        for lo, hi in chunks(chunk_steps, 0, len(ts_plain)):
+            steps = []
+            for i in range(lo, hi):
+                latents, probs = probs_step(latents, int(ts_plain[i]), int(tp_plain[i]),
+                                            uncond_emb, cond_emb, cn_cond)
+                steps.append(probs)
+            chunk = {k: torch.stack([p[k] for p in steps]) for k in steps[0]}
+            if group is not None:  # (steps, 2B, S, heads, f, F): query frames on axis 4
+                chunk = {k: group.gather_frames(v, 4) for k, v in chunk.items()}
+            collected.append({k: v.float().cpu().numpy() for k, v in chunk.items()})
+        return latents, {k: np.concatenate([c[k] for c in collected])
+                         for k in (collected[0] if collected else {})}
+
     return SamplingFns(extract=extract, guided_step=guided_step,
                        vanilla_step=vanilla_step, sample=sample,
                        timesteps=timesteps, frame_group=group, schedule=schedule,
-                       cfg_pair=pair)
+                       cfg_pair=pair, sample_plain=sample_plain,
+                       sample_plain_probs=sample_plain_probs, plain_timesteps=ts_plain)
 
 
 class MotionClonePipeline:
@@ -898,3 +1008,28 @@ class MotionClonePipeline:
                                cn_cond=self._cn_cond(cn_cond), chunk_steps=chunk_steps,
                                resume_path=resume_path, on_chunk=on_chunk,
                                resume_tag=resume_tag)
+
+    def sample_latents_plain(
+        self, uncond_emb: torch.Tensor, cond_emb: torch.Tensor, seed: Seeds,
+        cn_cond: Optional[CnCond] = None, save_probs_path: Optional[str] = None,
+        on_step: Optional[Callable[[int, bool], None]] = None,
+    ) -> torch.Tensor:
+        """Plain generation without motion guidance from the same seeded
+        noise as :meth:`sample_latents` -> final latents (the rank's frames
+        when sharded).  ``save_probs_path``: the reference's ``save_probs``
+        dump, through ``sample_plain_probs``: every step's
+        temporal-attention probabilities of the guidance blocks written by
+        ``np.savez`` (a key per module, the step index leading), by the
+        video's lead rank alone where it has several; ``on_step`` is
+        ``sample_plain``'s."""
+        latents = self.initial_latents(seed)
+        uncond_emb, cond_emb = uncond_emb.to(self.dtype), cond_emb.to(self.dtype)
+        cn_cond = self._cn_cond(cn_cond)
+        if save_probs_path is None:
+            return self.fns.sample_plain(latents, uncond_emb, cond_emb, cn_cond,
+                                         on_step=on_step)
+        latents, probs = self.fns.sample_plain_probs(latents, uncond_emb, cond_emb, cn_cond)
+        if all(g.rank == 0 for g in (self.fns.frame_group, self.fns.cfg_pair)
+               if g is not None):
+            np.savez(save_probs_path, **probs)
+        return latents

@@ -65,6 +65,24 @@ def sampled(layout, state_dict, unet_cfg, sched_cfg, infer_cfg, video_latents, n
     return {"rep": rep, "latents": latents, "loss": float(loss), "refused": refused}
 
 
+def plain_probs_rank(group, state_dict, unet_cfg, sched_cfg, infer_cfg, init, uncond, cond):
+    """``sample_plain_probs`` (chunks of 3 steps) with the two ranks as a
+    frame group and as a CFG pair -> {"frames": ..., "pair": ...}, each
+    (the latents gathered over the frames, the dump)."""
+    torch.set_num_threads(1)  # several ranks share the test worker's cores
+    pair = Layout.build(1, 2, 1, backend="gloo").pair
+    unet = _unet(state_dict, unet_cfg)
+    out = {}
+    for name, kw in (("frames", dict(frame_group=group)), ("pair", dict(cfg_pair=pair))):
+        fns = make_sampling_fns(unet, sched_cfg, infer_cfg, **kw)
+        local = init if fns.frame_group is None else group.local_frames(init)
+        latents, probs = fns.sample_plain_probs(local, uncond, cond, chunk_steps=3)
+        if fns.frame_group is not None:
+            latents = group.gather_frames(latents)
+        out[name] = (latents, probs)
+    return out
+
+
 def layouts_rank(pair_frames, cases):
     """Every layout of the 4 ranks on this rank: (a) cfg 2 x frames 2 (the
     layout ``launch`` built), (b) data 2 x cfg 2 (data group d runs

@@ -308,6 +308,9 @@ def test_controlnet_under_a_frame_group_raises(unet_pair, models):
         fns.guided_step(lat[:, :F_ // 2], 801, 781, 1.0, emb, emb, rep)
     with pytest.raises(ValueError, match="need cn_cond on every call"):
         fns.vanilla_step(lat[:, :F_ // 2], 801, 781, emb, emb)
+    for plain in (fns.sample_plain, fns.sample_plain_probs):
+        with pytest.raises(ValueError, match="need cn_cond on every call"):
+            plain(lat[:, :F_ // 2], emb, emb)
     half = torch.zeros(B, F_ // 2, HW, HW, 4)
     with pytest.raises(ValueError, match="full 4 frames of the condition"):
         fns.vanilla_step(half, 801, 781, emb, emb, (half, half[..., :1], 1.0))
