@@ -99,6 +99,18 @@ Phase 7  the t2v CLI: the port's ``cli.t2v_main`` on the card, as a user runs
          reference's name, and the motion representation's .npz must carry
          its meta; a second run must reuse it.  Prints the phase times, peak
          memory and seconds per video beside the card's name and power limit.
+Phase 7b the assembler's optional merges, in phase 7's model directory:
+         a DreamBooth LDM checkpoint (f16) whose UNet carries its non-EMA
+         weights and differing ``model_ema.*`` shadows, a kohya image LoRA
+         (two UNet linears, a UNet 1x1 conv, two CLIP linears) and two
+         motion LoRAs (alphas 1.0 and 0.5), through
+         ``weights.load.assemble_state_dicts(..., dreambooth_extract_ema=
+         True)`` and ``load_into`` onto the card, where every key must equal
+         its host reference bit for bit (the merges in f32, cast as the
+         assembler casts them; the image layers the EMA shadows, never the
+         non-EMA weights); then phase 3's 4-step cut on those weights, whose
+         launches must equal ``predicted_launches`` and whose outputs must
+         be finite.  Prints its seconds and peak memory.
 Phase 8  the i2v CLI: ``cli.i2v_main`` on the card for both SparseCtrl
          flavours, from phase 7's model directory plus a random adapter
          LoRA (diffusers naming, every spatial q/k/v/out projection), a
@@ -175,12 +187,15 @@ Phase 11 the multi-device layouts through the CLIs, each run ``python3 -m
          sharing card 0: no speed figure; ``--backend nccl``: ``--device
          cuda``, one card per rank, which (b) and (d) need 4 of) on phases
          7-10's model directory and weights cache, every schedule cut to
-         LAYOUT_CUT, phase 3's 4 steps (a line says so): (a) ``t2v_main`` (2 ranks), (b)
+         LAYOUT_CUT, 2 steps, 1 guided (a line says so): (a) ``t2v_main``
+         (2 ranks), (b)
          ``t2v_main --cfg-pair`` (4 ranks: (cfg, frames)), (c) ``i2v_main``
          i2v_rgb (2 ranks; the controlnet's motion modules on kernel 3r),
          (d) ``sweep_main`` on 2 examples (4 ranks: data 2 x frames 2), (e)
          ``serve_main`` with one job POSTed to rank 0's server, which is
-         then stopped.  Each rank's launches must equal
+         then stopped; (a), (c), (e) in one torchrun call and (b), (d) in
+         another, each call's later CLIs on the world its first one joins.
+         Each rank's launches must equal
          ``predicted_layout_launches`` (its CFG half's under (b)); every
          rank of a video must gather the same latents, within SHARD_TOLS
          of the unsharded CLI run at the same cut (run first, in this
@@ -188,6 +203,8 @@ Phase 11 the multi-device layouts through the CLIs, each run ``python3 -m
          one 16 x 512 x 512 x 3 uint8 mp4, not constant, under the
          reference's name; (e) equal to (a) bit for bit (or within
          RERUN_TOL, said so); torchrun must exit 0 and leave no process.
+         Each call's line splits its seconds (torchrun and imports, the
+         CLI, the exit), each rank's its load by step.
 
 Phase 12 plain generation and the parity harness, on phase 3's pipeline
          (rebuilt from its seed) and phases 7-11's model directory: (a)
@@ -2111,6 +2128,218 @@ def t2v_cli(dev, wrappers, card: str, root: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the assembler's optional merges, loaded onto the card
+# ---------------------------------------------------------------------------
+
+# the kohya image LoRA's strength (the assembler's default) and the two
+# motion LoRAs' alphas, merged in this order
+IMAGE_LORA_ALPHA = 0.8
+MOTION_LORA_ALPHAS = (1.0, 0.5)
+LDM = "model.diffusion_model."
+
+
+def ldm_unet_keys(keys, layers: int) -> dict:
+    """{diffusers key: LDM key} for the 2D UNet's image layers: the keys of
+    a DreamBooth (CompVis) checkpoint that ``weights.ldm.convert_ldm_unet``
+    maps back onto ``keys``.  Raises on a key it cannot place."""
+    res = {"norm1": "in_layers.0", "conv1": "in_layers.2", "time_emb_proj": "emb_layers.1",
+           "norm2": "out_layers.0", "conv2": "out_layers.3", "conv_shortcut": "skip_connection"}
+    flat = {"time_embedding.linear_1": "time_embed.0", "time_embedding.linear_2": "time_embed.2",
+            "conv_in": "input_blocks.0.0", "conv_norm_out": "out.0", "conv_out": "out.2"}
+    with_attn = {k.split(".")[1] for k in keys if k.startswith("up_blocks.") and ".attentions." in k}
+    out = {}
+    for k in keys:
+        p = k.split(".")
+        head, leaf, n = ".".join(p[:-1]), p[-1], layers + 1
+        if head in flat:
+            name = f"{flat[head]}.{leaf}"
+        elif p[0] == "mid_block":
+            name = (f"middle_block.{0 if p[2] == '0' else 2}.{res[p[3]]}.{leaf}"
+                    if p[1] == "resnets" else f"middle_block.1.{'.'.join(p[3:])}")
+        elif p[0] in ("down_blocks", "up_blocks") and p[2] in ("downsamplers", "upsamplers"):
+            b = int(p[1])
+            name = (f"input_blocks.{(b + 1) * n}.0.op.{leaf}" if p[0] == "down_blocks" else
+                    f"output_blocks.{b * n + layers}.{2 if p[1] in with_attn else 1}.conv.{leaf}")
+        elif p[0] in ("down_blocks", "up_blocks") and p[2] in ("resnets", "attentions"):
+            i = (1 if p[0] == "down_blocks" else 0) + int(p[1]) * n + int(p[3])
+            blocks = "input_blocks" if p[0] == "down_blocks" else "output_blocks"
+            name = (f"{blocks}.{i}.0.{res[p[4]]}.{leaf}" if p[2] == "resnets"
+                    else f"{blocks}.{i}.1.{'.'.join(p[4:])}")
+        else:
+            raise AssertionError(f"merged weights: no LDM key for {k}")
+        out[k] = LDM + name
+    return out
+
+
+def lora_pair(gen, out_ch: int, in_ch: int, rank: int, conv: bool = False) -> tuple:
+    """Seeded random float32 (up, down), as write_adapter_lora draws them."""
+    tail = (1, 1) if conv else ()
+    return (torch.randn((out_ch, rank) + tail, generator=gen) * 0.01,
+            torch.randn((rank, in_ch) + tail, generator=gen) * in_ch ** -0.5)
+
+
+def host_merge(w, merges):
+    """The host reference of a merged weight: per (alpha, up, down), in
+    order, ``w + alpha * (up @ down)`` in float32 (numpy, as the assembler
+    computes it), cast back to ``w``'s dtype; then bf16, as the card holds
+    it."""
+    for alpha, up, down in merges:
+        delta = up.float().numpy().reshape(up.shape[0], -1) @ down.float().numpy().reshape(
+            down.shape[0], -1)
+        w = torch.from_numpy(w.float().numpy() + alpha * delta.reshape(w.shape)).to(w.dtype)
+    return w.to(torch.bfloat16)
+
+
+def merged_weights(dev, wrappers, card: str, root: str, saved: dict) -> None:
+    """Phase 7b: ``weights.load.assemble_state_dicts`` with every optional
+    merge on phase 7's model directory (SD1.5 + AnimateDiff v3 width),
+    written beside it: a DreamBooth LDM checkpoint (f16) whose UNet carries
+    its non-EMA weights and differing ``model_ema.*`` shadows, taken with
+    ``dreambooth_extract_ema``; a kohya image LoRA (two UNet linears, a UNet
+    1x1 conv, two text-encoder linears); two motion LoRAs on the motion
+    modules' projections (write_adapter_lora's format; both on every to_q).
+    The UNet, VAE and CLIP are loaded with ``load_into`` and moved to the
+    card, where every key must equal its host reference (``host_merge``;
+    the image layers the shadows, never the non-EMA weights); then the main
+    path (phase 3's cut) runs on them, its launches equal to
+    ``predicted_launches`` and its outputs finite (``drive``)."""
+    import re
+
+    from motionclone_tpu_torch.config import NoiseScheduleConfig
+    from motionclone_tpu_torch.models.clip_text import CLIPTextModel
+    from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
+    from motionclone_tpu_torch.models.vae import AutoencoderKL
+    from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline
+    from motionclone_tpu_torch.weights.io import save_safetensors
+    from motionclone_tpu_torch.weights.load import assemble_state_dicts, load_into
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    unet_cfg, vae_cfg, clip_cfg = sd15_configs()
+    unet, clip = saved["unet"], saved["text_encoder"]
+    gen = torch.Generator().manual_seed(2025)
+    dev_gen = torch.Generator(device=dev).manual_seed(2025)
+    # the DreamBooth checkpoint: the image layers in f16 under their LDM
+    # keys, and EMA shadows 0.95 w + N(0, 1e-3) beside them
+    keys = ldm_unet_keys([k for k in unet if "motion_modules." not in k],
+                         unet_cfg.layers_per_block)
+    db, want = {}, {"unet": dict(unet), "vae": saved["vae"], "text_encoder": dict(clip)}
+    non_ema = {}
+    for k, ldm in keys.items():
+        w = unet[k].to(dev)
+        db[ldm] = non_ema[k] = w.half().cpu()
+        shadow = (0.95 * w.float() + 1e-3 * torch.randn(w.shape, generator=dev_gen, device=dev))
+        db["model_ema." + "".join(ldm.split(".")[1:])] = want["unet"][k] = shadow.half().cpu()
+    torch.save({"state_dict": db}, os.path.join(root, "dreambooth_ema.ckpt"))
+    n_ema = sum(k.startswith("model_ema.") for k in db)
+    del db
+    # the kohya image LoRA
+    merges = {}
+    conv = next(k for k in sorted(keys) if k.endswith("proj_in.weight") and unet[k].ndim == 4)
+    image = {}
+    for prefix, sub, k in (
+            ("lora_unet", "unet", "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight"),
+            ("lora_unet", "unet", "up_blocks.3.attentions.2.transformer_blocks.0.attn2.to_k.weight"),
+            ("lora_unet", "unet", conv),
+            ("lora_te", "text_encoder", "text_model.encoder.layers.0.self_attn.q_proj.weight"),
+            ("lora_te", "text_encoder",
+             f"text_model.encoder.layers.{clip_cfg.num_layers - 1}.mlp.fc1.weight")):
+        w = want[sub][k]
+        up, down = lora_pair(gen, w.shape[0], w.shape[1], 8, conv=w.ndim == 4)
+        name = f"{prefix}_{k[:-len('.weight')].replace('.', '_')}"
+        image.update({name + ".lora_up.weight": up, name + ".lora_down.weight": down,
+                      name + ".alpha": torch.tensor(8.0)})
+        merges.setdefault((sub, k), []).append((IMAGE_LORA_ALPHA, up, down))
+    save_safetensors(os.path.join(root, "image_lora.safetensors"), image)
+    # the motion LoRAs: every to_q in both, then to_v in the first and
+    # to_out in the second
+    motion_paths = []
+    for i, (alpha, projs) in enumerate(zip(MOTION_LORA_ALPHAS,
+                                           (("to_q", "to_v"), ("to_q", "to_out.0")))):
+        lora = {}
+        for k, w in unet.items():
+            m = re.fullmatch(r"(.*motion_modules\..*attention_blocks\.\d+)\.(to_\w+(?:\.0)?)"
+                             r"\.weight", k)
+            if m is None or m.group(2) not in projs:
+                continue
+            up, down = lora_pair(gen, w.shape[0], w.shape[1], 16)
+            prefix = f"{m.group(1)}.processor.{m.group(2).replace('.0', '')}_lora"
+            lora.update({prefix + ".down.weight": down, prefix + ".up.weight": up})
+            merges.setdefault(("unet", k), []).append((alpha, up, down))
+        motion_paths.append(os.path.join(root, f"motion_lora_{i}.ckpt"))
+        torch.save(lora, motion_paths[-1])
+    for (sub, k), ms in merges.items():
+        want[sub][k] = host_merge(want[sub][k], ms)
+    write_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    sds = assemble_state_dicts(
+        os.path.join(root, "sd"), motion_module_path=os.path.join(root, "mm.ckpt"),
+        dreambooth_path=os.path.join(root, "dreambooth_ema.ckpt"),
+        lora_model_path=os.path.join(root, "image_lora.safetensors"),
+        lora_alpha=IMAGE_LORA_ALPHA,
+        motion_lora_configs=list(zip(motion_paths, MOTION_LORA_ALPHAS)),
+        dreambooth_extract_ema=True)
+    dtype = torch.bfloat16
+    modules = {
+        "unet": load_into(lambda: UNet3DConditionModel(unet_cfg), sds["unet"], dtype, "unet"),
+        "vae": load_into(lambda: AutoencoderKL(vae_cfg), sds["vae"], dtype, "vae"),
+        "text_encoder": load_into(lambda: CLIPTextModel(clip_cfg), sds["text_encoder"], dtype,
+                                  "text_encoder")}
+    del sds
+    modules = {name: m.to(dev) for name, m in modules.items()}
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    # every key on the card against its host reference
+    faults = []
+    for name, module in modules.items():
+        got = module.state_dict()
+        ref = {k: v for k, v in want[name].items()
+               if not k.endswith(("pos_encoder.pe", "position_ids"))}
+        if sorted(got) != sorted(ref):
+            faults.append(f"{name}: other keys than the host reference")
+            continue
+        for k, v in ref.items():
+            if not torch.equal(got[k], v.to(dtype).to(dev)):
+                faults.append(f"{name} {k} differs from the host reference")
+            elif name == "unet" and k in non_ema and torch.equal(
+                    got[k], non_ema[k].to(dtype).to(dev)):
+                faults.append(f"unet {k} is the non-EMA weight, not its shadow")
+    if faults:
+        raise AssertionError(f"merged weights: {len(faults)} faults, e.g. {faults[:5]}")
+    log(f"merged weights: every key of the UNet, VAE and CLIP equals its host reference on "
+        f"the card, bit for bit in bf16: {len(merges)} merged (3 UNet and 2 CLIP kohya "
+        f"targets, {len(merges) - 5} motion-LoRA projections), {len(keys)} UNet image layers "
+        f"from {n_ema} EMA shadows; written in {write_s:.1f} s, assembled and loaded in "
+        f"{load_s:.1f} s")
+
+    cfg = t2v_config()
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    ids = torch.randint(0, clip_cfg.vocab_size, (2, 77), generator=gen, device=dev)
+    video = torch.rand(cfg.video_length, cfg.height, cfg.width, 3, generator=gen,
+                       device=dev) * 2 - 1
+    pipe = MotionClonePipeline(unet_cfg, NoiseScheduleConfig(), cfg, modules["unet"],
+                               vae=modules["vae"], text_encoder=modules["text_encoder"],
+                               device=dev, dtype=dtype)
+    run = drive(pipe, ids, video, wrappers)
+    want_launches = predicted_launches(pipe.fns.schedule(), cfg.guidance_steps, True, False)
+    differs = [f"{n} {run['launches'][n]}/{c}" for n, c in want_launches.items()
+               if run["launches"][n] != c]
+    missing = [n for n in CLI_KERNELS if run["launches"][n] <= 0]
+    if differs or missing:
+        raise AssertionError(f"merged weights: launches (measured/predicted) differ: {differs}; "
+                             f"never launched: {missing}")
+    counts = ", ".join(f"{n} {run['launches'][n]}" for n in CLI_KERNELS)
+    log(f"merged weights: main path at phase 3's cut ({cfg.inference_steps} steps, "
+        f"{cfg.guidance_steps} guided) on the merged weights, launches as predicted "
+        f"({counts}), outputs finite")
+    del pipe, modules, run
+    torch.cuda.empty_cache()
+    log(f"merged weights: {time.perf_counter() - t0:.1f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the i2v CLI at SD1.5 width, both SparseCtrl flavours
 # ---------------------------------------------------------------------------
 
@@ -2976,10 +3205,11 @@ def sweep_cli(dev, wrappers, card: str, root: str, t2v: dict) -> None:
 # ---------------------------------------------------------------------------
 
 # every run of phase 11 (and its unsharded references) cuts the schedule to
-# phase 3's: 4 steps, 2 guided, warm-up and cool-down 1 (at 10 steps, 5
-# guided, phase 11 took 504 s of the script's 1200 on one H100 80GB HBM3:
-# each gloo step waits seconds on the host's collectives; PERF.md)
-LAYOUT_CUT = {"inference_steps": 4, "guidance_steps": 2, "warm_up_steps": 1,
+# 2 steps, 1 guided and 1 vanilla (full guidance weight): each gloo step of
+# ranks sharing one card waits seconds on the host's collectives (on one
+# H100 80GB HBM3, phase 11 took 504 s at 10 steps and 348-378 s at 4;
+# PERF.md), and one step of each kind drives every sharded path
+LAYOUT_CUT = {"inference_steps": 2, "guidance_steps": 1, "warm_up_steps": 1,
               "cool_up_steps": 1}
 LAYOUT_SHARDS = 2  # --frame-shard of every run
 # one controlnet pass per rank of a frame-sharded run: its motion modules
@@ -3011,13 +3241,20 @@ def predicted_layout_launches(guided: int, vanilla: int, extraction: bool, contr
     return out
 
 
-def layout_rank_main(kind: str, result_dir: str, argv: list) -> int:
-    """One rank of a phase-11 run (``chip_smoke.py --layout-rank KIND
-    --result-dir DIR -- ARGV`` under torchrun): the CLI ``kind`` (t2v, i2v,
-    sweep or serve) on ARGV with every launch count set to 0 just before
-    and read just after; writes the rank's counts, gathered latents,
-    timings and memory to DIR/rank<r>.pt."""
+def layout_rank_main(kinds: list, result_dir: str, argvs: list, entered_at: float) -> int:
+    """One rank of a phase-11 torchrun call (``chip_smoke.py --layout-rank
+    KIND[,KIND...] --result-dir DIR -- ARGV [-- ARGV ...]``): each CLI
+    ``kinds[i]`` (t2v, i2v, sweep or serve) on ``argvs[i]`` in turn, with
+    every launch count set to 0 just before and read just after; writes the
+    rank's counts, gathered latents, timings, memory and wall-clock marks
+    (``entered_at``: the script's code reached, its imports done) to
+    DIR/run<i>_rank<r>.pt.  The first CLI joins the world from torchrun's
+    variables as a user's run does; its ``Layout.close`` waits until the
+    call's last CLI has run, so the later ones build their layouts on the
+    same world."""
     from motionclone_tpu_torch import cli
+    from motionclone_tpu_torch.parallel import frames
+    from motionclone_tpu_torch.pipeline import runner
     from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3025,8 +3262,8 @@ def layout_rank_main(kind: str, result_dir: str, argv: list) -> int:
     rank = int(os.environ["RANK"])
     stubbed = stub_codec(reference_clip(16, 512))
     wrappers = kernel_wrappers()
-    gathered, runtimes = [], []
-    gather, setup = MotionClonePipeline.gather_latents, cli._setup
+    gathered, runtimes, layouts = [], [], []
+    gather, setup, close = MotionClonePipeline.gather_latents, cli._setup, frames.Layout.close
 
     def spy_gather(self, latents):
         out = gather(self, latents)
@@ -3038,32 +3275,58 @@ def layout_rank_main(kind: str, result_dir: str, argv: list) -> int:
         return runtimes[-1]
 
     MotionClonePipeline.gather_latents, cli._setup = spy_gather, spy_setup
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    served = None
-    if kind == "serve":
-        with open(os.path.join(result_dir, "job.json")) as fh:
-            served = serve_one_job(cli, argv, json.load(fh)) if rank == 0 else \
-                cli.serve_main(argv)
-        paths = [] if served is None else [served["record"]["output_path"]]
-    else:
-        main = {"t2v": cli.t2v_main, "i2v": cli.i2v_main, "sweep": cli.sweep_main}[kind]
-        _, paths = main(argv)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    rt = runtimes[-1]
-    layout = rt.layout
-    timings = {k: v for k, v in rt.timings.items()}
-    torch.save(dict(
-        rank=rank, launches={n: w.launches for n, w in wrappers.items()},
-        latents=gathered, paths=paths, seconds=seconds, load_seconds=rt.load_seconds,
-        peak_gb=torch.cuda.max_memory_allocated() / 1e9, timings=timings,
-        half=None if layout.pair is None else layout.pair.rank,
-        data_index=layout.data_index, lead=layout.is_lead, served=served,
-        written=stubbed if layout.is_lead else None,
-    ), os.path.join(result_dir, f"rank{rank}.pt"))
+    frames.Layout.close = lambda self: layouts.append(self)
+    # seconds of the runtime's set-up by step (the rank's load)
+    spans = defaultdict(float)
+
+    def span(name, fn):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spans[name] += time.perf_counter() - t
+        return timed
+
+    frames.Layout.from_env = staticmethod(span("layout", frames.Layout.from_env))
+    frames.FrameGroup.barrier = span("barriers", frames.FrameGroup.barrier)
+    runner.load_params = span("cache read", runner.load_params)
+    runner.load_into = span("modules", runner.load_into)
+    MotionClonePipeline.__init__ = span("pipeline", MotionClonePipeline.__init__)
+    for i, (kind, argv) in enumerate(zip(kinds, argvs)):
+        for w in wrappers.values():
+            w.launches = 0
+        for held in (gathered, spans) + (() if stubbed is None else (stubbed,)):
+            held.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0, cli_started_at = time.perf_counter(), time.time()
+        served = None
+        if kind == "serve":
+            with open(os.path.join(result_dir, "job.json")) as fh:
+                served = serve_one_job(cli, argv, json.load(fh)) if rank == 0 else \
+                    cli.serve_main(argv)
+            paths = [] if served is None else [served["record"]["output_path"]]
+        else:
+            main = {"t2v": cli.t2v_main, "i2v": cli.i2v_main, "sweep": cli.sweep_main}[kind]
+            _, paths = main(argv)
+        torch.cuda.synchronize()
+        seconds, cli_ended_at = time.perf_counter() - t0, time.time()
+        rt = runtimes[-1]
+        layout = rt.layout
+        torch.save(dict(
+            rank=rank, launches={n: w.launches for n, w in wrappers.items()},
+            latents=list(gathered), paths=paths, seconds=seconds,
+            load_seconds=rt.load_seconds, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            timings=dict(rt.timings), half=None if layout.pair is None else layout.pair.rank,
+            data_index=layout.data_index, lead=layout.is_lead, served=served,
+            written=dict(stubbed) if stubbed is not None and layout.is_lead else None,
+            entered_at=entered_at, cli_started_at=cli_started_at, cli_ended_at=cli_ended_at,
+            spans=dict(spans), cache=rt.weights_cache_state,
+        ), os.path.join(result_dir, f"run{i}_rank{rank}.pt"))
+        del rt, layout
+        runtimes.clear()  # the next CLI loads its own models
+    for layout in layouts:  # the first CLI's closes the world
+        close(layout)
     return 0
 
 
@@ -3092,24 +3355,28 @@ def serve_one_job(cli, argv: list, job: dict) -> dict:
     return {"record": record, "joined": not main.is_alive()}
 
 
-def run_layout(tag: str, kind: str, ranks: int, argv: list, root: str, job=None) -> tuple:
-    """``kind``'s CLI on ``argv`` under ``python3 -m torch.distributed.run
-    --standalone --nproc-per-node ranks``, each rank this script in
-    ``--layout-rank`` mode; returns every rank's result (rank order) and the
-    seconds of the call.  Raises with the output's end if torchrun fails or
-    outlives LAYOUT_RUN_TIMEOUT_S, or if a process of the call is left."""
+def run_layouts(tag: str, runs: list, ranks: int, root: str, card: str, job=None) -> list:
+    """The CLIs of ``runs`` ((kind, argv) pairs), in turn, in one call of
+    ``python3 -m torch.distributed.run --standalone --nproc-per-node
+    ranks``, each rank this script in ``--layout-rank`` mode (a torchrun
+    start costs seconds of imports); returns each run's results, every
+    rank's in rank order.  Raises with the output's end if torchrun fails
+    or outlives LAYOUT_RUN_TIMEOUT_S, or if a process of the call is left."""
     import signal
 
-    out = os.path.join(root, "ranks_" + tag.split()[0].strip("()"))
+    out = os.path.join(root, "ranks_" + "".join(c for c in tag if c.isalnum()))
     os.makedirs(out)
     if job is not None:
         with open(os.path.join(out, "job.json"), "w") as fh:
             json.dump(job, fh)
     here = os.path.abspath(__file__)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(ranks), here, "--layout-rank", kind, "--result-dir", out, "--"] + argv
+           str(ranks), here, "--layout-rank", ",".join(kind for kind, _ in runs),
+           "--result-dir", out]
+    for _, argv in runs:
+        cmd += ["--"] + argv
     logpath = os.path.join(out, "log.txt")
-    t0 = time.perf_counter()
+    t0, launched_at = time.perf_counter(), time.time()
     with open(logpath, "w") as fh:
         proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
                                 cwd=os.path.dirname(here), start_new_session=True)
@@ -3119,7 +3386,7 @@ def run_layout(tag: str, kind: str, ranks: int, argv: list, root: str, job=None)
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
             code = "killed at the time limit"
-    seconds = time.perf_counter() - t0
+    seconds, exited_at = time.perf_counter() - t0, time.time()
     with open(logpath) as fh:
         text = fh.read()
     left = [cmd for _, cmd in descendants() if "--layout-rank" in cmd]
@@ -3129,15 +3396,22 @@ def run_layout(tag: str, kind: str, ranks: int, argv: list, root: str, job=None)
     for line in text.splitlines():
         if line.startswith(("[reference", "[sweep")) or line.endswith("is done"):
             log(f"  {tag} | {line}")
-    results = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-               for r in range(ranks)]
-    return results, seconds
+    results = [[torch.load(os.path.join(out, f"run{i}_rank{r}.pt"), weights_only=False)
+                for r in range(ranks)] for i in range(len(runs))]
+    mark = lambda key, pick, res: pick(r[key] for r in res) - launched_at
+    spans = ", ".join(f"{kind} {mark('cli_started_at', min, res):.1f}-"
+                      f"{mark('cli_ended_at', max, res):.1f} s"
+                      for (kind, _), res in zip(runs, results))
+    log(f"{tag}: {ranks} ranks, {seconds:.1f} s of torchrun [{card}]: every rank's code "
+        f"reached (torchrun, interpreter, imports) at {mark('entered_at', max, results[0]):.1f}"
+        f" s; the CLIs {spans}; torchrun's exit "
+        f"{exited_at - launched_at - mark('cli_ended_at', max, results[-1]):.1f} s later")
+    return results
 
 
-def check_layout_run(tag: str, results: list, seconds: float, refs: list, control: float,
-                     controlnet: bool, card: str, root: str, out: str, names: list,
-                     stubbed) -> list:
-    """Phase 11's checks of one run: each rank's launches against
+def check_layout_run(tag: str, results: list, refs: list, control: float, controlnet: bool,
+                     root: str, out: str, names: list, stubbed) -> list:
+    """Phase 11's checks of one CLI run: each rank's launches against
     ``predicted_layout_launches`` (3r at least once); every rank of a video
     gathered the same latents, within SHARD_TOLS of the unsharded run at the
     same cut (``refs``: one per data group's example), printed beside phase
@@ -3147,7 +3421,6 @@ def check_layout_run(tag: str, results: list, seconds: float, refs: list, contro
     g = LAYOUT_CUT["guidance_steps"]
     v = LAYOUT_CUT["inference_steps"] - g
     faults, median = [], (lambda ms: sorted(ms)[len(ms) // 2] if ms else float("nan"))
-    log(f"{tag}: {len(results)} ranks, {seconds:.1f} s of torchrun [{card}]")
     for res in results:
         r, t = res["rank"], res["timings"]
         want = predicted_layout_launches(g, v, "extract" in t, controlnet, res["half"])
@@ -3160,8 +3433,12 @@ def check_layout_run(tag: str, results: list, seconds: float, refs: list, contro
             f"launches {'as predicted' if not differs else 'DIFFER: ' + ', '.join(differs)} "
             f"(3r {res['launches']['temporal_fwd_rect']}, 4r "
             f"{res['launches']['temporal_bwd_rect']}, extraction "
-            f"{'ran' if 'extract' in t else 'cached'}); load {res['load_seconds']:.1f} s, CLI "
-            f"{res['seconds']:.1f} s, sampling {t['sample']:.2f} s, ms per guided step median "
+            f"{'ran' if 'extract' in t else 'cached'}); load {res['load_seconds']:.1f} s "
+            f"(weights cache {res['cache']}; "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in res["spans"].items()) + "), CLI "
+            f"{res['seconds']:.1f} s, text {t.get('text', 0.0):.2f} s, extraction "
+            f"{t.get('extract', 0.0):.2f} s, decode + write {t.get('decode_write', 0.0):.2f} s, "
+            f"sampling {t['sample']:.2f} s, ms per guided step median "
             f"{median(t['guided_ms']):.1f}, per vanilla step {median(t['vanilla_ms']):.1f}; "
             f"peak {res['peak_gb']:.2f} GB")
     latents = {}
@@ -3200,7 +3477,8 @@ def layouts_cli(dev, wrappers, card: str, root: str, reference: dict, backend: s
     under --sharded-only), schedules cut to LAYOUT_CUT: (a) t2v (2 ranks),
     (b) t2v with --cfg-pair (4), (c) i2v_rgb (2; the controlnet's 3r), (d)
     the sweep of 2 examples (4: data 2), (e) the server with one job (2),
-    each against the unsharded CLI run at the same cut, (e) against (a)."""
+    each against the unsharded CLI run at the same cut, (e) against (a);
+    (a), (c) and (e) in one torchrun call, (b) and (d) in another."""
     import shutil
 
     from motionclone_tpu_torch import cli
@@ -3250,7 +3528,7 @@ def layouts_cli(dev, wrappers, card: str, root: str, reference: dict, backend: s
     cut = (f"schedules cut from configs/t2v_camera.yaml's 100 steps (50 guided) and "
            f"configs/i2v_rgb.yaml's 100 (40 guided) to {LAYOUT_CUT['inference_steps']} "
            f"({LAYOUT_CUT['guidance_steps']} guided, warm-up and cool-down "
-           f"{LAYOUT_CUT['warm_up_steps']}: phase 3's)")
+           f"{LAYOUT_CUT['warm_up_steps']})")
     log(f"layouts: --frame-shard {LAYOUT_SHARDS} through the CLIs under torchrun, {where}; "
         f"{cut}")
     # the unsharded CLI runs at the same cut, in this process
@@ -3271,26 +3549,31 @@ def layouts_cli(dev, wrappers, card: str, root: str, reference: dict, backend: s
     t2v_name = names[0]
     i2v_name = sweep_name("reference.mp4", I2V_PROMPTS["rgb"], 76739, positive_prompt(i2v_cut))
 
-    a = check_layout_run("(a) t2v --frame-shard 2", *run_layout(
-        "(a) t2v", "t2v", 2, argv("out_11a", "reps_11a") + layout, root),
-        [refs["t2v"]], control, False, card, root, "out_11a", [t2v_name], stubbed)
-    check_layout_run("(b) t2v --frame-shard 2 --cfg-pair", *run_layout(
-        "(b) t2v", "t2v", 4, argv("out_11b", "reps_11a") + layout + ["--cfg-pair"], root),
-        [refs["t2v"]], control, False, card, root, "out_11b", [t2v_name], stubbed)
-    check_layout_run("(c) i2v_rgb --frame-shard 2", *run_layout(
-        "(c) i2v", "i2v", 2, argv("out_11c", "reps_11c", i2v_cut, ex["i2v"], True) + layout,
-        root), [refs["i2v"]], control, True, card, root, "out_11c", [i2v_name], stubbed)
-    check_layout_run("(d) sweep --frame-shard 2, data 2", *run_layout(
-        "(d) sweep", "sweep", 4, argv("out_11d", "reps_11a", examples=ex["sweep"]) + layout
-        + ["--num-devices", "1"], root), [refs["t2v"], refs["second"]], control, False, card,
-        root, "out_11d", names, stubbed)
-    results, seconds = run_layout("(e) serve", "serve", 2, argv("out_11e", "reps_11a") + layout
-                                  + ["--port", "0", "--batch-max", "2"], root, job=examples[0])
-    served = results[0]["served"]
+    # two torchrun calls, one per world size, each CLI of a call on the world
+    # its first one joins: (a), (c), (e) on 2 ranks, then (b), (d) on 4
+    # (they reuse (a)'s motion representation)
+    ace = run_layouts("(a, c, e)", [
+        ("t2v", argv("out_11a", "reps_11a") + layout),
+        ("i2v", argv("out_11c", "reps_11c", i2v_cut, ex["i2v"], True) + layout),
+        ("serve", argv("out_11e", "reps_11a") + layout + ["--port", "0", "--batch-max", "2"])],
+        2, root, card, job=examples[0])
+    bd = run_layouts("(b, d)", [
+        ("t2v", argv("out_11b", "reps_11a") + layout + ["--cfg-pair"]),
+        ("sweep", argv("out_11d", "reps_11a", examples=ex["sweep"]) + layout
+         + ["--num-devices", "1"])], 4, root, card)
+    a = check_layout_run("(a) t2v --frame-shard 2", ace[0], [refs["t2v"]], control, False,
+                         root, "out_11a", [t2v_name], stubbed)
+    check_layout_run("(b) t2v --frame-shard 2 --cfg-pair", bd[0], [refs["t2v"]], control,
+                     False, root, "out_11b", [t2v_name], stubbed)
+    check_layout_run("(c) i2v_rgb --frame-shard 2", ace[1], [refs["i2v"]], control, True, root,
+                     "out_11c", [i2v_name], stubbed)
+    check_layout_run("(d) sweep --frame-shard 2, data 2", bd[1], [refs["t2v"], refs["second"]],
+                     control, False, root, "out_11d", names, stubbed)
+    served = ace[2][0]["served"]
     if served["record"]["status"] != "done" or not served["joined"]:
         raise AssertionError(f"serve (e): {served}")
-    e = check_layout_run("(e) serve --frame-shard 2, one job", results, seconds, [refs["t2v"]],
-                         control, False, card, root, "out_11e", [t2v_name], stubbed)
+    e = check_layout_run("(e) serve --frame-shard 2, one job", ace[2], [refs["t2v"]], control,
+                         False, root, "out_11e", [t2v_name], stubbed)
     log(f"(e) serve: the job done in {served['record']['seconds']:.1f} s, the server stopped "
         f"and its thread joined on rank 0, the other rank's loop ended")
     same_or_close("(e) serve's latents against (a)'s", e[0], a[0])
@@ -3688,6 +3971,10 @@ def main() -> int:
         t2v = t2v_cli(dev, wrappers, card, root)
         log(f"phase t2v CLI: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
+        # phase 7b: the DreamBooth EMA weights and the image and motion LoRAs
+        t0 = time.perf_counter()
+        merged_weights(dev, wrappers, card, root, t2v["saved"])
+        log(f"phase merged weights: {time.perf_counter() - t0:.1f} s")
         # phase 8: the i2v CLI, both SparseCtrl flavours
         t0 = time.perf_counter()
         i2v = i2v_cli(dev, wrappers, card, root, t2v["saved"])
@@ -3735,7 +4022,11 @@ def finish(card: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--layout-rank"]:
         # one rank of a phase-11 run: --layout-rank KIND --result-dir DIR -- ARGV
-        sys.exit(layout_rank_main(sys.argv[2], sys.argv[4], sys.argv[6:]))
+        # one phase-11 call: --layout-rank KINDS --result-dir DIR -- ARGV [-- ARGV ...]
+        argvs = [[]]
+        for arg in sys.argv[6:]:
+            argvs.append([]) if arg == "--" else argvs[-1].append(arg)
+        sys.exit(layout_rank_main(sys.argv[2].split(","), sys.argv[4], argvs, time.time()))
     adopt_orphans()
     try:
         code = main()

@@ -64,21 +64,45 @@ def _copy_prefix(src: Mapping[str, torch.Tensor], src_prefix: str,
             out[dst_prefix + k[len(src_prefix):]] = v
 
 
-def convert_ldm_unet(sd: Mapping[str, torch.Tensor]) -> StateDict:
+def convert_ldm_unet(sd: Mapping[str, torch.Tensor], *, extract_ema: bool = False) -> StateDict:
     """model.diffusion_model.* -> diffusers UNet2D keys.
 
     Handles the SD1.x layout: 4 down blocks x ``layers_per_block`` layers with
     optional spatial transformers, mid block, 4 up blocks x (layers+1).
-    Block/layer counts are inferred from the key set.  The non-EMA weights
-    are taken, as the reference's ``load_weights`` takes them; a checkpoint
-    that also carries EMA weights (>100 ``model_ema.*`` keys) gets a warning.
+    Block/layer counts are inferred from the key set.
+
+    ``extract_ema``: when the checkpoint carries >100 ``model_ema.*`` keys,
+    each UNet weight is taken from its EMA shadow, whose key is the
+    dot-stripped flattening ``model_ema.<segments after the first, joined
+    without dots>``.  The reference's ``load_weights`` never sets it, so the
+    default takes the non-EMA weights.  Both mismatches warn (the flag with
+    no EMA present, EMA present without the flag): no silent fallback.
     """
-    if sum(k.startswith("model_ema.") for k in sd) > 100:
+    has_ema = sum(k.startswith("model_ema.") for k in sd) > 100
+    if extract_ema and has_ema:
+        src: StateDict = {}
+        for k in sd:
+            if k.startswith("model.diffusion_model."):
+                flat_ema = "model_ema." + "".join(k.split(".")[1:])
+                src[k[len("model.diffusion_model."):]] = sd[flat_ema]
+    else:
         import warnings
 
-        warnings.warn("checkpoint has both EMA and non-EMA weights; extracting "
-                      "the non-EMA weights", stacklevel=2)
-    src = _sub_keys(sd, "model.diffusion_model.")
+        if extract_ema:
+            warnings.warn(
+                "extract_ema requested but the checkpoint carries no EMA "
+                "weights (<=100 model_ema.* keys) — extracting the non-EMA "
+                "weights instead",
+                stacklevel=2,
+            )
+        elif has_ema:
+            warnings.warn(
+                "checkpoint has both EMA and non-EMA weights; extracting "
+                "the non-EMA weights (pass extract_ema=True for the EMA "
+                "set, usually better for inference)",
+                stacklevel=2,
+            )
+        src = _sub_keys(sd, "model.diffusion_model.")
     out: StateDict = {}
 
     out["time_embedding.linear_1.weight"] = src["time_embed.0.weight"]

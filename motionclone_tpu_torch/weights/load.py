@@ -7,7 +7,9 @@ Port of ``motionclone_tpu/weights/load.py``:
 2. an optional DreamBooth LDM checkpoint replacing the UNet's image layers
    and the whole VAE and CLIP;
 3. the motion-module checkpoint merged in (keys holding ``motion_modules.``);
-4. the optional adapter LoRA (diffusers naming) merged into the UNet;
+4. the optional LoRAs: a kohya image LoRA into the UNet and the text
+   encoder, the adapter LoRA and any number of motion LoRAs (diffusers
+   naming) into the UNet;
 5. :func:`load_into`: the buffers the modules compute themselves dropped
    (``pos_encoder.pe``; CLIP's ``position_ids`` and ``text_projection*``),
    a strict check of keys and shapes, then the tensors become the module's
@@ -22,10 +24,11 @@ transposed.  The ``config.json`` of each subfolder sets the topology, as
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,7 +42,7 @@ from motionclone_tpu_torch.weights.convert import (
 )
 from motionclone_tpu_torch.weights.io import load_state_dict
 from motionclone_tpu_torch.weights.ldm import convert_ldm_clip, convert_ldm_unet, convert_ldm_vae
-from motionclone_tpu_torch.weights.lora import merge_diffusers_lora
+from motionclone_tpu_torch.weights.lora import merge_diffusers_lora, merge_kohya_lora
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -162,18 +165,30 @@ def assemble_pipeline_state_dicts(
     dreambooth_path: str = "",
     adapter_lora_path: str = "",
     adapter_lora_scale: float = 1.0,
+    lora_model_path: str = "",
+    lora_alpha: float = 0.8,
+    motion_lora_configs: Sequence[Tuple[str, float]] = (),
+    dreambooth_extract_ema: bool = False,
 ) -> Dict[str, StateDict]:
     """The final flat state dicts of ``unet`` (motion modules merged),
-    ``vae`` and ``text_encoder``.  A DreamBooth checkpoint replaces the
-    VAE and CLIP whole and the UNet's image layers; the adapter LoRA
-    merges into the UNet."""
+    ``vae`` and ``text_encoder``, in float32 on the host.
+
+    The merges run in the reference's order (util.py:115-215): a DreamBooth
+    checkpoint replaces the VAE and CLIP whole and the UNet's image layers
+    (its EMA weights with ``dreambooth_extract_ema``); the motion module;
+    a kohya image LoRA (``lora_model_path``) into the UNet (``lora_unet``
+    pairs) and the text encoder (``lora_te`` pairs) at ``lora_alpha``; the
+    adapter LoRA at ``adapter_lora_scale``; then each ``(path, alpha)`` of
+    ``motion_lora_configs`` in list order.  No config key reaches the last
+    four arguments (as in the JAX package's runner), so the runtime never
+    passes them and the weights cache's key does not name them."""
     sd_unet = load_diffusers_module_sd(pretrained_dir, "unet")
     sd_vae = load_diffusers_module_sd(pretrained_dir, "vae")
     sd_clip = load_diffusers_module_sd(pretrained_dir, "text_encoder")
 
     if dreambooth_path:
         db = load_state_dict(dreambooth_path)
-        sd_unet_db = convert_ldm_unet(db)
+        sd_unet_db = convert_ldm_unet(db, extract_ema=dreambooth_extract_ema)
         sd_vae_db = convert_ldm_vae(db)
         sd_clip_db = convert_ldm_clip(db)
         if sd_unet_db:
@@ -187,9 +202,17 @@ def assemble_pipeline_state_dicts(
         mm = load_state_dict(motion_module_path)
         sd_unet = merge_state_dicts(sd_unet, mm, filter_substring="motion_modules.")
 
+    if lora_model_path:
+        lora = load_state_dict(lora_model_path)
+        sd_unet = merge_kohya_lora(sd_unet, lora, alpha=lora_alpha, prefix="lora_unet")
+        sd_clip = merge_kohya_lora(sd_clip, lora, alpha=lora_alpha, prefix="lora_te")
+
     if adapter_lora_path:
         lora = load_state_dict(adapter_lora_path)
         sd_unet = merge_diffusers_lora(sd_unet, lora, alpha=adapter_lora_scale)
+
+    for path, alpha in motion_lora_configs:
+        sd_unet = merge_diffusers_lora(sd_unet, load_state_dict(path), alpha=alpha)
 
     return {"unet": sd_unet, "vae": sd_vae, "text_encoder": sd_clip}
 
@@ -229,30 +252,54 @@ def assemble_state_dicts(
     adapter_lora_path: str = "",
     adapter_lora_scale: float = 1.0,
     controlnet_path: str = "",
+    lora_model_path: str = "",
+    lora_alpha: float = 0.8,
+    motion_lora_configs: Sequence[Tuple[str, float]] = (),
+    dreambooth_extract_ema: bool = False,
 ) -> Dict[str, StateDict]:
     """The state dict of each module as :func:`load_into` takes it (what
-    the weights cache stores): :func:`assemble_pipeline_state_dicts`'s,
-    CLIP's through :func:`clip_state_dict` and, with a ``controlnet_path``,
-    the controlnet's through :func:`controlnet_state_dict`."""
+    the weights cache stores): :func:`assemble_pipeline_state_dicts`'s
+    (the merge arguments passed on), CLIP's through
+    :func:`clip_state_dict` and, with a ``controlnet_path``, the
+    controlnet's through :func:`controlnet_state_dict`."""
     sds = assemble_pipeline_state_dicts(
         pretrained_dir, motion_module_path=motion_module_path,
         dreambooth_path=dreambooth_path, adapter_lora_path=adapter_lora_path,
-        adapter_lora_scale=adapter_lora_scale)
+        adapter_lora_scale=adapter_lora_scale, lora_model_path=lora_model_path,
+        lora_alpha=lora_alpha, motion_lora_configs=motion_lora_configs,
+        dreambooth_extract_ema=dreambooth_extract_ema)
     sds["text_encoder"] = clip_state_dict(sds["text_encoder"])
     if controlnet_path:
         sds["controlnet"] = controlnet_state_dict(load_state_dict(controlnet_path))
     return sds
 
 
+@contextlib.contextmanager
+def _initialisers_off():
+    """``torch.nn.init``'s in-place initialisers as no-ops: on the meta
+    device ``normal_`` (every ``nn.Embedding``'s) has no C++ kernel, and its
+    first call in a process imports torch's Python meta kernels, 2-9 s on
+    the CPUs measured, for values that the load overwrites."""
+    init = torch.nn.init
+    saved = {n: getattr(init, n) for n in dir(init) if n.endswith("_") and not n.startswith("_")}
+    for n in saved:
+        setattr(init, n, lambda tensor, *args, **kwargs: tensor)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(init, n, fn)
+
+
 def load_into(module_fn: Callable[[], torch.nn.Module], sd: Mapping[str, torch.Tensor],
               dtype: torch.dtype, what: str = "checkpoint") -> torch.nn.Module:
     """The module ``module_fn()`` builds, with ``sd``'s tensors (cast to
-    ``dtype``) as its parameters.  The module is built on the meta device,
-    so no memory is spent on an initialisation that the load overwrites;
-    keys holding ``pos_encoder.pe`` are dropped, then the keys and shapes
-    must match exactly (``ValueError`` otherwise)."""
+    ``dtype``) as its parameters.  The module is built on the meta device
+    with the initialisers off, so no time or memory is spent on values that
+    the load overwrites; keys holding ``pos_encoder.pe`` are dropped, then
+    the keys and shapes must match exactly (``ValueError`` otherwise)."""
     sd = {k: v for k, v in sd.items() if not any(s in k for s in DEFAULT_SKIP_SUBSTRINGS)}
-    with torch.device("meta"):
+    with torch.device("meta"), _initialisers_off():
         module = module_fn()
     check_state_dict(sd, module, what)
     module.load_state_dict({k: v.to(dtype) for k, v in sd.items()}, strict=True, assign=True)

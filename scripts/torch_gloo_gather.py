@@ -1,6 +1,6 @@
 """Time the frame group's collectives over gloo between processes on this host.
 
-    python3 scripts/torch_gloo_gather.py [--ranks 2 4] [--device cpu|cuda:0]
+    python3 scripts/torch_gloo_gather.py [--ranks 2 4] [--device cuda:0|cpu]
 
 For each group size, ``parallel.frames.launch`` spawns that many gloo ranks
 and each times, at the largest keys/values a frame-sharded UNet gathers
@@ -71,8 +71,8 @@ def time_rank(group, device: str) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ranks", type=int, nargs="+", default=[2, 4])
-    parser.add_argument("--device", default="cpu",
-                        help="where the tensors live: cpu, or cuda:K (every rank on card K)")
+    parser.add_argument("--device", default="cuda:0",
+                        help="where the tensors live: cuda:K (every rank on card K), or cpu")
     args = parser.parse_args()
     for n in args.ranks:
         devices = None if args.device == "cpu" else [args.device] * n

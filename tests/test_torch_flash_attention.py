@@ -18,6 +18,9 @@ import torch
 
 from motionclone_tpu.ops.flash_attention import _flash_fwd, flash_attention as jax_flash
 from motionclone_tpu_torch.ops import flash_attention as fa
+from test_torch_models import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, S, H = 2, 256, 2
 ATOL, RTOL = 1e-5, 1e-4

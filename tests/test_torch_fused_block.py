@@ -26,7 +26,9 @@ from motionclone_tpu.models import attention as jattn
 from motionclone_tpu.ops import fused_block as jfb
 from motionclone_tpu_torch.models import attention as tattn
 from motionclone_tpu_torch.ops import fused_block as tfb
-from test_torch_models import close, load_port, random_flax_params
+from test_torch_models import close, load_port, one_torch_thread, random_flax_params  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FRAMES, HH, WW, C, HEADS = 2, 8, 16, 32, 4  # S = 128, as the JAX tests
 T, CTX_DIM, GROUPS = 7, 24, 8

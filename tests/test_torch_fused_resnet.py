@@ -31,7 +31,9 @@ from motionclone_tpu.ops import fused_resnet as jfr
 from motionclone_tpu_torch.models import resnet as tres
 from motionclone_tpu_torch.ops import build as kbuild
 from motionclone_tpu_torch.ops import fused_resnet as tfr
-from test_torch_models import close, load_port, random_flax_params
+from test_torch_models import close, load_port, one_torch_thread, random_flax_params  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, F, H, W = 1, 2, 8, 8
 GROUPS, TEMB_DIM, EPS = 8, 24, 1e-5

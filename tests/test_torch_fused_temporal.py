@@ -27,7 +27,9 @@ from motionclone_tpu.ops import fused_temporal as jft
 from motionclone_tpu_torch import config as tcfg
 from motionclone_tpu_torch.models import motion_module as tmm
 from motionclone_tpu_torch.ops import fused_temporal as tft
-from test_torch_models import close, load_port, random_flax_params
+from test_torch_models import close, load_port, one_torch_thread, random_flax_params  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, F, H, W, C = 1, 8, 8, 8, 32
 HEADS, GROUPS = 4, 8

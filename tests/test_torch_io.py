@@ -46,6 +46,9 @@ from motionclone_tpu_torch.io import video as tvideo
 from motionclone_tpu_torch.io import yaml_subset
 from motionclone_tpu_torch.weights.io import load_state_dict
 from test_tokenizer import EDGE_CASES, shipped_prompts, train_mini_bpe
+from test_torch_models import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))

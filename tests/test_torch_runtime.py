@@ -153,6 +153,79 @@ def test_assembled_state_dicts_equal_jax(model_dir, infer_cfg, jax_side):
     assert any(k.endswith("pos_encoder.pe") for k in got["unet"])
 
 
+def test_assembled_state_dicts_with_every_merge_equal_jax(model_dir, infer_cfg, tmp_path):
+    """The directory's assets plus every optional merge: the DreamBooth file
+    with EMA shadows of its UNet (taken), a kohya image LoRA on two UNet
+    linears, a UNet 1x1 conv and two text-encoder linears, and two motion
+    LoRAs at alphas 1.0 and 0.5: equal to the JAX package's assembly,
+    bit for bit."""
+    from safetensors import numpy as st_numpy
+
+    sd_dir, assets = os.path.join(model_dir, SD), _assets(model_dir, infer_cfg)
+    plain = jload.assemble_pipeline_state_dicts(sd_dir, **assets)
+    rng = np.random.default_rng(11)
+    db = st_numpy.load_file(assets["dreambooth_path"])
+    db.update({"model_ema." + "".join(k.split(".")[1:]): rng.standard_normal(v.shape, np.float32)
+               for k, v in list(db.items()) if k.startswith("model.diffusion_model.")})
+    ema_db = str(tmp_path / "dreambooth_ema.safetensors")
+    st_numpy.save_file(db, ema_db)
+
+    def pair(out_dim, in_dim, tail=()):
+        return (rng.standard_normal((out_dim, 2) + tail, np.float32),
+                rng.standard_normal((2, in_dim) + tail, np.float32))
+
+    unet, clip = plain["unet"], plain["text_encoder"]
+    image_targets = (
+        [("lora_unet", k) for k in sorted(unet) if "motion_modules." not in k
+         and k.endswith(("attn1.to_q.weight", "attn2.to_v.weight"))][:2]
+        + [("lora_unet", k) for k in sorted(unet) if k.endswith("proj_in.weight")
+           and unet[k].ndim == 4][:1]
+        + [("lora_te", k) for k in sorted(clip) if k.endswith(("q_proj.weight", "fc1.weight"))][:2])
+    assert len(image_targets) == 5
+    image = {}
+    for prefix, k in image_targets:
+        name = f"{prefix}_{k[:-len('.weight')].replace('.', '_')}"
+        w = (unet if prefix == "lora_unet" else clip)[k]
+        up, down = pair(w.shape[0], w.shape[1], w.shape[2:])
+        image.update({name + ".lora_up.weight": up, name + ".lora_down.weight": down,
+                      name + ".alpha": np.asarray(2.0, np.float32)})
+    image_path = str(tmp_path / "image_lora.safetensors")
+    st_numpy.save_file(image, image_path)
+    motion_targets = [k[:-len(".weight")] for k in sorted(unet) if "motion_modules." in k
+                      and k.endswith(("attention_blocks.0.to_q.weight",
+                                      "attention_blocks.1.to_v.weight"))][:2]
+    assert len(motion_targets) == 2
+    motion = []
+    for i in range(2):
+        lora = {}
+        for t in motion_targets:
+            parent, proj = t.rsplit(".", 1)
+            up, down = pair(*unet[t + ".weight"].shape)
+            lora[f"{parent}.processor.{proj}_lora.up.weight"] = up
+            lora[f"{parent}.processor.{proj}_lora.down.weight"] = down
+        motion.append(str(tmp_path / f"motion_lora_{i}.safetensors"))
+        st_numpy.save_file(lora, motion[-1])
+
+    kw = dict(assets, dreambooth_path=ema_db, lora_model_path=image_path, lora_alpha=0.8,
+              motion_lora_configs=[(motion[0], 1.0), (motion[1], 0.5)],
+              dreambooth_extract_ema=True)
+    got = tload.assemble_pipeline_state_dicts(sd_dir, **kw)
+    want = jload.assemble_pipeline_state_dicts(sd_dir, **kw)
+    for sub in want:
+        assert sorted(got[sub]) == sorted(want[sub]), sub
+        for k, v in want[sub].items():
+            assert got[sub][k].dtype == torch.float32, k
+            np.testing.assert_array_equal(got[sub][k].numpy(), v, err_msg=f"{sub} {k}")
+    merged = [t for _, t in image_targets] + [t + ".weight" for t in motion_targets]
+    for k in merged:
+        sub = "text_encoder" if k.startswith("text_model.") else "unet"
+        assert not np.array_equal(want[sub][k], plain[sub][k]), k
+    # every DreamBooth-replaced UNet weight is its EMA shadow
+    image_layers = [k for k in want["unet"] if "motion_modules." not in k and k not in merged]
+    assert image_layers and all(not np.array_equal(want["unet"][k], plain["unet"][k])
+                                for k in image_layers)
+
+
 def test_kohya_lora_merge_equals_jax(jax_side):
     """``merge_kohya_lora`` on the assembled UNet and text encoder equals the
     JAX package's merge, bit for bit: a linear and a 1x1-conv target, the
@@ -219,6 +292,32 @@ def test_load_into_is_strict():
     loaded = tload.load_into(make, {k: v.bfloat16() for k, v in sd.items()}, torch.bfloat16)
     assert all(p.dtype == torch.bfloat16 and p.device.type == "cpu"
                for p in loaded.parameters())
+
+
+def test_load_into_runs_no_initialiser():
+    """The meta-device build runs no ``torch.nn.init`` initialiser (in a
+    fresh interpreter, CLIP's embedding ``normal_`` would import torch's
+    Python meta kernels and sympy with them), and restores them after."""
+    import subprocess
+    import sys
+
+    script = (
+        "import sys, torch\n"
+        "from motionclone_tpu_torch.models.clip_text import CLIPTextModel, tiny_clip_config\n"
+        "from motionclone_tpu_torch.weights.load import load_into\n"
+        "sd = CLIPTextModel(tiny_clip_config()).state_dict()\n"
+        "before = 'sympy' in sys.modules\n"
+        "m = load_into(lambda: CLIPTextModel(tiny_clip_config()), sd, torch.float32)\n"
+        "assert all(torch.equal(m.state_dict()[k], v) for k, v in sd.items())\n"
+        "print(before or 'sympy' not in sys.modules)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True"]
+    w = torch.zeros(64)
+    torch.nn.init.normal_(w)
+    assert w.abs().sum() > 0
 
 
 def test_missing_asset_raises_with_its_path(model_dir, infer_cfg):

@@ -94,14 +94,16 @@ class Client:
                                              **extra})
         return body.get("job_id")
 
-    def wait(self, job_id: str, *statuses, timeout: float = 10.0) -> dict:
+    def wait(self, job_id: str, *statuses, timeout: float = 10.0, record: bool = True) -> dict:
         """Poll until the job reaches one of ``statuses``; only the last
-        poll is recorded."""
+        poll is recorded, and none with ``record=False``."""
         deadline = time.time() + timeout
         while True:
             mark = len(self.transcript)
             _, rec = self.call(f"/jobs/{job_id}")
             if rec["status"] in statuses:
+                if not record:
+                    del self.transcript[mark:]
                 return rec
             del self.transcript[mark:]
             if time.time() > deadline:
@@ -154,8 +156,14 @@ def _both(script, make):
 
 
 def test_submission_order_and_failure_isolation():
-    def script(c, srv, calls):
-        ids = [c.post(p) for p in ("one", "boom", "two")]
+    def script(c, srv, ctx):
+        gates, calls = ctx
+        # "one" holds the worker until the other two are queued behind it,
+        # so both servers answer the same queue positions
+        ids = [c.post("one")]
+        c.wait(ids[0], "running", record=False)
+        ids += [c.post(p) for p in ("boom", "two")]
+        gates["one"].set()
         c.wait(ids[0], "done")
         c.wait(ids[1], "failed")
         c.wait(ids[2], "done")
@@ -163,8 +171,9 @@ def test_submission_order_and_failure_isolation():
         return calls
 
     def make():
-        run_job, _, calls = _stub()
-        return dict(run_job=run_job, max_queue=4), calls
+        gates = {"one": threading.Event()}
+        run_job, _, calls = _stub(gates)
+        return dict(run_job=run_job, max_queue=4), (gates, calls)
 
     transcript, calls, jax_calls = _both(script, make)
     statuses = [body["status"] for _, path, _, body in transcript if path.startswith("/jobs/")]
@@ -200,7 +209,12 @@ def test_batch_drain_and_lone_job_on_the_single_path():
 
 def test_job_timeout_and_the_queue_draining_on():
     def script(c, srv, gates):
-        wedged, after = c.post("wedged"), c.post("next")
+        wedged = c.post("wedged")
+        # "next" is posted once the worker has taken "wedged" off the queue
+        # (running, or already failed at the 0.3 s timeout), so both servers
+        # answer the same queue position
+        c.wait(wedged, "running", "failed", record=False)
+        after = c.post("next")
         c.wait(wedged, "failed")
         c.wait(after, "done")
         gates["wedged"].set()  # the abandoned thread ends late: no resurrection

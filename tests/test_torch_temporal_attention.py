@@ -17,6 +17,9 @@ from motionclone_tpu.ops.temporal_attention import (
     temporal_attention as jax_temporal,
 )
 from motionclone_tpu_torch.ops import temporal_attention as ta
+from test_torch_models import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, F, S, H = 2, 8, 64, 2
 ATOL, RTOL = 1e-5, 1e-4
