@@ -1,0 +1,10 @@
+"""guided_bwd_ms: the mean device time of a guided step's backward, the
+guidance loss's gradient to the latents (the program's
+``unet_guided_bwd`` span) over the window's guided steps that ran it,
+from the program's step record (``work/record.py``)."""
+
+from bench_h100.work.record import mean_pass_ms
+
+
+def read(run):
+    return mean_pass_ms(run, "unet_guided_bwd")

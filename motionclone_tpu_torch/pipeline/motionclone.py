@@ -139,7 +139,7 @@ from motionclone_tpu_torch.diffusion.guidance import (
 from motionclone_tpu_torch.models.sparse_controlnet import SparseControlNetModel
 from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
 from motionclone_tpu_torch.parallel.frames import FrameGroup, exchange_pair
-from motionclone_tpu_torch.utils import rng
+from motionclone_tpu_torch.utils import rng, trace
 
 MotionRep = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 # (frame-scattered condition, its mask, conditioning scale: a float, or a
@@ -409,7 +409,7 @@ def make_sampling_fns(
             cond, mask = torch.cat([cond, cond]), torch.cat([mask, mask])
             if torch.is_tensor(scale):
                 scale = torch.cat([scale, scale])
-        with torch.no_grad():
+        with trace.span("controlnet"), torch.no_grad():
             return controlnet(latents, t, emb, cond, mask, scale, impl=plain_impl,
                               frame_group=group)
 
@@ -447,7 +447,7 @@ def make_sampling_fns(
     def plain_pass(latents, t: int, emb, res, sl: slice = slice(None)):
         """A forward without grad on the path of the passes that are not
         differentiated, with the residuals' rows ``sl``."""
-        with torch.no_grad():
+        with trace.span("unet_plain"), torch.no_grad():
             pred, _ = unet(latents, t, emb, attention_impl=plain_impl, frame_group=group,
                            **residual_kwargs(res, sl))
         return pred
@@ -464,15 +464,17 @@ def make_sampling_fns(
         guidance loss with respect to the latents -> (cond prediction, raw
         gradient, the loss summed over the ranks)."""
         with torch.enable_grad():
-            leaf = latents.detach().requires_grad_(True)
-            cond_pred, probs = unet(leaf, t, cond_emb, guidance_blocks=guidance,
-                                    post_guidance_cut=cut,
-                                    post_guidance_impl=plain_impl, frame_group=group,
-                                    **residual_kwargs(res, sl))
-            loss = infer_cfg.motion_guidance_weight * motion_guidance_loss(
-                probs, motion_rep, group
-            )
-            (grad,) = torch.autograd.grad(loss, leaf)
+            with trace.span("unet_guided_fwd"):
+                leaf = latents.detach().requires_grad_(True)
+                cond_pred, probs = unet(leaf, t, cond_emb, guidance_blocks=guidance,
+                                        post_guidance_cut=cut,
+                                        post_guidance_impl=plain_impl, frame_group=group,
+                                        **residual_kwargs(res, sl))
+                loss = infer_cfg.motion_guidance_weight * motion_guidance_loss(
+                    probs, motion_rep, group
+                )
+            with trace.span("unet_guided_bwd"):
+                (grad,) = torch.autograd.grad(loss, leaf)
         loss = loss.detach()
         if group is not None:  # the value: the ranks' partials summed
             loss = group.all_reduce_sum(loss)
@@ -691,67 +693,71 @@ def make_sampling_fns(
         video's ranks.  The exact schedule runs through the same steps as
         the caches, with every flag true (under a CFG pair, the pair
         steps)."""
-        cn_cond = local_cn(cn_cond)
-        k_u, k_g, w_u, k_s, w_s = intervals(uncond_refresh, guidance_refresh,
-                                            uncond_extrap_w, step_refresh, step_extrap_w)
-        flags = flags_of(chunk_steps, k_u, k_g, k_s)
-        w_u, w_s = (_const_col(len(timesteps), w) for w in (w_u, w_s))
-        fingerprint = np.asarray(timesteps, np.int32)
-        total = len(timesteps)
-        if resume_path and video_groups:
-            rank = dist.get_rank() if dist.is_initialized() else video_groups[0].rank
-            resume_path = f"{resume_path}.rank{rank}.npz"
-        latents, steps_done = init_latents, 0  # init_noise_sigma == 1 for DDIM
-        if resume_path and os.path.exists(resume_path):
-            with np.load(resume_path) as d:
-                if (int(d["chunk_steps"]) == chunk_steps and str(d["tag"]) == resume_tag
-                        and d["timesteps"].shape == fingerprint.shape
-                        and (d["timesteps"] == fingerprint).all()
-                        and tuple(d["latents"].shape) == tuple(init_latents.shape)):
-                    steps_done = int(d["steps_done"])
-                    latents = torch.from_numpy(d["latents"]).to(device=init_latents.device,
-                                                                dtype=init_latents.dtype)
-        if resume_path and video_groups:
-            # a run killed between two ranks' writes leaves their files a
-            # chunk apart; each rank keeps only its last checkpoint, so the
-            # video continues only where every rank stopped at one step
-            done = torch.tensor([steps_done], dtype=torch.int64, device=init_latents.device)
-            for ranks in video_groups:  # over the frames, then the pair: every rank's
-                done = ranks.gather_frames(done, dim=0)
-            if (done != steps_done).any():
-                latents, steps_done = init_latents, 0
-        for lo, hi in chunks(chunk_steps):
-            if hi <= steps_done:  # checkpointed
-                continue
-            guided = lo < g
-            carry = _ApproxCarry.start(latents)  # every chunk starts from empty caches
-            for i in range(lo, hi):
-                t, tp = int(timesteps[i]), int(t_prev[i])
-                step_flags = (flags.full[i], flags.uncond[i], flags.guidance[i],
-                              float(w_u[i]), float(w_s[i]))
-                if not guided:
-                    vanilla_chunk_step(carry, t, tp, step_flags, uncond_emb, cond_emb, cn_cond)
-                elif pair is not None:  # exact only: every flag is true
-                    carry.latents = guided_pair(carry.latents, t, tp, float(ramps[i]),
-                                                uncond_emb, cond_emb, motion_rep, cn_cond)[0]
-                else:
-                    guided_step_approx(carry, t, tp, float(ramps[i]), step_flags,
-                                       uncond_emb, cond_emb, motion_rep, cn_cond)
-                if on_step is not None:
-                    on_step(i, guided)
-            latents = carry.latents
-            if resume_path:
-                # f32 on disk (npz has no bf16), cast back exactly; keep the
-                # .npz suffix, which np.savez would append otherwise
-                tmp = resume_path + ".tmp.npz"
-                np.savez(tmp, latents=latents.float().cpu().numpy(), steps_done=hi,
-                         timesteps=fingerprint, chunk_steps=chunk_steps, tag=resume_tag)
-                os.replace(tmp, resume_path)
-            if on_chunk is not None:
-                on_chunk(hi, total)
-        if resume_path and os.path.exists(resume_path):
-            os.remove(resume_path)
-        return latents
+        with trace.span("sample", device=init_latents.device):
+            cn_cond = local_cn(cn_cond)
+            k_u, k_g, w_u, k_s, w_s = intervals(uncond_refresh, guidance_refresh,
+                                                uncond_extrap_w, step_refresh, step_extrap_w)
+            flags = flags_of(chunk_steps, k_u, k_g, k_s)
+            w_u, w_s = (_const_col(len(timesteps), w) for w in (w_u, w_s))
+            fingerprint = np.asarray(timesteps, np.int32)
+            total = len(timesteps)
+            if resume_path and video_groups:
+                rank = dist.get_rank() if dist.is_initialized() else video_groups[0].rank
+                resume_path = f"{resume_path}.rank{rank}.npz"
+            latents, steps_done = init_latents, 0  # init_noise_sigma == 1 for DDIM
+            if resume_path and os.path.exists(resume_path):
+                with np.load(resume_path) as d:
+                    if (int(d["chunk_steps"]) == chunk_steps and str(d["tag"]) == resume_tag
+                            and d["timesteps"].shape == fingerprint.shape
+                            and (d["timesteps"] == fingerprint).all()
+                            and tuple(d["latents"].shape) == tuple(init_latents.shape)):
+                        steps_done = int(d["steps_done"])
+                        latents = torch.from_numpy(d["latents"]).to(device=init_latents.device,
+                                                                    dtype=init_latents.dtype)
+            if resume_path and video_groups:
+                # a run killed between two ranks' writes leaves their files a
+                # chunk apart; each rank keeps only its last checkpoint, so the
+                # video continues only where every rank stopped at one step
+                done = torch.tensor([steps_done], dtype=torch.int64, device=init_latents.device)
+                for ranks in video_groups:  # over the frames, then the pair: every rank's
+                    done = ranks.gather_frames(done, dim=0)
+                if (done != steps_done).any():
+                    latents, steps_done = init_latents, 0
+            for lo, hi in chunks(chunk_steps):
+                if hi <= steps_done:  # checkpointed
+                    continue
+                guided = lo < g
+                carry = _ApproxCarry.start(latents)  # every chunk starts from empty caches
+                for i in range(lo, hi):
+                    with trace.span("step", index=i, guided=guided, full=bool(flags.full[i])):
+                        t, tp = int(timesteps[i]), int(t_prev[i])
+                        step_flags = (flags.full[i], flags.uncond[i], flags.guidance[i],
+                                      float(w_u[i]), float(w_s[i]))
+                        if not guided:
+                            vanilla_chunk_step(carry, t, tp, step_flags, uncond_emb, cond_emb,
+                                               cn_cond)
+                        elif pair is not None:  # exact only: every flag is true
+                            carry.latents = guided_pair(carry.latents, t, tp, float(ramps[i]),
+                                                        uncond_emb, cond_emb, motion_rep,
+                                                        cn_cond)[0]
+                        else:
+                            guided_step_approx(carry, t, tp, float(ramps[i]), step_flags,
+                                               uncond_emb, cond_emb, motion_rep, cn_cond)
+                    if on_step is not None:
+                        on_step(i, guided)
+                latents = carry.latents
+                if resume_path:
+                    # f32 on disk (npz has no bf16), cast back exactly; keep the
+                    # .npz suffix, which np.savez would append otherwise
+                    tmp = resume_path + ".tmp.npz"
+                    np.savez(tmp, latents=latents.float().cpu().numpy(), steps_done=hi,
+                             timesteps=fingerprint, chunk_steps=chunk_steps, tag=resume_tag)
+                    os.replace(tmp, resume_path)
+                if on_chunk is not None:
+                    on_chunk(hi, total)
+            if resume_path and os.path.exists(resume_path):
+                os.remove(resume_path)
+            return latents
 
     def sample_plain(init_latents, uncond_emb, cond_emb, cn_cond: Optional[CnCond] = None,
                      chunk_steps: int = 50,
@@ -765,15 +771,17 @@ def make_sampling_fns(
         flags = schedule(chunk_steps, plain=True)
         w_u, w_s = (float(np.float32(w)) for w in (uncond_extrap, step_extrap))
         latents = init_latents  # init_noise_sigma == 1 for DDIM
-        for lo, hi in chunks(chunk_steps, 0, len(ts_plain)):
-            carry = _ApproxCarry.start(latents)  # every chunk starts from empty caches
-            for i in range(lo, hi):
-                vanilla_chunk_step(carry, int(ts_plain[i]), int(tp_plain[i]),
-                                   (flags.full[i], flags.uncond[i], True, w_u, w_s),
-                                   uncond_emb, cond_emb, cn_cond)
-                if on_step is not None:
-                    on_step(i, False)
-            latents = carry.latents
+        with trace.span("sample", device=init_latents.device):
+            for lo, hi in chunks(chunk_steps, 0, len(ts_plain)):
+                carry = _ApproxCarry.start(latents)  # every chunk starts from empty caches
+                for i in range(lo, hi):
+                    with trace.span("step", index=i, guided=False, full=bool(flags.full[i])):
+                        vanilla_chunk_step(carry, int(ts_plain[i]), int(tp_plain[i]),
+                                           (flags.full[i], flags.uncond[i], True, w_u, w_s),
+                                           uncond_emb, cond_emb, cn_cond)
+                    if on_step is not None:
+                        on_step(i, False)
+                latents = carry.latents
         return latents
 
     def probs_step(latents, t: int, tp: int, uncond_emb, cond_emb, cn_cond):

@@ -56,7 +56,7 @@ from motionclone_tpu_torch.models.unet_blocks import match_guidance
 from motionclone_tpu_torch.models.vae import AutoencoderKL
 from motionclone_tpu_torch.parallel.frames import Layout
 from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline, resolve_device
-from motionclone_tpu_torch.utils import rng
+from motionclone_tpu_torch.utils import rng, trace
 from motionclone_tpu_torch.weights.load import (
     apply_unet_diffusers_config,
     assemble_state_dicts,
@@ -414,45 +414,46 @@ class MotionCloneRuntime:
     def sample_timed(self, uncond_emb, cond_emb, rep, seed, cn_cond, resume_path,
                      timings: Dict[str, object], log, resume_tag: str = "") -> torch.Tensor:
         """``pipeline.sample_latents`` (one seed, or one per example of a
-        batch) with each step timed: fills ``timings["sample"]`` (wall
-        seconds) and the milliseconds of each guided and vanilla step, full
-        and skip steps apart, and logs their medians.  On a card each
-        step's end is a CUDA event, read after the one synchronisation at
-        the end, so the host never waits inside the loop."""
+        batch) with each step timed from the program's step record
+        (``utils/trace.py``): fills ``timings["sample"]`` (wall seconds), the
+        milliseconds of each guided and vanilla step, full and skip steps
+        apart, and ``passes_ms``, the milliseconds of each pass of each step
+        keyed ``<guided|vanilla>/<span>`` (``controlnet``, ``unet_plain``,
+        ``unet_guided_fwd``, ``unet_guided_bwd``), and logs their medians.
+        On a card the times are the device's, between CUDA events read
+        after the one synchronisation at the end, so the host never waits
+        inside the loop; on the CPU the host's.  With recording off
+        (``trace.set_enabled(False)``) the lists are empty."""
         cfg = self.infer_cfg
         cuda = self.device.type == "cuda"
-
-        def mark():
-            if not cuda:
-                return time.perf_counter()
-            event = torch.cuda.Event(enable_timing=True)
-            event.record(torch.cuda.current_stream(self.device))
-            return event
-
-        marks = []
+        before = trace.last_run()
         self._sync()
         t0 = time.perf_counter()
-        start = mark()
         latents = self.pipeline.sample_latents(
-            uncond_emb, cond_emb, rep, seed=seed,
-            on_step=lambda i, guided: marks.append((i, guided, mark())), cn_cond=cn_cond,
-            resume_path=resume_path, resume_tag=resume_tag)
+            uncond_emb, cond_emb, rep, seed=seed, cn_cond=cn_cond, resume_path=resume_path,
+            resume_tag=resume_tag)
         self._sync()
         timings["sample"] = time.perf_counter() - t0
-        full = self.pipeline.fns.schedule().full
+        run = trace.last_run()
+        ms = lambda span: span.device_ms if cuda else span.host_ns / 1e6
         steps = {key: [] for key in ("guided_ms", "guided_skip_ms", "vanilla_ms",
                                      "vanilla_skip_ms")}
-        for i, guided, end in marks:
-            key = ("guided" if guided else "vanilla") + ("_ms" if full[i] else "_skip_ms")
-            steps[key].append(start.elapsed_time(end) if cuda else (end - start) * 1e3)
-            start = end
-        timings.update(steps)
+        passes: Dict[str, list] = {}
+        for step in (run.steps if run is not None and run is not before else ()):
+            kind = "guided" if step.attrs["guided"] else "vanilla"
+            steps[kind + ("_ms" if step.attrs["full"] else "_skip_ms")].append(ms(step))
+            for child in step.children:
+                passes.setdefault(f"{kind}/{child.name}", []).append(ms(child))
+        timings.update(steps, passes_ms=passes)
         median = lambda ms: f"{statistics.median(ms):.1f}" if ms else "-"
         log(f"guided sampling ({cfg.inference_steps} steps, {cfg.guidance_steps} guided): "
             f"{timings['sample']:.1f}s; median ms per guided step "
             f"{median(steps['guided_ms'])} (skip steps {median(steps['guided_skip_ms'])}), "
             f"per vanilla step {median(steps['vanilla_ms'])} "
-            f"(skip steps {median(steps['vanilla_skip_ms'])})")
+            f"(skip steps {median(steps['vanilla_skip_ms'])}); guided step's passes: "
+            + ", ".join(f"{name} {median(passes.get('guided/' + name, []))}"
+                        for name in ("controlnet", "unet_plain", "unet_guided_fwd",
+                                     "unet_guided_bwd")))
         return latents
 
     def write_latents(self, path: str, latents: torch.Tensor) -> None:
@@ -479,9 +480,9 @@ class MotionCloneRuntime:
         ``decode_write``), ``weights_cache`` (hit, miss or off) and the
         milliseconds of each guided and vanilla step, full steps and the
         step cache's skip steps (DDIM only) apart (``guided_ms``,
-        ``guided_skip_ms``, ``vanilla_ms``, ``vanilla_skip_ms``; on a card,
-        the time between CUDA events recorded after each step, so sampling
-        never waits on the host); with ``verbose`` each phase prints a line.
+        ``guided_skip_ms``, ``vanilla_ms``, ``vanilla_skip_ms``) and of their
+        passes (``passes_ms``), from the program's step record
+        (:meth:`sample_timed`); with ``verbose`` each phase prints a line.
         ``resume``: the sampling loop's latents are checkpointed after each
         chunk to ``output_dir/.resume_<mp4 name>.npz``, and a rerun
         continues from the last finished chunk (the file goes when sampling

@@ -464,9 +464,12 @@ def test_t2v_main_runs_the_slice_to_an_mp4(model_dir, monkeypatch, capsys):
     assert tguid.load_motion_representation_meta(os.path.join("reps", "ref.npz")) == \
         runner.motion_rep_meta(cfg, 42)
     assert sorted(rt.timings) == ["decode_write", "extract", "guided_ms", "guided_skip_ms",
-                                  "sample", "text", "vanilla_ms", "vanilla_skip_ms",
-                                  "weights_cache"]
+                                  "passes_ms", "sample", "text", "vanilla_ms",
+                                  "vanilla_skip_ms", "weights_cache"]
     assert (len(rt.timings["guided_ms"]), len(rt.timings["vanilla_ms"])) == (2, 2)
+    assert {k: len(v) for k, v in rt.timings["passes_ms"].items()} == {
+        "guided/unet_plain": 2, "guided/unet_guided_fwd": 2, "guided/unet_guided_bwd": 2,
+        "vanilla/unet_plain": 2}
     assert rt.timings["guided_skip_ms"] == rt.timings["vanilla_skip_ms"] == []
     assert rt.timings["weights_cache"] == "off"
 

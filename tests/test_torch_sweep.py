@@ -256,8 +256,8 @@ def test_second_sweep_hits_the_rep_cache_with_one_clip_call_per_batch(t2v, monke
     assert calls == {"clip": 2, "vae": 0}
     assert "extract" not in t2v["rt"].timings
     assert sorted(t2v["rt"].timings) == ["decode_write", "guided_ms", "guided_skip_ms",
-                                         "sample", "text", "vanilla_ms", "vanilla_skip_ms",
-                                         "weights_cache"]
+                                         "passes_ms", "sample", "text", "vanilla_ms",
+                                         "vanilla_skip_ms", "weights_cache"]
     for got, want in zip(again["latents"], t2v["port"]["latents"]):
         assert torch.equal(got, want)
 
