@@ -44,7 +44,14 @@ Phase 2  kernels: each kernel at every shape the main path gives it (the
          gives it: B·F = 64 (its CFG pair) for kernels 1, 5, 7 (the
          controlnet's too) and 8, B = 4 for the unfused motion modules'
          kernel 3, and B·F = 32 (its differentiated pass) for kernels 2
-         and 4.
+         and 4.  Last, the differentiable GroupNorm (+ SiLU) kernel pair
+         (ops/group_norm.py) at every GROUP_NORM_SHAPES entry (the UNet's
+         and the controlnet's per frame at the guided pass's B·F = 32, the
+         VAE's per frame in its chunks of 4): forward and dx against the
+         plain versions on the same bf16 inputs in f32 (within
+         GN_FWD_RTOL of each output, GN_BWD_TOL of dx's largest), two
+         launches of each giving the same bits, f32 at one shape, and
+         timed beside their byte bound and the port's eager chain.
 Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          width, 512x512x16 frames, random weights from a seed: CLIP on random
          token ids for the CFG pair, VAE encode of a random video,
@@ -54,7 +61,9 @@ Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          kernel of the path must have launched in this phase (the fused
          transformer block is off the SD1.5 path; phase 4 drives it).  Then
          steady guided and vanilla steps of the fused and the unfused
-         ("flash") path, in turns, with their peak memory; and the
+         ("flash") path, in turns, with their peak memory and the
+         GroupNorm kernels' launches a step (the fused path's beside
+         PREDICTED_GROUP_NORM_LAUNCHES; a guided step must launch both); and the
          unsharded results phase 6 compares with, beside a bf16 rounding
          control (the same math with other rounding: extraction as half of
          a batch of 2, sampling on the "flash" path).
@@ -274,6 +283,37 @@ BATCH2_HALF, BATCH2_PAIR = 2 * FRAMES, 4 * FRAMES
 RESNET_SHAPES = ((64, 320, 320), (64, 960, 320), (64, 640, 320),
                  (32, 320, 640), (32, 640, 640), (32, 1920, 640),
                  (32, 1280, 640), (32, 960, 640), (16, 640, 1280))
+# (samples, pixels a sample, channels, SiLU) of every GroupNorm that runs
+# the differentiable kernels at 512x512x16 (ops/group_norm.py): the UNet's
+# per frame at the guided pass's B·F = 32 (every module before the cut;
+# the controlnet's are its down and mid blocks', shapes of this list), and
+# the VAE's per frame in its chunks of 4 frames (encode and decode)
+GROUP_NORM_SHAPES = tuple(
+    [(2 * FRAMES, s, c, silu) for s, c, silu in (
+        (4096, 320, True), (4096, 320, False), (4096, 640, True), (4096, 960, True),
+        (1024, 320, True), (1024, 640, True), (1024, 640, False), (1024, 960, True),
+        (1024, 1280, True), (1024, 1920, True),
+        (256, 640, True), (256, 1280, True), (256, 1280, False), (256, 1920, True),
+        (256, 2560, True),
+        (64, 1280, True), (64, 1280, False), (64, 2560, True))]
+    + [(4, s, c, silu) for s, c, silu in (
+        (262144, 128, True), (262144, 256, True), (65536, 128, True), (65536, 256, True),
+        (65536, 512, True), (16384, 256, True), (16384, 512, True), (4096, 512, True),
+        (4096, 512, False))])
+# the kernels against their plain versions in f32 on the same bf16 inputs:
+# the forward rounds each output once to bf16 (at most half an ulp, 2**-8
+# of it), dx too, after f32 arithmetic in another order (far below bf16's
+# ulp): each within one ulp; in f32 within 2e-5 and 1e-4 of the largest
+# output (the kernel's rsqrtf and __expf against torch's)
+GN_FWD_RTOL = 2.0**-7
+GN_BWD_TOL = 2.0**-7  # of dx's largest magnitude
+# the GroupNorm kernels' launches a step of the fused path (forward,
+# backward): the unconditional pass's 39 unfused GroupNorms (the resnets,
+# transformers and motion modules at 16x16 and 8x8 that kernels 5, 7 and 8
+# do not take, and conv_norm_out) and the conditional pass's 57 (every
+# module up to the cut after up_blocks.1, and conv_norm_out without grad),
+# 56 of them differentiated; a vanilla step: one pass
+PREDICTED_GROUP_NORM_LAUNCHES = {"guided": (96, 56), "vanilla": (39, 0)}
 # launches predicted from the JAX package's routing for extraction + 2
 # guided + 2 vanilla steps (extraction / per guided step / per vanilla step)
 PREDICTED_LAUNCHES = {
@@ -1163,6 +1203,88 @@ def check_resnet_kernels(dev) -> dict:
     return rows
 
 
+def check_group_norm(dev) -> None:
+    """The differentiable GroupNorm (+ SiLU) kernels (phase 2) at every
+    GROUP_NORM_SHAPES entry: the forward and dx against their plain versions
+    in f32 on the same bf16 inputs, two launches of each bit for bit; f32 at
+    (32, 4096, 320); the time of each beside its byte bound (x read and the
+    output written once; dy too for the backward) and beside the port's
+    eager chain (``group_norm_nhwc`` then SiLU, forward without grad and
+    forward + backward under autograd) at (32, 4096, 320) and the VAE's
+    largest shape."""
+    from torch.nn import functional as F
+
+    from motionclone_tpu_torch.models.layers import group_norm_nhwc
+    from motionclone_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    groups, eps = 32, 1e-5
+
+    def inputs(n, s, c, dtype):
+        x = (torch.randn(n, s, c, generator=gen, device=dev) * 2.0 + 0.5).to(dtype)
+        dy = torch.randn(n, s, c, generator=gen, device=dev).to(dtype)
+        w = 1.0 + 0.3 * torch.randn(c, generator=gen, device=dev)
+        b = 0.3 * torch.randn(c, generator=gen, device=dev)
+        return x, dy, w, b
+
+    timed = {(2 * FRAMES, 4096, 320, True), max(GROUP_NORM_SHAPES, key=lambda t: t[0] * t[1] * t[2])}
+    for n, s, c, silu in GROUP_NORM_SHAPES + ((2 * FRAMES, 4096, 320, "f32"),):
+        dtype = torch.float32 if silu == "f32" else torch.bfloat16
+        silu = bool(silu)
+        x, dy, w, b = inputs(n, s, c, dtype)
+        y, stats = gn.group_norm_fwd(x, w, b, groups, eps, silu)
+        dx = gn.group_norm_bwd(dy, x, stats, w, b, groups, silu)
+        y2, stats2 = gn.group_norm_fwd(x, w, b, groups, eps, silu)
+        dx2 = gn.group_norm_bwd(dy, x, stats2, w, b, groups, silu)
+        if not (torch.equal(y, y2) and torch.equal(stats, stats2) and torch.equal(dx, dx2)):
+            raise AssertionError(f"group_norm at {(n, s, c, silu)}: two launches differ")
+        ref, ref_stats = gn.group_norm_plain(x.float(), w, b, groups, eps, silu)
+        ref_dx = gn.group_norm_bwd_plain(dy.float(), x.float(), ref_stats, w, b, groups, silu)
+        tol = (2e-5, 1e-4) if dtype == torch.float32 else (GN_FWD_RTOL, GN_BWD_TOL)
+        # bf16: relative to each output, with a floor of 1e-5 of the largest
+        # (an output near 0 is a difference of two f32 terms, the affine's
+        # shift); f32: relative to the largest
+        floor = (1e-5 if dtype == torch.bfloat16 else 1.0) * ref.abs().max().item()
+        fwd_err = ((y.float() - ref).abs() / (ref.abs() + floor)).max().item()
+        # the mean relative to the group's std, rstd relative to itself
+        stats_err = max(((stats[0] - ref_stats[0]).abs() * ref_stats[1]).max().item(),
+                        ((stats[1] - ref_stats[1]).abs() / ref_stats[1]).max().item())
+        dx_mag = ref_dx.abs().max().item()
+        bwd_err = (dx.float() - ref_dx).abs().max().item() / dx_mag
+        ok = fwd_err <= tol[0] and stats_err <= 1e-4 and bwd_err <= tol[1]
+        line = (f"group_norm ({n}, {s}, {c}) {'silu' if silu else 'gn  '} "
+                f"{'f32 ' if dtype == torch.float32 else 'bf16'}: forward rel err {fwd_err:.2e} "
+                f"(tol {tol[0]:.2e}), stats {stats_err:.1e}, dx err {bwd_err:.2e} of "
+                f"{dx_mag:.3g} (tol {tol[1]:.2e}), same bits twice")
+        if (n, s, c, silu) in timed and dtype == torch.bfloat16:
+            nbytes = x.numel() * x.element_size()
+            fwd_ms = time_ms(lambda: gn.group_norm_fwd(x, w, b, groups, eps, silu))
+            bwd_ms = time_ms(lambda: gn.group_norm_bwd(dy, x, stats, w, b, groups, silu))
+            act = F.silu if silu else (lambda t: t)
+            with torch.no_grad():
+                plain_ms = time_ms(lambda: act(group_norm_nhwc(x, groups, eps, w, b)))
+            leaf = x.detach().requires_grad_(True)
+
+            def eager():
+                torch.autograd.grad(act(group_norm_nhwc(leaf, groups, eps, w, b)), leaf, dy)
+
+            eager_ms = time_ms(eager)
+
+            def kernels():
+                torch.autograd.grad(gn.group_norm(leaf, w, b, groups, eps, silu=silu), leaf, dy)
+
+            pair_ms = time_ms(kernels)
+            line += (f"; forward {fwd_ms:.4f} ms (bound {2 * nbytes / PEAK_BYTES * 1e3:.4f}, "
+                     f"eager {plain_ms:.4f}), backward {bwd_ms:.4f} ms (bound "
+                     f"{3 * nbytes / PEAK_BYTES * 1e3:.4f}); forward + backward through "
+                     f"autograd {pair_ms:.4f} ms, eager chain {eager_ms:.4f} ms")
+            del leaf
+        log(line)
+        if not ok:
+            raise AssertionError(f"group_norm at {(n, s, c, silu, dtype)}: beyond tolerance")
+        del x, dy, y, y2, dx, dx2, ref, ref_dx
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at SD1.5 + AnimateDiff v3 width
 # ---------------------------------------------------------------------------
@@ -1400,29 +1522,51 @@ def steady_steps(pipe, rep, uncond, cond, lat) -> None:
     from motionclone_tpu_torch.config import NoiseScheduleConfig
     from motionclone_tpu_torch.pipeline.motionclone import make_sampling_fns
 
+    from motionclone_tpu_torch.ops import group_norm as gn
+
     paths = {"fused": pipe.fns,
              "flash": make_sampling_fns(pipe.unet, NoiseScheduleConfig(), pipe.infer_cfg,
                                         attention_impl="flash")}
     t, tp = (int(x) for x in pipe.fns.timesteps[:2])
     res = defaultdict(list)
+
+    def gn_launches():
+        return gn.group_norm_fwd.launches, gn.group_norm_bwd.launches
+
     for name in ("fused", "flash", "fused", "flash", "flash", "fused"):
         fns = paths[name]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        n0 = gn_launches()
         t0 = time.perf_counter()
         fns.guided_step(lat, t, tp, 1.0, uncond, cond, rep)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        n1 = gn_launches()
         fns.vanilla_step(lat, t, tp, uncond, cond)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        n2 = gn_launches()
         res[name].append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
-                          torch.cuda.max_memory_allocated() / 1e9))
+                          torch.cuda.max_memory_allocated() / 1e9,
+                          {"guided": tuple(b - a for a, b in zip(n0, n1)),
+                           "vanilla": tuple(b - a for a, b in zip(n1, n2))}))
     for name, runs in res.items():
         steady = runs[1:]  # the first round of each path is its warm-up
+        counts = steady[-1][3]
         log(f"steady {name:5s} path: guided ms " + ", ".join(f"{r[0]:.1f}" for r in steady)
             + "; vanilla ms " + ", ".join(f"{r[1]:.1f}" for r in steady)
             + f"; peak device memory {max(r[2] for r in steady):.2f} GB")
+        for kind, (fwd, bwd) in counts.items():
+            want = PREDICTED_GROUP_NORM_LAUNCHES[kind] if name == "fused" else None
+            log(f"steady {name:5s} path: GroupNorm kernel launches a {kind} step: forward "
+                f"{fwd}, backward {bwd}"
+                + ("" if want is None else f" (predicted {want[0]} / {want[1]})"
+                   + ("" if (fwd, bwd) == want else "  DIFFERS")))
+        if any(r[3] != counts for r in steady) or min(counts["guided"]) <= 0:
+            raise AssertionError(f"steady {name} path: the GroupNorm kernels launched "
+                                 f"{[r[3] for r in steady]} times a step (a guided step "
+                                 f"must launch both, every step alike)")
 
 
 # ---------------------------------------------------------------------------
@@ -3944,6 +4088,7 @@ def main() -> int:
     rows.update(check_fused_kernels(dev))
     rows.update(check_resnet_kernels(dev))
     check_controlnet_temporal(dev)
+    check_group_norm(dev)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     # phase 3: the main path (with phase 6, the only windows the launch

@@ -5,7 +5,9 @@ Port of ``motionclone_tpu/models/layers.py``.  Activations are
 attention projections and both attention kernels read it without a
 transpose.  A convolution folds frames into the batch and presents the
 tensor to ``conv2d`` as NCHW with channels-last strides (a view, no copy).
-Norm statistics are float32 whatever the activation dtype.
+Norm statistics are float32 whatever the activation dtype.  On the card
+the GroupNorm (and the SiLU after it) runs the hand-written differentiable
+kernels of ``ops/group_norm.py``; on the CPU it runs the plain chain below.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from motionclone_tpu_torch.ops import group_norm as gn_ops
+from motionclone_tpu_torch.ops.fused_common import cached_pack
 
 
 def spatial_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -45,18 +50,31 @@ def group_norm_nhwc(
 
 class GroupNorm(nn.GroupNorm):
     """``nn.GroupNorm`` (same parameters and state-dict keys) applied to a
-    channels-last tensor.  On a video tensor, ``per_frame`` statistics
-    reproduce AnimateDiff's ``InflatedGroupNorm``; otherwise they span the
-    frames too."""
+    channels-last tensor, then SiLU with ``silu``.  On a video tensor,
+    ``per_frame`` statistics reproduce AnimateDiff's ``InflatedGroupNorm``;
+    otherwise they span the frames too.
 
-    def forward(self, x: torch.Tensor, per_frame: bool = True) -> torch.Tensor:
+    A CUDA tensor takes the kernels of ``ops/group_norm.py``, differentiable
+    with respect to x only: the affine parameters go in as constants (an f32
+    copy cached on the module), so no gradient reaches them.  Any other
+    tensor takes ``group_norm_nhwc`` (then ``F.silu``) under autograd."""
+
+    def forward(self, x: torch.Tensor, per_frame: bool = True,
+                silu: bool = False) -> torch.Tensor:
+        if x.device.type == "cuda":
+            weight, bias = cached_pack(
+                self, torch.float32, lambda: (self.weight.float(), self.bias.float()))
+            return gn_ops.group_norm(x, weight, bias, self.num_groups, self.eps,
+                                     silu=silu, per_frame=per_frame)
         if x.dim() == 5 and per_frame:
             b, f = x.shape[:2]
-            return group_norm_nhwc(
+            out = group_norm_nhwc(
                 x.reshape(b * f, *x.shape[2:]), self.num_groups, self.eps,
                 self.weight, self.bias,
             ).reshape(x.shape)
-        return group_norm_nhwc(x, self.num_groups, self.eps, self.weight, self.bias)
+        else:
+            out = group_norm_nhwc(x, self.num_groups, self.eps, self.weight, self.bias)
+        return F.silu(out) if silu else out
 
 
 class LayerNorm(nn.LayerNorm):

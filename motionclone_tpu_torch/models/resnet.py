@@ -75,9 +75,9 @@ class ResnetBlock3D(nn.Module):
                 x, t, self.fused_weights(x.dtype), groups=self.norm1.num_groups,
                 eps=self.norm1.eps,
             )
-        h = spatial_conv(F.silu(self.norm1(x, per_frame=self.per_frame)), self.conv1)
+        h = spatial_conv(self.norm1(x, per_frame=self.per_frame, silu=True), self.conv1)
         h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
-        h = F.silu(self.norm2(h, per_frame=self.per_frame))
+        h = self.norm2(h, per_frame=self.per_frame, silu=True)
         h = spatial_conv(h, self.conv2)
         if self.conv_shortcut is not None:
             # a 1x1 conv on channels-last data is a dense layer on the last axis

@@ -35,7 +35,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from motionclone_tpu_torch.config import UNet3DConfig
 from motionclone_tpu_torch.models.embeddings import TimestepEmbedding, timestep_embedding
@@ -217,6 +216,6 @@ class UNet3DConditionModel(nn.Module):
             torch.no_grad() if post_guidance_cut is not None
             else contextlib.nullcontext()
         ):
-            x = F.silu(self.conv_norm_out(x, per_frame=cfg.use_inflated_groupnorm))
+            x = self.conv_norm_out(x, per_frame=cfg.use_inflated_groupnorm, silu=True)
             x = spatial_conv(x, self.conv_out)
         return x, probs

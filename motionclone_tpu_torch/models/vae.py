@@ -53,8 +53,8 @@ class ResnetBlock2D(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = _conv(F.silu(self.norm1(x)), self.conv1)
-        h = _conv(F.silu(self.norm2(h)), self.conv2)
+        h = _conv(self.norm1(x, silu=True), self.conv1)
+        h = _conv(self.norm2(h, silu=True), self.conv2)
         if self.conv_shortcut is not None:
             x = _conv(x, self.conv_shortcut)
         return x + h
@@ -175,7 +175,7 @@ class Encoder(nn.Module):
         for block in self.down_blocks:
             x = block(x)
         x = self.mid_block(x)
-        return _conv(F.silu(self.conv_norm_out(x)), self.conv_out)
+        return _conv(self.conv_norm_out(x, silu=True), self.conv_out)
 
 
 class Decoder(nn.Module):
@@ -197,7 +197,7 @@ class Decoder(nn.Module):
         x = self.mid_block(_conv(z, self.conv_in))
         for block in self.up_blocks:
             x = block(x)
-        return _conv(F.silu(self.conv_norm_out(x)), self.conv_out)
+        return _conv(self.conv_norm_out(x, silu=True), self.conv_out)
 
 
 class AutoencoderKL(nn.Module):

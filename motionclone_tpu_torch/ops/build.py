@@ -52,6 +52,9 @@ SIGNATURES = {
     "mc_fused_product": (_P, _P, _P),
     "mc_conv3x3": (_P, _P, _P),
     "mc_fused_product_smem": (_I,),
+    # the differentiable GroupNorm (+ SiLU): (pointer array, dims array[, eps], stream)
+    "mc_group_norm_fwd": (_P, _P, _F, _P),
+    "mc_group_norm_bwd": (_P, _P, _P),
 }
 
 _library: Optional[ctypes.CDLL] = None

@@ -71,6 +71,7 @@ template <class T> T __shfl_sync(unsigned, T, int);
 void __syncthreads();
 void __syncwarp(unsigned = 0xffffffffu);
 float __expf(float);
+float __fdividef(float, float);
 float rsqrtf(float);
 float erff(float);
 inline int min(int a, int b) { return a < b ? a : b; }
