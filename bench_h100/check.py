@@ -21,7 +21,9 @@ The numbers (each a gap from the reference, 0 when equal):
   the step's ramp); the worst.  The score moves a step by far less than
   bf16's rounding of it (``guidance_share``), so ``guided`` cannot see it;
 * ``decode``: for every example and frame, the mean absolute gap of the
-  uint8 frames decoded from the program's final latents; the worst.
+  uint8 frames decoded from the program's final latents; the worst;
+* the model family's own numbers (``families/<name>.py``'s ``readings``),
+  beside these, under other names.
 
 Every number is judged: a run whose limits do not name exactly the
 numbers it read (a limit missing, or one with nothing to judge) is not
@@ -31,7 +33,7 @@ correct.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -41,9 +43,12 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def readings(got: Mapping, ref: Mapping) -> Dict[str, float]:
+def readings(got: Mapping, ref: Mapping,
+             family: Optional[Callable[[Mapping, Mapping], Dict[str, float]]] = None
+             ) -> Dict[str, float]:
     """The numbers of ``got`` (the program's record, or the control's
-    outputs) against ``ref`` (the reference's outputs)."""
+    outputs) against ``ref`` (the reference's outputs), with the model
+    family's own numbers ``family(got, ref)``, which may not reuse a name."""
     out = {"text": rel_l2(got["text"], ref["text"]),
            "latents": rel_l2(got["latents"], ref["latents"])}
     if ref["condition"] is not None:
@@ -68,7 +73,10 @@ def readings(got: Mapping, ref: Mapping) -> Dict[str, float]:
         out["guidance"] = max(gaps)
     diff = (got["frames"].cpu().to(torch.int16) - ref["frames"].cpu().to(torch.int16)).abs()
     out["decode"] = float(diff.double().mean(dim=(2, 3, 4)).max())
-    return out
+    own = family(got, ref) if family is not None else {}
+    if set(own) & set(out):
+        raise ValueError(f"the family's numbers reuse common names: {sorted(set(own) & set(out))}")
+    return {**out, **own}
 
 
 def guidance_share(ref: Mapping) -> float:

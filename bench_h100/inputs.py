@@ -2,17 +2,18 @@
 (``traffic/<mix>.json``) and the run's seed.
 
 A job is one batch of ``batch`` examples.  Each example gets its own seed,
-token ids and reference clip; the seed of the run fixes them all, so the
+prompt and reference clip; the seed of the run fixes them all, so the
 same seed gives the same jobs, and every seed gives the same sizes: the
-ids are always 77 positions and the clips always ``frames`` x ``height``
-x ``width``, so a seed changes values and never the work.
+model family frames every prompt to its towers' fixed positions and the
+clips are always ``frames`` x ``height`` x ``width``, so a seed changes
+values and never the work.
 
-* Token ids stand in for the CLIP tokenizer, which needs vocabulary files:
-  BOS, a seeded number (``prompt_tokens``) of ids, EOS, and EOS padding to
-  77 positions (BOS and EOS are the vocabulary's last two ids, 49406 and
-  49407 in CLIP's).  A job's id batch is the examples' prompts, the negative
-  prompt once per example, then the empty prompt (the sweep's one CLIP
-  call of 2B+1 rows).
+* Prompts stand in for a tokenizer, which needs vocabulary files: a prompt
+  is a seeded number (``prompt_tokens``) of ids drawn below the family's
+  ``words``.  A job's prompts are the examples', the negative prompt
+  (``negative_prompt_tokens`` ids, one per run) once per example, then the
+  empty prompt (the sweep's one text call of 2B+1 rows); the family's
+  ``token_ids`` frames and pads them for each of its text towers.
 * A reference clip is a seeded smooth texture (``texture_cells`` random
   values a side, upsampled) seen through a window that zooms or pans by
   ``rate`` a frame: camera motion, so the motion representation has
@@ -28,23 +29,14 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-TOKENS = 77
 SEED_DOMAIN = 101  # the inputs' stream of the run's seed (weights.py has 100)
 
 
 @dataclasses.dataclass
 class JobInputs:
-    ids: torch.Tensor       # (2B+1, 77) int64: prompts, negatives, the empty prompt
+    ids: object             # the family's token ids: prompts, negatives, the empty prompt
     clips: torch.Tensor     # (B, F, H, W, 3) f32 in [-1, 1]
     seeds: List[int]        # one per example
-
-
-def _ids(rng: np.random.Generator, n: int, vocab: int) -> np.ndarray:
-    bos, eos = vocab - 2, vocab - 1
-    row = np.full(TOKENS, eos, dtype=np.int64)
-    row[0] = bos
-    row[1:n + 1] = rng.integers(0, bos, n)
-    return row
 
 
 def _texture(gen: torch.Generator, cells: int, size: int, device) -> torch.Tensor:
@@ -82,16 +74,19 @@ def _clip(texture: torch.Tensor, motion: str, rate: float, frames: int, h: int, 
     return out.permute(0, 2, 3, 1).contiguous()
 
 
-def make_job(traffic: Mapping, vocab: int, seed: int, job: int, device) -> JobInputs:
-    """Job ``job`` (0, 1, ...; -1 is the warm-up's) of the run ``seed``."""
+def make_job(traffic: Mapping, family, config: Mapping, seed: int, job: int,
+             device) -> JobInputs:
+    """Job ``job`` (0, 1, ...; -1 is the warm-up's) of the run ``seed``, its
+    token ids made by the model ``family`` for ``config``."""
     ss = np.random.SeedSequence([seed, SEED_DOMAIN, job + 1])
     rng = np.random.default_rng(ss)
     b, video, clip = traffic["batch"], traffic["video"], traffic["clip"]
     lo, hi = traffic["prompt_tokens"]
-    negative = _ids(np.random.default_rng([seed, SEED_DOMAIN]), traffic["negative_prompt_tokens"],
-                    vocab)
-    ids = ([_ids(rng, int(rng.integers(lo, hi + 1)), vocab) for _ in range(b)]
-           + [negative] * b + [_ids(rng, 0, vocab)])
+    words = family.words(config)
+    negative = np.random.default_rng([seed, SEED_DOMAIN]).integers(
+        0, words, traffic["negative_prompt_tokens"])
+    prompts = ([rng.integers(0, words, int(rng.integers(lo, hi + 1))) for _ in range(b)]
+               + [negative] * b + [rng.integers(0, words, 0)])
     seeds = [int(s) for s in rng.integers(0, 2 ** 31 - 1, b)]
     motions = [clip["motions"][int(i)] for i in rng.integers(0, len(clip["motions"]), b)]
     gen = torch.Generator(device=device).manual_seed(int(ss.generate_state(1, np.uint64)[0]))
@@ -100,4 +95,4 @@ def make_job(traffic: Mapping, vocab: int, seed: int, job: int, device) -> JobIn
         _clip(_texture(gen, clip["texture_cells"], 2 * max(h, w), device), m, clip["rate"],
               f, h, w)
         for m in motions])
-    return JobInputs(torch.from_numpy(np.stack(ids)).to(device), clips, seeds)
+    return JobInputs(family.token_ids(config, prompts, device), clips, seeds)

@@ -1,6 +1,7 @@
-"""The plain reference's run of one job, worked out again from the job's
-inputs (token ids, clips, example seeds) and weights, one example at a
-time (the program's work is per example: its batch is stacked examples).
+"""The SD1.5 family's plain reference run of one job, worked out again
+from the job's inputs (token ids, clips, example seeds) and weights, one
+example at a time (the program's work is per example: its batch is
+stacked examples).
 
 It cannot afford the program's 100 steps, so it follows the program step
 by step from the program's own state: for each checked step it takes the
@@ -101,8 +102,9 @@ class Reference:
         ``latents`` (B, F, h, w, 4), ``condition`` (B, N, h, w, 4) or None,
         ``rep`` {module: (values, indices)}, ``init`` (B, F, h, w, 4),
         ``steps`` {i: the step's output from the program's state before
-        it: its latents ``program["states"][i]``, text embeddings, motion
-        representation and condition},
+        it: its latents ``program["states"][i]``, text embeddings (the
+        example's rows of its ``conditioning``), motion representation
+        and condition},
         ``unguided`` {i: the same step without the guidance's score},
         ``grads`` {guided i: the guidance loss's gradient to the latents},
         ``frames`` (B, F, H, W, 3) uint8 decoded from the program's
@@ -137,14 +139,13 @@ class Reference:
             out["init"].append(store(D.draw_normal(lat.shape, seed, D.INIT_LATENTS, self.device)))
             # the program's state before a step: its latents, text, motion
             # representation and condition
-            ptext = program["text"].float()
+            negative, prompt = (t.float() for t in program["conditioning"].example(e))
             prep = {k: (v[e:e + 1].float(), i[e:e + 1]) for k, (v, i) in program["rep"].items()}
             pcn = (None if self.cond is None
                    else self._condition(program["condition"][e:e + 1].float()))
             for i in steps:
                 x = program["states"][i][e:e + 1].float()
-                after, unguided, grad = self.step(i, x, ptext[b + e:b + e + 1], ptext[e:e + 1],
-                                                  prep, pcn)
+                after, unguided, grad = self.step(i, x, negative, prompt, prep, pcn)
                 out["steps"][i].append(after)
                 out["unguided"][i].append(unguided)
                 if grad is not None:

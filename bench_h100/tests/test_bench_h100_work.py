@@ -69,7 +69,7 @@ def test_the_flop_counter_counts_a_reference_attention_layer_by_hand():
 
 def test_a_job_is_its_stages_and_steps():
     c = tiny_cell("i2v_rgb.b1")
-    f = job_flops(c.config, c.traffic)
+    f = job_flops(c.config, c.traffic, c.family.networks(c.config))
     s = c.traffic["schedule"]
     g, n = s["guidance_steps"], s["inference_steps"]
     assert f["job"] == (f["text"] + f["vae_encode"] + f["condition_encode"] + f["extract"]

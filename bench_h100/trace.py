@@ -6,11 +6,12 @@ Spans are ``torch.profiler.record_function`` ranges named
 encode, condition, extract, guided_step, vanilla_step, decode, and the
 whole ``window``, which in a traced run is the one job run under the
 profiler after the measured window).  During that job each entry point of the
-program's kernels (``work/bounds.KERNELS``) is wrapped: the wrapper
-records the call's operations and bytes from its arguments' shapes and
-runs it inside a range ``bench_h100.op/<n>``, so the device time of the
-kernels it launches can be found.  Nothing is wrapped, and no range is
-opened, in the measured window.
+program's kernels (``work/bounds.KERNELS`` and the model family's
+``kernels()``) is wrapped: the wrapper records the call's operations and
+bytes from its arguments' shapes and runs it inside a range
+``bench_h100.op/<n>``, so the device time of the kernels it launches can
+be found.  Nothing is wrapped, and no range is opened, in the measured
+window.
 
 The reduction reads the profiler's raw events once (no chrome trace is
 written): the union of the device's busy intervals inside the window
@@ -28,7 +29,7 @@ import contextlib
 import dataclasses
 import importlib
 from collections import defaultdict
-from typing import List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -43,7 +44,7 @@ TOP = 10
 @dataclasses.dataclass
 class Call:
     name: str       # the entry point
-    layer: str      # "fused" or "attention"
+    layer: str      # its table entry's layer: "fused", "attention" or a family's
     flops: float
     nbytes: float
     device_s: float = 0.0
@@ -59,10 +60,16 @@ class Summary:
 
 
 class Tracer:
-    """Spans and kernel-call records of one run; inert unless ``enabled``."""
+    """Spans and kernel-call records of one run; inert unless ``enabled``.
+    ``kernels``: a family's entries beside ``bounds.KERNELS``, none of
+    which may replace a common one."""
 
-    def __init__(self, enabled: bool):
+    def __init__(self, enabled: bool, kernels: Mapping = {}):
+        clash = set(kernels) & set(bounds.KERNELS)
+        if clash:
+            raise ValueError(f"a family's kernel entries replace common ones: {sorted(clash)}")
         self.enabled = enabled
+        self.kernels: Dict = {**bounds.KERNELS, **kernels}
         self.calls: List[Call] = []
         self._patched = []
         self._open = None
@@ -85,7 +92,7 @@ class Tracer:
 
     def patch(self) -> None:
         """Wrap the program's kernel entry points that exist."""
-        for (mod_name, fn_name), (layer, count) in bounds.KERNELS.items():
+        for (mod_name, fn_name), (layer, count) in self.kernels.items():
             try:
                 mod = importlib.import_module(f"motionclone_tpu_torch.ops.{mod_name}")
             except ImportError:

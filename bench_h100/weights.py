@@ -5,11 +5,11 @@ draws, in the type they are served in.
 through the depth: fan-in-scaled normal matrices and kernels, embeddings
 N(0, 0.5), norm scales N(1, 0.1), other vectors N(0, 0.1); no projection
 is zero.  The leaves are the plain reference's parameters in its order
-(``reference/nets.py``, whose names are the program's state-dict keys).
-One standard normal draw per network fills every leaf of it, which is then
-scaled and shifted in place, so the same seed on the same device gives the
-same weights bit for bit: the program's copy before the window, the
-reference's after it.
+(the model family's ``networks``, whose names are the program's
+state-dict keys).  One standard normal draw per network fills every leaf
+of it, which is then scaled and shifted in place, so the same seed on the
+same device gives the same weights bit for bit: the program's copy before
+the window, the reference's after it.
 """
 
 from __future__ import annotations
@@ -19,8 +19,6 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
-
-from bench_h100.reference import nets
 
 SEED_DOMAIN = 100
 
@@ -40,11 +38,13 @@ def _leaves(module: nn.Module) -> Iterator[Tuple[str, torch.Size, float, float]]
                 yield name, p.shape, 0.0, 0.1
 
 
-def make(config: Mapping, seed: int, device, dtype=torch.bfloat16
+def make(networks: Mapping[str, nn.Module], seed: int, device, dtype=torch.bfloat16
          ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{network: {parameter name: tensor}} of the configuration."""
+    """{network: {parameter name: tensor}} for the reference ``networks``
+    (on any device: only their parameters' names and shapes are read); the
+    i-th network by name gets the i-th draw."""
     out = {}
-    for i, (key, module) in enumerate(sorted(nets.build(config, "meta").items())):
+    for i, (key, module) in enumerate(sorted(networks.items())):
         leaves = list(_leaves(module))
         total = sum(int(np.prod(shape)) for _, shape, _, _ in leaves)
         mixed = np.random.SeedSequence([seed, SEED_DOMAIN, i]).generate_state(1, np.uint64)[0]

@@ -1,7 +1,8 @@
 """The model FLOPs of one job, counted once per configuration and cell by
 ``torch.utils.flop_counter.FlopCounterMode`` over the plain reference on
 the meta device, at the cell's shapes: the same work whatever implements
-it.  A job is what ``harness.run_job`` drives: CLIP on 2B+1 rows, the VAE
+it.  A job is what the SD1.5 family's ``run_job`` drives
+(``families/sd15_animatediff.py``): CLIP on 2B+1 rows, the VAE
 encode of B clips (and of B condition images), the extraction, every
 guided step (the controlnet on the CFG pair, the unconditional forward,
 the conditional forward and its backward to the latents through the
@@ -15,7 +16,7 @@ from typing import Dict, Mapping
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from bench_h100.reference import diffusion, nets
+from bench_h100.reference import diffusion
 
 
 def _count(fn) -> int:
@@ -24,9 +25,10 @@ def _count(fn) -> int:
     return counter.get_total_flops()
 
 
-def job_flops(config: Mapping, traffic: Mapping) -> Dict[str, float]:
-    """{component: FLOPs of one occurrence, ..., "job": FLOPs of a job}."""
-    m = nets.build(config, "meta")
+def job_flops(config: Mapping, traffic: Mapping, m: Mapping[str, torch.nn.Module]
+              ) -> Dict[str, float]:
+    """{component: FLOPs of one occurrence, ..., "job": FLOPs of a job},
+    over the family's reference networks ``m`` on the meta device."""
     unet, vae, clip, cn = m["unet"], m["vae"], m["text_encoder"], m.get("controlnet")
     b, video, sched = traffic["batch"], traffic["video"], traffic["schedule"]
     f, hh, ww = video["frames"], video["height"], video["width"]
