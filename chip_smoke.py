@@ -52,6 +52,11 @@ Phase 2  kernels: each kernel at every shape the main path gives it (the
          GN_FWD_RTOL of each output, GN_BWD_TOL of dx's largest), two
          launches of each giving the same bits, f32 at one shape, and
          timed beside their byte bound and the port's eager chain.
+         SDXL's shapes (check_flash_kernels_xl, check_xl_kernels):
+         kernels 1-2 at head dim 64, kernel 6 over a two-layer 640-wide
+         transformer with 2048-wide text, kernel 7 at 128x128x320 and
+         64x64x640, kernel 8 at the resnets SDXL's route gives it, and
+         kernels 3-4 at S = 16384, 4096 and 1024, the same way.
 Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          width, 512x512x16 frames, random weights from a seed: CLIP on random
          token ids for the CFG pair, VAE encode of a random video,
@@ -67,6 +72,12 @@ Phase 3  main path: guided text-to-video sampling at SD1.5 + AnimateDiff v3
          unsharded results phase 6 compares with, beside a bf16 rounding
          control (the same math with other rounding: extraction as half of
          a batch of 2, sampling on the "flash" path).
+Phase 3b SDXL's path: SDXL + AnimateDiff-SDXL (the benchmark's
+         configuration file) at 1024x1024x16, random weights, text and
+         latents from a seed: extraction, 2 guided (recompute on) and 2
+         vanilla steps.  Every kernel's launches must be
+         PREDICTED_XL_LAUNCHES', and every shape a kernel ran at one
+         phase 2 held it at.
 Phase 4  reference: the port on the card (bf16, kernels), on its default
          fused path and on its "flash" path, against the port on the CPU
          (f32, plain versions, unfused) at reduced depth and size; and one
@@ -246,6 +257,7 @@ subreaper) and names each on standard error.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -356,7 +368,8 @@ PREDICTED_SHARDED_LAUNCHES = {
     "temporal_fwd_rect": (22, 74, 40), "temporal_bwd_rect": (0, 22, 0),
 }
 # kernels that no run of the main path launches: kernel 6 is the
-# linear-projection models' route (phase 4 drives it), the rectangular
+# linear-projection models' route (SDXL's: phase 2 holds it at SDXL's
+# shapes, phase 3b counts its launches on SDXL's path), the rectangular
 # kernels the frame-sharded path's (phase 6)
 OFF_MAIN_PATH = ("fused_transformer_block", "temporal_fwd_rect", "temporal_bwd_rect")
 # phase 6 holds the sharded run against the unsharded one on the card: the
@@ -560,10 +573,128 @@ def attention_recorder(rows: dict):
 def check_kernels(dev) -> dict:
     """Kernels 1-4 (flash and temporal attention, and 3r, 4r) at every
     main-path shape against their plain versions, timed beside PyTorch's
-    own attention."""
+    own attention; kernels 1-2 also at SDXL's head dim 64."""
     rows = check_flash_kernels(dev)
+    rows.update(check_flash_kernels_xl(dev))
     rows.update(check_temporal_kernels(dev))
     return rows
+
+
+# (B*F, S, heads) of SDXL's spatial self-attention at 1024x1024 latents of
+# 16 frames, head dim 64: 640 channels over 10 heads at 64x64 (unfused in
+# the differentiated pass only), 1280 over 20 at 32x32 (unfused in every
+# pass: B*F = 32 is the vanilla pair's)
+XL_ATTN_SHAPES = ((16, 4096, 10), (16, 1024, 20), (32, 1024, 20))
+# SDXL + AnimateDiff-SDXL (the configuration of the t2v_camera_xl.b1 cell)
+# at 1024x1024 latents of 16 frames, batch 1: the shapes each module's
+# fused_route gives kernels 6-8, which run only in the passes without grad,
+# at B*F = 16 (the guided step's unconditional pass, its conditional pass
+# past the cut) and 32 (the vanilla pair).  Kernel 6: the 640-wide
+# transformers at 64x64 (10 heads of 64, 2 layers, 2048-wide text); the
+# 1280-wide ones run unfused (C > 640).  Kernel 7: the motion modules at
+# 128x128x320 and 64x64x640.  Kernel 8: the resnets it takes, (H = W, Cin,
+# Cout); none at 128x128 (a frame passes 24 MB), none from 1280 input
+# channels at 64x64 or from 1280 at 32x32 (weights past 48 MB).
+XL_CONFIG = "bench_h100/configs/sdxl-adxl-t2v.json"
+XL_BLOCK = (64, 640, 10, 2, 2048)  # H = W, C, heads, layers, text width
+XL_TEMPORAL_FUSED = ((128, 320), (64, 640))
+XL_RESNET_SHAPES = ((64, 320, 640), (64, 640, 640), (64, 960, 640), (32, 640, 1280))
+# kernels 3-4 (8 heads) in the unfused motion modules: (S, head dim, the
+# forward's batches); at 320 and 640 channels in the differentiated pass
+# only (B = 1, forward and backward), at 1280 in every pass (the forward
+# at B = 1 and 2, the backward at 1)
+XL_TEMPORAL_SHAPES = ((16384, 40, (1,)), (4096, 80, (1,)), (1024, 160, (1, 2)))
+# launches on SDXL's path (phase 3b: extraction + 2 guided + 2 vanilla
+# steps; extraction / per guided step / per vanilla step).  A full pass
+# without grad: kernel 8 in down_blocks.1 (2), down_blocks.2's first
+# resnet and up_blocks.1's last; kernel 6 in down_blocks.1 (2 x 2 layers)
+# and up_blocks.1 (3 x 2); kernel 7 in the 320- and 640-wide blocks (10);
+# the 1280-wide motion modules' kernel 3 (5 x 2 attention blocks) and
+# transformers' kernel 1 (60 layers).  The conditional pass runs unfused to
+# the cut (up_blocks.0): kernel 1 in 64 layers, again in their recompute,
+# kernel 2 in each; kernels 3-4 in 6 motion modules (up_blocks.0's 3 return
+# their probabilities by the plain route); then up_blocks.1 (kernel 8 once,
+# kernel 6 6 times, kernel 7 3 times) and up_blocks.2 (kernel 7 3 times)
+# fused.  Extraction runs the conditional pass's unfused part without grad.
+PREDICTED_XL_LAUNCHES = {
+    "fused_spatial_transformer": (0, 0, 0), "fused_transformer_block": (0, 16, 10),
+    "fused_temporal_module": (0, 16, 10), "fused_resnet_block": (0, 5, 4),
+    "flash_fwd": (64, 188, 60), "flash_bwd": (0, 64, 0),
+    "temporal_fwd": (12, 22, 10), "temporal_bwd": (0, 12, 0),
+    "temporal_fwd_rect": (0, 0, 0), "temporal_bwd_rect": (0, 0, 0),
+}
+
+
+def check_flash_kernels_xl(dev) -> dict:
+    """Kernels 1 and 2 at head dim 64 (``XL_ATTN_SHAPES``) against their
+    plain versions, twice for the same bits, timed beside PyTorch's own
+    attention (SDPA forward, the aten flash backward); rows keyed
+    ``flash_fwd_d64`` / ``flash_bwd_d64`` and the shape's B*F and S."""
+    from torch.nn import functional as F
+
+    from motionclone_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows, d = {}, 64
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for b, s, heads in XL_ATTN_SHAPES:
+        hd, scale = heads * d, d ** -0.5
+        view = lambda x: x.view(b, s, heads, d).transpose(1, 2)
+        q, k, v, dout = (randn(b, s, hd) for _ in range(4))
+        out, lse = fa.flash_fwd(q, k, v, heads, scale)
+        grads = fa.flash_bwd(q, k, v, out, lse, dout, heads, scale)
+        again = fa.flash_fwd(q, k, v, heads, scale), fa.flash_bwd(q, k, v, out, lse, dout,
+                                                                  heads, scale)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again[0][0]) and torch.equal(lse, again[0][1])
+                and all(torch.equal(g, a) for g, a in zip(grads, again[1]))):
+            raise AssertionError(f"flash at head dim 64: two launches differ at {(b, s, heads)}")
+        del again
+        got_f, ref_f, got_b, ref_b = [], [], [], []
+        for sl in batch_slices(b, 2):
+            got_f.append(out[sl])
+            ref_f.append(fa.flash_attention_plain(q[sl], k[sl], v[sl], heads, scale)[0])
+            got_b.extend(g[sl] for g in grads)
+            ref_b.extend(fa.flash_attention_bwd_plain(q[sl], k[sl], v[sl], dout[sl], heads,
+                                                      scale))
+        for name, (got, ref), ms, lib_ms, lib_dev, (b_ms, b_by) in (
+                ("flash_fwd", (got_f, ref_f),
+                 time_ms(lambda: fa.flash_fwd(q, k, v, heads, scale)),
+                 time_ms(lambda: F.scaled_dot_product_attention(view(q), view(k), view(v),
+                                                                scale=scale)),
+                 (F.scaled_dot_product_attention(view(q), view(k), view(v), scale=scale)
+                  .transpose(1, 2).reshape(b, s, hd).float() - out.float()).abs().max().item(),
+                 bound(4 * b * s * s * hd, 4 * b * s * hd * 2 + b * heads * s * 4)),
+                ("flash_bwd", (got_b, ref_b),
+                 time_ms(lambda: fa.flash_bwd(q, k, v, out, lse, dout, heads, scale)),
+                 *_library_bwd_xl(view, q, k, v, dout, grads, scale),
+                 bound(10 * b * s * s * hd, 8 * b * s * hd * 2 + b * heads * s * 4))):
+            err, tol = max_err(got, ref)
+            ok = err <= tol
+            log(f"kernel {name:13s} shape={(b, s, heads, d)} max_abs_err={err:.3e} "
+                f"tol={tol:.3e} {'OK' if ok else 'FAIL'} kernel_ms={ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}) roofline={100 * b_ms / ms:.1f}% "
+                f"library_ms={lib_ms:.4f} library_vs_kernel={lib_dev:.3e}")
+            if not ok:
+                raise AssertionError(f"{name} at {(b, s, heads, d)}: error {err} > {tol}")
+            rows[f"{name}_d64_b{b}_s{s}"] = dict(shape=[b, s, heads, d], max_abs_err=err,
+                                                ms=ms, bound_ms=b_ms, bound_by=b_by,
+                                                library_ms=lib_ms)
+        del got_f, ref_f, got_b, ref_b, grads
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _library_bwd_xl(view, q, k, v, dout, grads, scale):
+    """(ms, largest gap to ``grads``) of PyTorch's flash backward on the
+    4-D views of (B, S, heads*D) tensors."""
+    lib_ms, lib_grads = library_bwd(view(q), view(k), view(v), view(dout), scale)
+    gap = max((lg.transpose(1, 2).reshape(g.shape).float() - g.float()).abs().max().item()
+              for lg, g in zip(lib_grads, grads))
+    return lib_ms, gap
 
 
 def check_flash_kernels(dev) -> dict:
@@ -1201,6 +1332,319 @@ def check_resnet_kernels(dev) -> dict:
                     hw == 64 and cin == cout, same_bits=True)
                 del x, t, temb
     return rows
+
+
+def xl_configs():
+    """SDXL + AnimateDiff-SDXL's UNet and noise schedule (``XL_CONFIG``,
+    the configuration file of the benchmark's SDXL cell)."""
+    from motionclone_tpu_torch.config import (MotionModuleConfig, NoiseScheduleConfig,
+                                              UNet3DConfig)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, XL_CONFIG)) as f:
+        config = json.load(f)
+    tuples = lambda d: {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+    unet = UNet3DConfig(**dict(tuples(config["unet"]), motion_module=MotionModuleConfig(
+        **tuples(config["unet"]["motion_module"]))))
+    return unet, NoiseScheduleConfig.from_dict(config["noise_schedule"])
+
+
+def check_xl_kernels(dev) -> None:
+    """Kernels 3, 4, 6, 7 and 8 at the shapes SDXL's path gives them and
+    SD1.5's does not (``XL_BLOCK``, ``XL_TEMPORAL_FUSED``,
+    ``XL_RESNET_SHAPES``, ``XL_TEMPORAL_SHAPES``), each against its plain
+    version on the same bf16 inputs (tolerance as at SD1.5's shapes), two
+    launches bit for bit, timed beside its bound and the port's unfused
+    module (kernels 6-8) or PyTorch's attention (kernels 3-4).  Kernel 6
+    runs a two-layer transformer block by block, as the fused route does,
+    against the plain block twice."""
+    from torch.nn import functional as F
+
+    from motionclone_tpu_torch.models.attention import Transformer3DModel
+    from motionclone_tpu_torch.models.motion_module import TemporalTransformer3D
+    from motionclone_tpu_torch.models.resnet import ResnetBlock3D
+    from motionclone_tpu_torch.ops import fused_block as fb
+    from motionclone_tpu_torch.ops import fused_resnet as fr
+    from motionclone_tpu_torch.ops import fused_temporal as ft
+    from motionclone_tpu_torch.ops import temporal_attention as ta
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    bf16 = torch.bfloat16
+    rows = {}
+    mm_cfg = xl_configs()[0].motion_module
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    with torch.no_grad():
+        # kernel 6: both layers of a 640-wide transformer, 4 frames a plain slice
+        hw, c, heads, layers, dc = XL_BLOCK
+        s = hw * hw
+        m = module_on_card(lambda: Transformer3DModel(
+            c, heads, c // heads, cross_attention_dim=dc, use_linear_projection=True,
+            num_layers=layers), dev, gen)
+        blocks = list(m.transformer_blocks)
+        ws = [blk.fused_weights(bf16) for blk in blocks]
+        for b in (1, 2):
+            bf = b * FRAMES
+            if m.fused_route((b, FRAMES, hw, hw, c), (b, TEXT_TOKENS, dc), "cuda") \
+                    != "transformer_block":
+                raise AssertionError(f"kernel 6 does not take SDXL's {(b, hw, c)}")
+            x, ctx = randn(bf, s, c), randn(b, TEXT_TOKENS, dc)
+            ctx_f = ctx.repeat_interleave(FRAMES, dim=0)
+
+            def kernel():
+                h = x
+                for w in ws:
+                    h = fb.fused_transformer_block_kernel(h, ctx, w, heads=heads,
+                                                          frames=FRAMES)
+                return h
+
+            def plain(sl):
+                h = x[sl]
+                for w in ws:
+                    h = fb.fused_transformer_block_plain(
+                        h, ctx[sl.start // FRAMES: (sl.stop - 1) // FRAMES + 1], w,
+                        heads=heads, frames=min(FRAMES, sl.stop - sl.start))
+                return h
+
+            def unfused():
+                h = x
+                for blk in blocks:
+                    h = blk(h, ctx_f)
+                return h
+
+            mm = 2 * bf * s * c * c
+            attn = 4 * bf * s * s * c + 4 * bf * s * TEXT_TOKENS * c + 4 * b * TEXT_TOKENS * dc * c
+            check_fused(rows, "fused_transformer_block", (bf, s, c, heads, layers, dc), kernel,
+                        plain, [slice(i, i + 4) for i in range(0, bf, 4)], unfused,
+                        layers * (18 * mm + attn),
+                        layers * (2 * 2 * bf * s * c + 2 * b * TEXT_TOKENS * dc
+                                  + 2 * (18 * c * c + 2 * dc * c)), False, same_bits=True)
+            del x, ctx, ctx_f
+
+        # kernel 7 at 128x128x320 and 64x64x640
+        for hw, c in XL_TEMPORAL_FUSED:
+            s = hw * hw
+            mc = module_on_card(lambda: TemporalTransformer3D(c, mm_cfg), dev, gen)
+            for b in (1, 2):
+                x = randn(b, FRAMES, s, c)
+                x5 = x.view(b, FRAMES, hw, hw, c)
+                wm = mc.fused_weights(x5)
+                m_rows = b * FRAMES * s
+                check_fused(rows, "fused_temporal_module", (b, FRAMES, s, c),
+                            lambda: ft.fused_temporal_kernel(x, wm, heads=HEADS, groups=32),
+                            lambda sl: ft.fused_temporal_module_plain(
+                                x[sl], wm, heads=HEADS, groups=32),
+                            [slice(i, i + 1) for i in range(b)], lambda: mc(x5),
+                            44 * m_rows * c * c + 2 * 4 * b * s * FRAMES * FRAMES * c,
+                            2 * 2 * m_rows * c + 2 * 22 * c * c, False, same_bits=True)
+                del x, x5, wm
+
+        # kernel 8
+        for hw, cin, cout in XL_RESNET_SHAPES:
+            m = module_on_card(lambda: ResnetBlock3D(cin, cout, 1280), dev, gen)
+            w = m.fused_weights(bf16)
+            for b in (1, 2):
+                if not m.fused_route((b, FRAMES, hw, hw, cin), "cuda"):
+                    raise AssertionError(f"kernel 8 does not take SDXL's {(b, hw, cin, cout)}")
+                x, temb = randn(b, FRAMES, hw, hw, cin), randn(b, 1280)
+                t = m.time_emb_proj(torch.nn.functional.silu(temb))
+                pix = b * FRAMES * hw * hw
+                macs = 9 * cin * cout + 9 * cout * cout + (cin * cout if cin != cout else 0)
+                check_fused(
+                    rows, "fused_resnet_block", (b * FRAMES, hw, hw, cin, cout),
+                    lambda: fr.fused_resnet_kernel(x, t, w, groups=32, eps=1e-5),
+                    lambda sl: fr.fused_resnet_block_plain(x[sl], t[sl], w, groups=32, eps=1e-5),
+                    [slice(0, b)], lambda: m(x, temb, "flash"),
+                    2 * pix * macs, 2 * pix * (cin + cout) + 2 * macs + 2 * b * cout,
+                    False, same_bits=True)
+                del x, t, temb
+
+    # kernels 3-4
+    record = attention_recorder({})
+    f = FRAMES
+    for s, d, batches in XL_TEMPORAL_SHAPES:
+        hd, scale = HEADS * d, d ** -0.5
+        for b in batches:
+            q, k, v, dout = (randn(b, f, s, hd) for _ in range(4))
+            out, lse = ta.temporal_fwd(q, k, v, HEADS, scale)
+            again = ta.temporal_fwd(q, k, v, HEADS, scale)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                raise AssertionError(f"temporal_fwd: two launches differ at {(b, f, s, hd)}")
+            ref_out, ref_lse = ta.temporal_attention_plain(q, k, v, HEADS, scale)
+            err, tol = max_err((out,), (ref_out,))
+            lse_err = (lse - ref_lse).abs().max().item()
+            if lse_err > 1e-2:
+                raise AssertionError(f"temporal_fwd lse error {lse_err} at {(b, f, s, hd)}")
+            del again, ref_out, ref_lse
+            q4, k4, v4 = (temporal_view(x, b, f, s, d) for x in (q, k, v))
+            # PyTorch's attention only where its batch of (pixel, head)
+            # rows fits a grid's second axis (65535)
+            lib_ok = b * s * HEADS <= 65535
+            lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            lib_dev = float("nan") if not lib_ok else (
+                lib().transpose(1, 2).reshape(b, f, s, hd).float() - out.float()
+            ).abs().max().item()
+            record("temporal_fwd", (b, f, s, hd), err, tol,
+                   time_ms(lambda: ta.temporal_fwd(q, k, v, HEADS, scale), reps=20),
+                   time_ms(lambda: ta.temporal_attention_plain(q, k, v, HEADS, scale)),
+                   *bound(4 * b * s * HEADS * f * f * d,
+                          (4 * b * f * s * hd) * 2 + b * s * HEADS * f * 4),
+                   time_ms(lib, reps=20) if lib_ok else None, lib_dev)
+            if b == 1:
+                grads = ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale)
+                again = ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, a) for g, a in zip(grads, again)):
+                    raise AssertionError(f"temporal_bwd: two launches differ at {(b, f, s, hd)}")
+                err, tol = max_err(grads, ta.temporal_attention_bwd_plain(q, k, v, dout, HEADS,
+                                                                          scale))
+                lib_ms, lib_grads, lib_dev = None, (), float("nan")
+                if lib_ok:
+                    lib_ms, lib_grads = library_bwd(q4, k4, v4,
+                                                    temporal_view(dout, b, f, s, d), scale)
+                    lib_dev = max((lg.transpose(1, 2).reshape(b, f, s, hd).float()
+                                   - g.float()).abs().max().item()
+                                  for lg, g in zip(lib_grads, grads))
+                record("temporal_bwd", (b, f, s, hd), err, tol,
+                       time_ms(lambda: ta.temporal_bwd(q, k, v, lse, dout, HEADS, scale),
+                               reps=20),
+                       time_ms(lambda: ta.temporal_attention_bwd_plain(q, k, v, dout, HEADS,
+                                                                       scale)),
+                       *bound(10 * b * s * HEADS * f * f * d,
+                              (7 * b * f * s * hd) * 2 + b * s * HEADS * f * 4),
+                       lib_ms, lib_dev)
+                del grads, again, lib_grads
+            del q, k, v, dout, out, lse, q4, k4, v4
+            torch.cuda.empty_cache()
+
+
+def xl_checked_shapes() -> dict:
+    """Kernel name -> the (first, second argument) shapes phase 2 holds it
+    at for SDXL's path (kernels 1-4 and 6-8)."""
+    c64 = lambda heads: heads * 64
+    out = defaultdict(set)
+    for b, s, heads in XL_ATTN_SHAPES:
+        for name in ("flash_fwd", "flash_bwd"):
+            out[name].add(((b, s, c64(heads)), (b, s, c64(heads))))
+    for s, d, batches in XL_TEMPORAL_SHAPES:
+        for b in batches:
+            out["temporal_fwd"].add(((b, FRAMES, s, HEADS * d),) * 2)
+        out["temporal_bwd"].add(((1, FRAMES, s, HEADS * d),) * 2)
+    hw, c, _, _, dc = XL_BLOCK
+    for b in (1, 2):
+        out["fused_transformer_block"].add(((b * FRAMES, hw * hw, c), (b, TEXT_TOKENS, dc)))
+        for hw_m, c_m in XL_TEMPORAL_FUSED:
+            out["fused_temporal_module"].add(((b, FRAMES, hw_m * hw_m, c_m), None))
+        for hw_r, cin, cout in XL_RESNET_SHAPES:
+            out["fused_resnet_block"].add(((b, FRAMES, hw_r, hw_r, cin), (b, cout)))
+    return out
+
+
+@contextlib.contextmanager
+def recorded_calls(wrappers: dict):
+    """While open, each call of a kernel entry point of ``wrappers`` (name ->
+    function) appends (name, its first and second arguments' shapes) to the
+    list it yields; each entry point's ``launches`` counts on as before."""
+    calls, patched = [], []
+    for name, fn in wrappers.items():
+        mod = sys.modules[fn.__module__]
+
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            calls.append((_name, *(tuple(a.shape) if isinstance(a, torch.Tensor) else None
+                                   for a in args[:2])))
+            return _fn(*args, **kwargs)
+
+        wrapper.launches = fn.launches
+        setattr(mod, fn.__name__, wrapper)
+        patched.append((mod, fn, wrapper))
+    try:
+        yield calls
+    finally:
+        for mod, fn, wrapper in patched:
+            fn.launches = wrapper.launches
+            setattr(mod, fn.__name__, fn)
+
+
+def xl_path(dev, wrappers) -> None:
+    """Phase 3b: SDXL + AnimateDiff-SDXL at 1024x1024x16 with seeded random
+    weights (``XL_CONFIG``'s UNet, recompute on), random text conditioning
+    (the joined 2048-wide context, the pooled text, the size and crop ids)
+    and random video latents: extraction, then 2 guided + 2 vanilla steps
+    on the default path.  The launches of every kernel must be
+    ``PREDICTED_XL_LAUNCHES``' and every shape a kernel was launched at one
+    phase 2 held it at (``xl_checked_shapes``); the latents finite."""
+    from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
+    from motionclone_tpu_torch.pipeline.motionclone import Conditioning, MotionClonePipeline
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2020)
+    dtype = torch.bfloat16
+    unet_cfg, sched_cfg = xl_configs()
+    infer = t2v_config(width=1024, height=1024, motion_guidance_blocks=("up_blocks.0",))
+    pipe = MotionClonePipeline(unet_cfg, sched_cfg, infer,
+                               build_model(UNet3DConditionModel, unet_cfg, dev, gen, dtype),
+                               device=dev, dtype=dtype)
+    pooled_dim = (unet_cfg.projection_class_embeddings_input_dim
+                  - 6 * unet_cfg.addition_time_embed_dim)
+
+    def text():
+        return Conditioning(
+            torch.randn(1, TEXT_TOKENS, unet_cfg.cross_attention_dim, generator=gen,
+                        device=dev).to(dtype),
+            torch.randn(1, pooled_dim, generator=gen, device=dev).to(dtype), pipe.time_ids(1))
+
+    uncond, cond = text(), text()
+    latents = torch.randn(1, FRAMES, 128, 128, 4, generator=gen, device=dev).to(dtype)
+    torch.cuda.synchronize()
+    log(f"SDXL path: UNet {sum(p.numel() for p in pipe.unet.parameters()) / 1e9:.3f} B "
+        f"params, set-up {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with recorded_calls(wrappers) as calls:
+        rep = pipe.extract_motion_representation(latents, uncond, seed=2)
+        n_extract = len(calls)
+
+        def on_step(i, guided):
+            torch.cuda.synchronize()
+            steps.append((guided, time.perf_counter()))
+
+        start = time.perf_counter()
+        out = pipe.sample_latents(uncond, cond, rep, seed=3, on_step=on_step)
+        torch.cuda.synchronize()
+    if out.shape != latents.shape or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"SDXL path: latents of shape {tuple(out.shape)} or non-finite")
+    ends = [start] + [t for _, t in steps]
+    log("SDXL path steps (guided, ms): " + ", ".join(
+        f"({g}, {1e3 * (b - a):.1f})" for (g, _), a, b in zip(steps, ends, ends[1:]))
+        + f"; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    counts = defaultdict(int)
+    counts_extract = defaultdict(int)
+    for i, (name, *_) in enumerate(calls):
+        counts[name] += 1
+        counts_extract[name] += i < n_extract
+    g = sum(1 for guided, _ in steps if guided)
+    v = len(steps) - g
+    differ = []
+    for name, (ext, per_g, per_v) in PREDICTED_XL_LAUNCHES.items():
+        want = ext + g * per_g + v * per_v
+        log(f"SDXL launches {name:25s} measured {counts[name]:4d} predicted {want:4d} "
+            f"(extraction {counts_extract[name]} / {ext})"
+            f"{'' if counts[name] == want and counts_extract[name] == ext else '  DIFFERS'}")
+        if counts[name] != want or counts_extract[name] != ext:
+            differ.append(name)
+    checked = xl_checked_shapes()
+    unchecked = sorted({(name, a, b) for name, a, b in calls
+                        if name in checked and (a, b) not in checked[name]}, key=str)
+    for name, a, b in unchecked:
+        log(f"SDXL path: {name} at {a}, {b}: a shape phase 2 does not hold it at")
+    if differ or unchecked:
+        raise AssertionError(f"SDXL path: launches differ for {differ}; "
+                             f"{len(unchecked)} unchecked shapes")
+    del pipe, rep, out
+    torch.cuda.empty_cache()
 
 
 def check_group_norm(dev) -> None:
@@ -4087,6 +4531,7 @@ def main() -> int:
     rows = check_kernels(dev)
     rows.update(check_fused_kernels(dev))
     rows.update(check_resnet_kernels(dev))
+    check_xl_kernels(dev)
     check_controlnet_temporal(dev)
     check_group_norm(dev)
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
@@ -4097,6 +4542,10 @@ def main() -> int:
     reference = main_path(dev, wrappers, args.profile)
     log(f"phase main path: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    # phase 3b: SDXL's path, its launches and shapes
+    t0 = time.perf_counter()
+    xl_path(dev, wrappers)
+    log(f"phase SDXL path: {time.perf_counter() - t0:.1f} s")
     # phase 4: the card against the CPU at a reduced depth
     t0 = time.perf_counter()
     reference_check(dev, wrappers)

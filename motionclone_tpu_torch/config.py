@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple, Union
 
 from motionclone_tpu_torch.io import yaml_subset
 
@@ -40,10 +40,21 @@ class MotionModuleConfig:
 
 @dataclasses.dataclass(frozen=True)
 class UNet3DConfig:
-    """AnimateDiff SD1.5 UNet3D topology.
+    """AnimateDiff UNet3D topology (SD1.5's by default; SDXL's with three
+    levels, per-level heads and depths and the ``text_time`` embedding).
 
     ``attention_head_dim`` follows the diffusers-legacy convention: it is the
-    *number of heads* per spatial attention (head width = channels // heads).
+    *number of heads* per spatial attention (head width = channels // heads),
+    one for every level or one per level.  ``transformer_layers_per_block``
+    is the number of transformer layers in each spatial attention, one for
+    every level or one per level; the mid block takes the last level's.
+    The number of levels is ``len(block_out_channels)``.
+    ``addition_embed_type`` "text_time" (SDXL) adds the embedding of the
+    pooled text and the six size and crop ids (each through an
+    ``addition_time_embed_dim``-wide sinusoid; ``projection_class_embeddings_input_dim``
+    wide together) to the time embedding.  ``guided_recompute``: the
+    differentiated pass keeps no transformer layer's activations, and its
+    backward runs each layer again.
     """
 
     sample_size: Optional[int] = None
@@ -66,7 +77,13 @@ class UNet3DConfig:
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     cross_attention_dim: int = 768
-    attention_head_dim: int = 8  # number of heads (diffusers-legacy naming)
+    # number of heads (diffusers-legacy naming): one, or one per level
+    attention_head_dim: Union[int, Tuple[int, ...]] = 8
+    transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: Optional[int] = None
+    guided_recompute: bool = False
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
     use_inflated_groupnorm: bool = True
@@ -77,9 +94,39 @@ class UNet3DConfig:
     motion_module_decoder_only: bool = False
     motion_module: MotionModuleConfig = MotionModuleConfig()
 
+    def __post_init__(self):
+        for key in ("attention_head_dim", "transformer_layers_per_block"):
+            v = getattr(self, key)
+            if not isinstance(v, int) and len(v) != len(self.block_out_channels):
+                raise ValueError(f"{key} {v!r}: one value, or one per level "
+                                 f"({len(self.block_out_channels)})")
+        if self.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"unsupported addition_embed_type {self.addition_embed_type!r}")
+        if self.addition_embed_type and not self.projection_class_embeddings_input_dim:
+            raise ValueError("the text_time embedding needs "
+                             "projection_class_embeddings_input_dim")
+
     @property
     def num_heads(self) -> int:
+        """The head count of every level (a per-level list has none)."""
+        if not isinstance(self.attention_head_dim, int):
+            raise ValueError("attention_head_dim is per level: use heads(level)")
         return self.attention_head_dim
+
+    @property
+    def levels(self) -> int:
+        return len(self.block_out_channels)
+
+    def heads(self, level: int) -> int:
+        """The spatial attention's head count at ``level`` (-1: the last, the
+        mid block's)."""
+        h = self.attention_head_dim
+        return h if isinstance(h, int) else h[level]
+
+    def depth(self, level: int) -> int:
+        """The transformer layers of a spatial attention at ``level``."""
+        n = self.transformer_layers_per_block
+        return n if isinstance(n, int) else n[level]
 
     @classmethod
     def from_unet_additional_kwargs(
@@ -88,7 +135,8 @@ class UNet3DConfig:
         """Build from the YAML ``unet_additional_kwargs`` block."""
         kwargs: dict = {}
         for key in ("use_inflated_groupnorm", "use_motion_module",
-                    "motion_module_mid_block", "motion_module_decoder_only"):
+                    "motion_module_mid_block", "motion_module_decoder_only",
+                    "guided_recompute"):
             if key in d:
                 kwargs[key] = bool(d[key])
         if "motion_module_resolutions" in d:

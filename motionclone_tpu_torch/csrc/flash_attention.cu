@@ -21,7 +21,9 @@
 // and the special-function unit's exponentials (one per score, ~3.9e12/s).
 // At D = 40 the exponentials are the floor: (16, 4096, 8, 40) needs 2.15e9
 // of them, ~0.55 ms, against 0.35 ms of products; at D = 80 the two are
-// level, at D = 160 the products dominate.
+// level, at D = 160 the products dominate.  D = 64 is SDXL's head (640 and
+// 1280 channels over 10 and 20 heads): its tiles are 128-byte rows with no
+// pad, and it runs the D <= 80 tiling.
 //
 // The design (after FlashAttention-3, hand-written in PTX; wgmma.cuh):
 // - Both products on wgmma.  S = Q K^T from shared memory (Q and K tiles
@@ -99,6 +101,9 @@ extern "C" int mc_flash_smem(int D, int kernel) {
     case 160: return (int)fa::fwd_smem<40>();
     case 161: return (int)fa::dq_smem<40>();
     case 162: return (int)fa::dkv_smem<40>();
+    case 256: return (int)fa::fwd_smem<64>();
+    case 257: return (int)fa::dq_smem<64>();
+    case 258: return (int)fa::dkv_smem<64>();
     case 320: return (int)fa::fwd_smem<80>();
     case 321: return (int)fa::dq_smem<80>();
     case 322: return (int)fa::dkv_smem<80>();
@@ -124,6 +129,7 @@ extern "C" int mc_flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 40: return bwd<40>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, H, Sq, Sk, scale, st);
+    case 64: return bwd<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, H, Sq, Sk, scale, st);
     case 80: return bwd<80>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, H, Sq, Sk, scale, st);
     case 160: return bwd<160>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, H, Sq, Sk, scale, st);
     default: return -1;

@@ -545,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace fa
 
-// Launch the forward for head dim D (40, 80 or 160; else -1): out and the
+// Launch the forward for head dim D (40, 64, 80 or 160; else -1): out and the
 // LSE of q (B, Sq, H*D) against k/v batch b / kv_div (B / kv_div, Sk, H*D).
 template <int D>
 int flash_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
@@ -566,6 +566,7 @@ inline int flash_fwd(int D, const bf16* q, const bf16* k, const bf16* v, bf16* o
                      int kv_div, cudaStream_t st) {
   switch (D) {
     case 40: return flash_fwd<40>(q, k, v, o, lse, B, H, Sq, Sk, scale, kv_div, st);
+    case 64: return flash_fwd<64>(q, k, v, o, lse, B, H, Sq, Sk, scale, kv_div, st);
     case 80: return flash_fwd<80>(q, k, v, o, lse, B, H, Sq, Sk, scale, kv_div, st);
     case 160: return flash_fwd<160>(q, k, v, o, lse, B, H, Sq, Sk, scale, kv_div, st);
     default: return -1;

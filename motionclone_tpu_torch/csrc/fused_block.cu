@@ -52,7 +52,7 @@ int transformer(void* const* p, const int* d, float eps, bool whole,
   const int BF = d[0], F = d[1], S = d[2], C = d[3], H = d[4], T = d[5];
   const int Dc = d[6], G = d[7], nch = d[8];
   const int M = BF * S, D = C / H, videos = BF / F;
-  if (C % H || (D != 40 && D != 80 && D != 160)) return -1;
+  if (C % H || (D != 40 && D != 64 && D != 80 && D != 160)) return -1;
   const bf16* x = (const bf16*)p[0];
   bf16* h = (bf16*)p[29];
   bf16* xn = (bf16*)p[30];

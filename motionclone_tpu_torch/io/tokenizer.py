@@ -26,7 +26,7 @@ import os
 import re
 import unicodedata
 from functools import lru_cache
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -137,7 +137,7 @@ class ClipTokenizer:
 
     model_max_length = 77
 
-    def __init__(self, vocab_file: str, merges_file: str):
+    def __init__(self, vocab_file: str, merges_file: str, pad_token: Optional[str] = None):
         with open(vocab_file, encoding="utf-8") as fh:
             self.encoder: Dict[str, int] = json.load(fh)
         self.decoder = {v: k for k, v in self.encoder.items()}
@@ -149,13 +149,22 @@ class ClipTokenizer:
         self._cache: Dict[str, str] = {BOS: BOS, EOS: EOS}
         self.bos_token_id = self.encoder[BOS]
         self.eos_token_id = self.encoder[EOS]
-        self.pad_token_id = self.eos_token_id
+        # EOS pads unless the tokenizer names another pad (SDXL's second: "!", id 0)
+        self.pad_token_id = self.eos_token_id if pad_token is None else self.encoder[pad_token]
         self.unk_token_id = self.eos_token_id
 
     @classmethod
     def from_pretrained(cls, model_path: str, subfolder: str = "tokenizer"):
+        """The tokenizer of a diffusers-layout subfolder, with the pad token
+        its ``special_tokens_map.json`` names, where it has one."""
         base = os.path.join(model_path, subfolder) if subfolder else model_path
-        return cls(os.path.join(base, "vocab.json"), os.path.join(base, "merges.txt"))
+        pad = None
+        special = os.path.join(base, "special_tokens_map.json")
+        if os.path.isfile(special):
+            with open(special, encoding="utf-8") as fh:
+                pad = json.load(fh).get("pad_token")
+            pad = pad.get("content") if isinstance(pad, dict) else pad
+        return cls(os.path.join(base, "vocab.json"), os.path.join(base, "merges.txt"), pad)
 
     def _bpe(self, token: str) -> str:
         cached = self._cache.get(token)
@@ -210,7 +219,8 @@ class ClipTokenizer:
         return [self.bos_token_id] + ids + [self.eos_token_id]
 
     def encode_padded(self, text: str, max_length: int = 77) -> np.ndarray:
-        """(1, max_length) int32 ids, eos-padded."""
+        """(1, max_length) int32 ids, padded with the pad id (EOS's by
+        default)."""
         ids = self.encode(text, max_length=max_length)
         ids = ids + [self.pad_token_id] * (max_length - len(ids))
         return np.asarray([ids], dtype=np.int32)

@@ -7,14 +7,19 @@ Submodule names follow the diffusers keys (``attn1.to_q``, ``attn1.to_out.0``,
 Self-attention (``attn1``) goes through the flash kernels at every
 resolution; cross-attention (``attn2``, 77 text tokens) is plain PyTorch.
 
+A Transformer3DModel holds ``num_layers`` BasicTransformerBlocks (one in
+SD1.5, up to ten in SDXL), run in turn between its projections.
+
 With ``impl="fused"``, under the JAX package's conditions and predicate
 (``ops/fused_block.supported``) and, on CUDA, the kernels' own shape rule
 (``ops/fused_block.device_supported``: :meth:`Transformer3DModel.fused_route`),
 a whole single-layer Transformer3DModel with 1x1-conv projections runs as
-kernel 5, and otherwise its BasicTransformerBlock as kernel 6 (the
-linear-projection models): forward only, on weights repacked once into the
-kernels' layout and cached on the module.  ``impl="flash"`` and every other
-shape run the unfused path.
+kernel 5, and otherwise each of its BasicTransformerBlocks as kernel 6 (the
+linear-projection and the multi-layer models): forward only, on weights
+repacked once into the kernels' layout and cached on the module.
+``impl="flash"`` and every other shape run the unfused path.  With
+``recompute`` set on the module, under autograd each transformer layer's
+activations are computed again in the backward (``layers.recompute``).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from motionclone_tpu_torch.models.layers import GroupNorm, LayerNorm
+from motionclone_tpu_torch.models.layers import GroupNorm, LayerNorm, recompute
 from motionclone_tpu_torch.ops import fused_block
 from motionclone_tpu_torch.ops.attention import dot_product_attention
 from motionclone_tpu_torch.ops.fused_common import cached_pack, geglu_weights, takes_kernel
@@ -129,10 +134,12 @@ class Transformer3DModel(nn.Module):
 
     def __init__(self, in_channels: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = 768,
-                 norm_num_groups: int = 32, use_linear_projection: bool = False):
+                 norm_num_groups: int = 32, use_linear_projection: bool = False,
+                 num_layers: int = 1):
         super().__init__()
         inner = heads * dim_head
         self.use_linear_projection = use_linear_projection
+        self.recompute = False  # recompute each layer's activations in a backward
         self.norm = GroupNorm(norm_num_groups, in_channels, eps=1e-6)
         if use_linear_projection:
             self.proj_in = nn.Linear(in_channels, inner)
@@ -140,9 +147,9 @@ class Transformer3DModel(nn.Module):
         else:
             self.proj_in = nn.Conv2d(in_channels, inner, 1)
             self.proj_out = nn.Conv2d(inner, in_channels, 1)
-        # one block, as in every SD1.5 / AnimateDiff checkpoint
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim)]
+            [BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim)
+             for _ in range(num_layers)]
         )
 
     def _weight(self, layer: nn.Module) -> torch.Tensor:
@@ -179,7 +186,7 @@ class Transformer3DModel(nn.Module):
         if not takes_kernel(device_type, fused_block.supported(hh * ww, inner, heads),
                             lambda: fused_block.device_supported(hh * ww, inner, t, dc)):
             return None
-        if not self.use_linear_projection and inner == c:
+        if not self.use_linear_projection and inner == c and len(self.transformer_blocks) == 1:
             return "spatial_transformer"
         return "transformer_block"
 
@@ -198,11 +205,15 @@ class Transformer3DModel(nn.Module):
             return out.reshape(x.shape)
         h = self._project(self.proj_in, self.norm(x, per_frame=True))
         h = h.reshape(b * f, hh * ww, h.shape[-1])
-        if route == "transformer_block":
-            h = fused_block.fused_transformer_block(
-                h, context, block.fused_weights(x.dtype), heads=block.attn1.heads, frames=f)
-        else:
-            ctx = None if context is None else context.repeat_interleave(f, dim=0)
-            h = block(h, ctx)
+        ctx = None
+        if route is None and context is not None:
+            ctx = context.repeat_interleave(f, dim=0)
+        for block in self.transformer_blocks:
+            if route == "transformer_block":
+                h = fused_block.fused_transformer_block(
+                    h, context, block.fused_weights(x.dtype), heads=block.attn1.heads,
+                    frames=f)
+            else:
+                h = recompute(block, h, ctx, on=self.recompute)
         h = self._project(self.proj_out, h.reshape(b, f, hh, ww, h.shape[-1]))
         return h + x

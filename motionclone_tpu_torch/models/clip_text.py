@@ -1,8 +1,15 @@
-"""CLIP ViT-L/14 text encoder.
+"""CLIP text encoders: ViT-L/14's (SD1.5, SDXL) and OpenCLIP ViT-bigG/14's
+(SDXL's second tower).
 
 Port of ``motionclone_tpu/models/clip_text.py``: a causal transformer with
 quick-GELU MLPs and a final LayerNorm, returning the last hidden state
-(B, 77, 768), the UNet's cross-attention context.  Submodule names follow the
+(B, 77, 768), the UNet's cross-attention context.  A tower configured with
+``output_hidden_state="penultimate"`` returns instead the hidden state
+before its last layer, with no final LayerNorm (SDXL's
+``hidden_states[-2]``); one with a ``projection_dim`` also gives, through
+:meth:`CLIPTextModel.encode`, the pooled text: the final-LayerNorm state at
+the EOS position (the largest id of each row) through ``text_projection``
+(no bias).  Submodule names follow the
 Hugging Face ``CLIPTextModel`` keys (``text_model.encoder.layers.N.
 self_attn.q_proj`` ...).  Attention over 77 tokens is plain PyTorch with f32
 logits and softmax; LayerNorms compute in f32.
@@ -11,6 +18,7 @@ logits and softmax; LayerNorms compute in f32.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +38,9 @@ class CLIPTextConfig:
     layer_norm_eps: float = 1e-5
     # transformers ``hidden_act``: SD1.5's tower uses quick_gelu
     hidden_act: str = "quick_gelu"
+    # "last" (after the final LayerNorm) or "penultimate" (before the last layer)
+    output_hidden_state: str = "last"
+    projection_dim: Optional[int] = None  # the pooled text's projection (bigG)
 
     def __post_init__(self):
         if self.hidden_act not in _ACTIVATIONS:
@@ -37,6 +48,9 @@ class CLIPTextConfig:
                 f"unsupported CLIP hidden_act {self.hidden_act!r}; "
                 f"supported: {sorted(_ACTIVATIONS)}"
             )
+        if self.output_hidden_state not in ("last", "penultimate"):
+            raise ValueError(f"output_hidden_state {self.output_hidden_state!r}: "
+                             "last or penultimate")
 
 
 def tiny_clip_config() -> CLIPTextConfig:
@@ -129,22 +143,45 @@ class CLIPTextTransformer(nn.Module):
         self.encoder = CLIPEncoder(cfg)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, penultimate: bool = False,
+                pooled: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the last hidden state after the final LayerNorm, or with
+        ``penultimate`` the state before the last layer; with ``pooled``
+        the final-LayerNorm state at each row's EOS, the largest id, else
+        None)."""
         x = self.embeddings(input_ids)
         s = input_ids.shape[1]
         causal_mask = torch.full((s, s), float("-inf"), device=x.device).triu(1)
-        for layer in self.encoder.layers:
+        layers = self.encoder.layers
+        for layer in layers[:-1]:
             x = layer(x, causal_mask)
-        return self.final_layer_norm(x)
+        state = x
+        if not penultimate or pooled:
+            x = self.final_layer_norm(layers[-1](x, causal_mask))
+            state = state if penultimate else x
+        eos = None
+        if pooled:
+            eos = x[torch.arange(x.shape[0], device=x.device), input_ids.argmax(dim=-1)]
+        return state, eos
 
 
 class CLIPTextModel(nn.Module):
-    """Token ids (B, 77) -> last hidden state (B, 77, hidden)."""
+    """Token ids (B, 77) -> the configured hidden state (B, 77, hidden)."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.cfg = cfg
         self.text_model = CLIPTextTransformer(cfg)
+        if cfg.projection_dim is not None:
+            self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
+
+    def encode(self, input_ids: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the configured hidden state, the projected pooled text (B,
+        projection_dim) or None without a projection)."""
+        proj = self.cfg.projection_dim is not None
+        state, eos = self.text_model(
+            input_ids, penultimate=self.cfg.output_hidden_state == "penultimate", pooled=proj)
+        return state, (self.text_projection(eos) if proj else None)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.text_model(input_ids)
+        return self.encode(input_ids)[0]

@@ -2,7 +2,8 @@
 
 Port of ``motionclone_tpu/models/embeddings.py``: diffusers'
 ``get_timestep_embedding`` / ``TimestepEmbedding`` and the motion module's
-fixed sinusoidal positional table.
+fixed sinusoidal positional table; and SDXL's embedding of its size and
+crop ids (diffusers' ``add_time_proj``).
 """
 
 from __future__ import annotations
@@ -45,6 +46,15 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(t_emb)))
+
+
+def time_ids_embedding(time_ids: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
+                       freq_shift: float = 0.0) -> torch.Tensor:
+    """SDXL's size and crop ids (B, n) -> (B, n * dim) float32: each id
+    through the ``dim``-wide sinusoid of the timestep embedding."""
+    b = time_ids.shape[0]
+    return timestep_embedding(time_ids.reshape(-1), dim, flip_sin_to_cos,
+                              freq_shift).reshape(b, -1)
 
 
 def temporal_positional_encoding(d_model: int, max_len: int) -> np.ndarray:

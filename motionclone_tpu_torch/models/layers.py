@@ -8,16 +8,53 @@ tensor to ``conv2d`` as NCHW with channels-last strides (a view, no copy).
 Norm statistics are float32 whatever the activation dtype.  On the card
 the GroupNorm (and the SiLU after it) runs the hand-written differentiable
 kernels of ``ops/group_norm.py``; on the CPU it runs the plain chain below.
+:func:`recompute` runs a module so that a backward computes its activations
+again instead of keeping them (the guided pass's ``guided_recompute``).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from motionclone_tpu_torch.ops import group_norm as gn_ops
 from motionclone_tpu_torch.ops.fused_common import cached_pack
+from motionclone_tpu_torch.utils import trace
+
+# segments run again in a backward over the process's life (it only grows:
+# callers take differences)
+_RECOMPUTED = [0]
+
+
+@contextlib.contextmanager
+def _rerun():
+    """A segment's re-run in the backward: counted, and recorded as the
+    ``unet_guided_recompute`` span."""
+    _RECOMPUTED[0] += 1
+    with trace.span("unet_guided_recompute"):
+        yield
+
+
+def recomputed_segments() -> int:
+    """How many segments :func:`recompute` has run again in a backward so
+    far in this process."""
+    return _RECOMPUTED[0]
+
+
+def recompute(fn, *args, on: bool = True):
+    """``fn(*args)``; with ``on`` and under autograd, its activations are
+    not kept for the backward but computed again there from ``args``
+    (``torch.utils.checkpoint``), the same values: a backward's gradients
+    are unchanged.  Each re-run is counted (:func:`recomputed_segments`)
+    and recorded as a ``unet_guided_recompute`` span."""
+    if not on or not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _rerun()))
 
 
 def spatial_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:

@@ -1,9 +1,19 @@
-"""UNet3DConditionModel: the AnimateDiff SD1.5 UNet.
+"""UNet3DConditionModel: the AnimateDiff UNet (SD1.5's, or SDXL's).
 
-Port of ``motionclone_tpu/models/unet3d.py``.  Submodule names follow the
-diffusers keys.  Activations are
+Port of ``motionclone_tpu/models/unet3d.py``, grown to SDXL's topology
+(``config.UNet3DConfig``: the levels read from ``block_out_channels``,
+per-level heads and transformer depths, motion modules placed by level,
+the ``text_time`` added embedding as ``add_embedding``).  Submodule names
+follow the diffusers keys.  Activations are
 channels-last video tensors (B, F, H, W, C); latents are (B, F, 64, 64, 4)
 at 512x512.
+
+* ``added_cond``: SDXL's (pooled text (B, 1280), size and crop ids (B,
+  6)), embedded and added to the time embedding; required by, and only
+  taken by, a model with the added embedding.
+* ``cfg.guided_recompute``: the differentiated pass recomputes each
+  transformer layer's activations in its backward (set on the transformers
+  at construction; no effect without autograd).
 
 * ``guidance_blocks``: the temporal-attention probabilities of matching
   motion modules come back as an explicit dict (no recorder hooks), so the
@@ -37,7 +47,11 @@ import torch
 from torch import nn
 
 from motionclone_tpu_torch.config import UNet3DConfig
-from motionclone_tpu_torch.models.embeddings import TimestepEmbedding, timestep_embedding
+from motionclone_tpu_torch.models.embeddings import (
+    TimestepEmbedding,
+    time_ids_embedding,
+    timestep_embedding,
+)
 from motionclone_tpu_torch.models.layers import GroupNorm, conv2d, spatial_conv
 from motionclone_tpu_torch.models.unet_blocks import (
     CrossAttnDownBlock3D,
@@ -59,7 +73,11 @@ class UNet3DConditionModel(nn.Module):
         temb_ch = ch0 * 4
         mm = cfg.motion_module
         self.time_embedding = TimestepEmbedding(ch0, temb_ch)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim,
+                                                   temb_ch)
         self.conv_in = conv2d(cfg.in_channels, ch0)
+        levels = cfg.levels
 
         skip_ch = [ch0]
         ch = ch0
@@ -82,8 +100,9 @@ class UNet3DConditionModel(nn.Module):
             )
             if block_type == "CrossAttnDownBlock3D":
                 block = CrossAttnDownBlock3D(
-                    heads=cfg.num_heads, cross_attention_dim=cfg.cross_attention_dim,
-                    use_linear_projection=cfg.use_linear_projection, **common)
+                    heads=cfg.heads(i), cross_attention_dim=cfg.cross_attention_dim,
+                    use_linear_projection=cfg.use_linear_projection,
+                    transformer_layers=cfg.depth(i), **common)
             elif block_type == "DownBlock3D":
                 block = DownBlock3D(**common)
             else:
@@ -94,13 +113,14 @@ class UNet3DConditionModel(nn.Module):
 
         self.mid_block = UNetMidBlock3DCrossAttn(
             channels=cfg.block_out_channels[-1], temb_channels=temb_ch,
-            num_layers=1, heads=cfg.num_heads,
+            num_layers=1, heads=cfg.heads(-1),
             cross_attention_dim=cfg.cross_attention_dim,
             norm_num_groups=cfg.norm_num_groups, norm_eps=cfg.norm_eps,
             use_inflated_groupnorm=cfg.use_inflated_groupnorm,
             use_motion_module=cfg.use_motion_module and cfg.motion_module_mid_block,
             motion_module_cfg=mm,
             use_linear_projection=cfg.use_linear_projection,
+            transformer_layers=cfg.depth(-1),
         )
 
         reversed_ch = list(reversed(cfg.block_out_channels))
@@ -120,14 +140,16 @@ class UNet3DConditionModel(nn.Module):
                 use_inflated_groupnorm=cfg.use_inflated_groupnorm,
                 use_motion_module=(
                     cfg.use_motion_module
-                    and 2 ** (3 - i) in cfg.motion_module_resolutions
+                    and 2 ** (levels - 1 - i) in cfg.motion_module_resolutions
                 ),
                 motion_module_cfg=mm, path=f"up_blocks.{i}",
             )
             if block_type == "CrossAttnUpBlock3D":
+                level = levels - 1 - i
                 block = CrossAttnUpBlock3D(
-                    heads=cfg.num_heads, cross_attention_dim=cfg.cross_attention_dim,
-                    use_linear_projection=cfg.use_linear_projection, **common)
+                    heads=cfg.heads(level), cross_attention_dim=cfg.cross_attention_dim,
+                    use_linear_projection=cfg.use_linear_projection,
+                    transformer_layers=cfg.depth(level), **common)
             elif block_type == "UpBlock3D":
                 block = UpBlock3D(**common)
             else:
@@ -136,6 +158,9 @@ class UNet3DConditionModel(nn.Module):
 
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, ch0, eps=cfg.norm_eps)
         self.conv_out = conv2d(ch0, cfg.out_channels)
+        for block in (*self.down_blocks, self.mid_block, *self.up_blocks):
+            for attn in getattr(block, "attentions", None) or ():
+                attn.recompute = cfg.guided_recompute
 
     def forward(
         self,
@@ -151,6 +176,7 @@ class UNet3DConditionModel(nn.Module):
         attention_impl: str = "flash",
         post_guidance_impl: Optional[str] = None,
         frame_group: Optional[FrameGroup] = None,
+        added_cond: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[Optional[torch.Tensor], ProbsDict]:
         """Returns ``(noise_pred, probs)``; noise_pred is None when
         ``max_up_block`` cuts the forward short."""
@@ -170,6 +196,14 @@ class UNet3DConditionModel(nn.Module):
             t, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift
         ).to(dtype)
         temb = self.time_embedding(t_emb)
+        if hasattr(self, "add_embedding") != (added_cond is not None):
+            raise ValueError("added_cond (pooled text, time ids) is required by, and only "
+                             "taken by, a UNet with the text_time embedding")
+        if added_cond is not None:
+            pooled, time_ids = added_cond
+            ids = time_ids_embedding(time_ids, cfg.addition_time_embed_dim,
+                                     cfg.flip_sin_to_cos, cfg.freq_shift)
+            temb = temb + self.add_embedding(torch.cat([pooled.to(dtype), ids.to(dtype)], -1))
 
         x = spatial_conv(sample, self.conv_in)
         skips = [x]

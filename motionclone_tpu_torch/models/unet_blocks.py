@@ -13,7 +13,8 @@ Each block returns a dict of temporal-attention probability maps of the
 motion modules whose dotted path contains a ``guidance_blocks`` substring.
 ``impl`` ("flash" or "fused") is handed to every resnet, spatial
 transformer and motion module of the block, and ``frame_group`` (frame
-sharding, ``parallel/frames.py``) to every motion module.
+sharding, ``parallel/frames.py``) to every motion module.  A spatial
+transformer holds ``transformer_layers`` layers.
 """
 
 from __future__ import annotations
@@ -75,11 +76,11 @@ def _resnet(in_ch, out_ch, temb_ch, groups, eps, inflated):
                          use_inflated_groupnorm=inflated)
 
 
-def _transformer(ch, heads, cross_dim, groups, linear):
+def _transformer(ch, heads, cross_dim, groups, linear, layers):
     return Transformer3DModel(ch, heads, ch // heads,
                               cross_attention_dim=cross_dim,
                               norm_num_groups=groups,
-                              use_linear_projection=linear)
+                              use_linear_projection=linear, num_layers=layers)
 
 
 def _motion_modules(ch, n, use, cfg):
@@ -94,7 +95,8 @@ class CrossAttnDownBlock3D(_Block):
                  norm_num_groups: int, norm_eps: float, add_downsample: bool,
                  use_inflated_groupnorm: bool, use_motion_module: bool,
                  motion_module_cfg: Optional[MotionModuleConfig],
-                 use_linear_projection: bool = False, path: str = ""):
+                 use_linear_projection: bool = False, path: str = "",
+                 transformer_layers: int = 1):
         super().__init__(path, motion_module_cfg)
         self.resnets = nn.ModuleList([
             _resnet(in_channels if i == 0 else out_channels, out_channels,
@@ -103,7 +105,7 @@ class CrossAttnDownBlock3D(_Block):
         ])
         self.attentions = nn.ModuleList([
             _transformer(out_channels, heads, cross_attention_dim, norm_num_groups,
-                         use_linear_projection)
+                         use_linear_projection, transformer_layers)
             for _ in range(num_layers)
         ])
         self.motion_modules = _motion_modules(
@@ -165,7 +167,8 @@ class UNetMidBlock3DCrossAttn(_Block):
                  norm_eps: float, use_inflated_groupnorm: bool,
                  use_motion_module: bool,
                  motion_module_cfg: Optional[MotionModuleConfig],
-                 use_linear_projection: bool = False, path: str = "mid_block"):
+                 use_linear_projection: bool = False, path: str = "mid_block",
+                 transformer_layers: int = 1):
         super().__init__(path, motion_module_cfg)
         self.resnets = nn.ModuleList([
             _resnet(channels, channels, temb_channels, norm_num_groups, norm_eps,
@@ -174,7 +177,7 @@ class UNetMidBlock3DCrossAttn(_Block):
         ])
         self.attentions = nn.ModuleList([
             _transformer(channels, heads, cross_attention_dim, norm_num_groups,
-                         use_linear_projection)
+                         use_linear_projection, transformer_layers)
             for _ in range(num_layers)
         ])
         self.motion_modules = _motion_modules(
@@ -198,7 +201,8 @@ class CrossAttnUpBlock3D(_Block):
                  norm_eps: float, add_upsample: bool,
                  use_inflated_groupnorm: bool, use_motion_module: bool,
                  motion_module_cfg: Optional[MotionModuleConfig],
-                 use_linear_projection: bool = False, path: str = ""):
+                 use_linear_projection: bool = False, path: str = "",
+                 transformer_layers: int = 1):
         """``in_channels``: each resnet's input width (activation + skip)."""
         super().__init__(path, motion_module_cfg)
         self.resnets = nn.ModuleList([
@@ -208,7 +212,7 @@ class CrossAttnUpBlock3D(_Block):
         ])
         self.attentions = nn.ModuleList([
             _transformer(out_channels, heads, cross_attention_dim, norm_num_groups,
-                         use_linear_projection)
+                         use_linear_projection, transformer_layers)
             for _ in range(num_layers)
         ])
         self.motion_modules = _motion_modules(

@@ -39,8 +39,9 @@ import torch
 
 from motionclone_tpu_torch.ops.build import check, check_extent, load_library
 
-# head dims with a compiled kernel (SD1.5: 320/640/1280 channels, 8 heads)
-KERNEL_HEAD_DIMS = (40, 80, 160)
+# head dims with a compiled kernel (SD1.5: 320/640/1280 channels, 8 heads;
+# SDXL: 640/1280 channels, 10/20 heads)
+KERNEL_HEAD_DIMS = (40, 64, 80, 160)
 
 
 # ---------------------------------------------------------------------------

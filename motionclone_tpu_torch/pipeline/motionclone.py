@@ -105,6 +105,15 @@ group or a CFG pair each rank keeps its own latents under
 ``<resume_path>.rank<r>.npz`` (r the global rank), and the ranks continue
 only from one step that every rank of the video holds.
 
+The text conditioning of a pass is a :class:`Conditioning`: the
+cross-attention context, and for SDXL's UNet (the ``text_time`` added
+embedding) the pooled text and the size and crop ids.  Every function
+takes either one or, for SD1.5, the context tensor alone (the conditioning
+of that context, so the SD1.5 path runs the same kernels in the same
+order); the CFG pair's concat and a batch's rows are its methods.  Frame
+sharding and the CFG pair refuse the SDXL UNet; the approx caches carry its
+conditioning as they carry a context.
+
 Every function takes a leading batch axis of B examples (the sweep's
 batches): the guidance loss sums a per-example mean, and
 :class:`MotionClonePipeline` draws each example's noise from its own seed.
@@ -136,6 +145,7 @@ from motionclone_tpu_torch.diffusion.guidance import (
     ramp_scales,
     sparsify_top1,
 )
+from motionclone_tpu_torch.models.layers import recomputed_segments
 from motionclone_tpu_torch.models.sparse_controlnet import SparseControlNetModel
 from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
 from motionclone_tpu_torch.parallel.frames import FrameGroup, exchange_pair
@@ -147,6 +157,49 @@ MotionRep = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 CnCond = Tuple[torch.Tensor, torch.Tensor, Union[float, torch.Tensor]]
 # one seed, or one per example of a batch
 Seeds = Union[int, Sequence[int]]
+
+
+@dataclasses.dataclass(frozen=True)
+class Conditioning:
+    """A batch's text conditioning: the cross-attention ``context`` (B, T,
+    D), and for a UNet with the ``text_time`` embedding the ``pooled`` text
+    (B, P) and the size and crop ``time_ids`` (B, 6), else None."""
+    context: torch.Tensor
+    pooled: Optional[torch.Tensor] = None
+    time_ids: Optional[torch.Tensor] = None
+
+    @classmethod
+    def of(cls, emb) -> "Conditioning":
+        """``emb`` itself, or the conditioning of a context tensor."""
+        return emb if isinstance(emb, Conditioning) else cls(emb)
+
+    def _map(self, fn) -> "Conditioning":
+        return Conditioning(*(None if x is None else fn(x)
+                              for x in (self.context, self.pooled, self.time_ids)))
+
+    def cat(self, other: "Conditioning") -> "Conditioning":
+        """This batch's rows, then ``other``'s (the CFG pair)."""
+        pairs = zip((self.context, self.pooled, self.time_ids),
+                    (other.context, other.pooled, other.time_ids))
+        return Conditioning(*(None if a is None else torch.cat([a, b]) for a, b in pairs))
+
+    def rows(self, sl: slice) -> "Conditioning":
+        """The batch rows ``sl`` (an example's, or a half of the CFG pair)."""
+        return self._map(lambda x: x[sl])
+
+    def repeat(self, n: int) -> "Conditioning":
+        """Each row ``n`` times in a row."""
+        return self._map(lambda x: x.repeat_interleave(n, dim=0))
+
+    def to(self, dtype: torch.dtype) -> "Conditioning":
+        """The context and the pooled text in ``dtype`` (the ids stay f32)."""
+        return Conditioning(self.context.to(dtype),
+                            None if self.pooled is None else self.pooled.to(dtype),
+                            self.time_ids)
+
+    def unet_kwargs(self) -> dict:
+        """The UNet's keyword argument beside the context."""
+        return {} if self.pooled is None else {"added_cond": (self.pooled, self.time_ids)}
 
 
 def resolve_device(device) -> torch.device:
@@ -347,6 +400,11 @@ def make_sampling_fns(
         raise ValueError(
             "step_extrap extrapolates the step cache: build "
             "make_sampling_fns(..., step_interval>1) to enable it")
+    if hasattr(unet, "add_embedding") and (
+            (frame_group is not None and frame_group.size > 1) or cfg_pair is not None):
+        raise ValueError(
+            "frame sharding and the CFG pair do not take a UNet with the text_time "
+            "embedding (SDXL): run it on one device")
     group = check_frame_group(frame_group, unet.cfg, infer_cfg)
     pair = cfg_pair
     if pair is not None and pair.size != 2:
@@ -357,6 +415,7 @@ def make_sampling_fns(
             "splitting: the pair formulations evaluate both halves jointly")
     # the ranks that sample one video: their resume files and agreement
     video_groups = tuple(x for x in (group, pair) if x is not None)
+    recompute = unet.cfg.guided_recompute
     device = unet.conv_in.weight.device
     plain_impl = resolve_impl(attention_impl, device)
     ddim = make_ddim_params(sched_cfg, device)
@@ -410,7 +469,7 @@ def make_sampling_fns(
             if torch.is_tensor(scale):
                 scale = torch.cat([scale, scale])
         with trace.span("controlnet"), torch.no_grad():
-            return controlnet(latents, t, emb, cond, mask, scale, impl=plain_impl,
+            return controlnet(latents, t, emb.context, cond, mask, scale, impl=plain_impl,
                               frame_group=group)
 
     def residual_kwargs(res, sl: slice = slice(None)):
@@ -423,6 +482,7 @@ def make_sampling_fns(
 
     def extract(video_latents, noise, uncond_emb, cn_cond: Optional[CnCond] = None
                 ) -> MotionRep:
+        uncond_emb = Conditioning.of(uncond_emb)
         cn_cond = local_cn(cn_cond)
         if group is not None:
             if video_latents.shape[1] != infer_cfg.video_length:
@@ -434,29 +494,29 @@ def make_sampling_fns(
         with torch.no_grad():
             noisy = add_noise(ddim, infer_cfg.add_noise_step, video_latents, noise)
             res = residuals(noisy, infer_cfg.add_noise_step, uncond_emb, cn_cond)
-            _, probs = unet(noisy, infer_cfg.add_noise_step, uncond_emb,
+            _, probs = unet(noisy, infer_cfg.add_noise_step, uncond_emb.context,
                             guidance_blocks=guidance, max_up_block=cut,
-                            frame_group=group, **residual_kwargs(res))
+                            frame_group=group, **residual_kwargs(res),
+                            **uncond_emb.unet_kwargs())
         return {k: sparsify_top1(p) for k, p in probs.items()}
 
     def pair_residuals(latents, t: int, uncond_emb, cond_emb, cn_cond):
         # one batch-2 controlnet pass on the CFG pair
-        return residuals(torch.cat([latents, latents]), t,
-                         torch.cat([uncond_emb, cond_emb]), cn_cond)
+        return residuals(torch.cat([latents, latents]), t, uncond_emb.cat(cond_emb), cn_cond)
 
     def plain_pass(latents, t: int, emb, res, sl: slice = slice(None)):
         """A forward without grad on the path of the passes that are not
         differentiated, with the residuals' rows ``sl``."""
         with trace.span("unet_plain"), torch.no_grad():
-            pred, _ = unet(latents, t, emb, attention_impl=plain_impl, frame_group=group,
-                           **residual_kwargs(res, sl))
+            pred, _ = unet(latents, t, emb.context, attention_impl=plain_impl,
+                           frame_group=group, **residual_kwargs(res, sl),
+                           **emb.unet_kwargs())
         return pred
 
     def pair_pass(latents, t: int, uncond_emb, cond_emb, res):
         # the batch-2 CFG forward -> (uncond, cond) predictions
         b = latents.shape[0]
-        pred2 = plain_pass(torch.cat([latents, latents]), t,
-                           torch.cat([uncond_emb, cond_emb]), res)
+        pred2 = plain_pass(torch.cat([latents, latents]), t, uncond_emb.cat(cond_emb), res)
         return pred2[:b], pred2[b:]
 
     def guidance_pass(latents, t: int, cond_emb, motion_rep: MotionRep, res, sl: slice):
@@ -466,15 +526,20 @@ def make_sampling_fns(
         with torch.enable_grad():
             with trace.span("unet_guided_fwd"):
                 leaf = latents.detach().requires_grad_(True)
-                cond_pred, probs = unet(leaf, t, cond_emb, guidance_blocks=guidance,
+                cond_pred, probs = unet(leaf, t, cond_emb.context, guidance_blocks=guidance,
                                         post_guidance_cut=cut,
                                         post_guidance_impl=plain_impl, frame_group=group,
-                                        **residual_kwargs(res, sl))
+                                        **residual_kwargs(res, sl), **cond_emb.unet_kwargs())
                 loss = infer_cfg.motion_guidance_weight * motion_guidance_loss(
                     probs, motion_rep, group
                 )
-            with trace.span("unet_guided_bwd"):
+            before = recomputed_segments()
+            # the recomputed segments' re-runs (on autograd's device thread
+            # on a card) are spans of this one
+            with trace.span("unet_guided_bwd", backward=True):
                 (grad,) = torch.autograd.grad(loss, leaf)
+            if recompute:
+                trace.annotate("step", recomputed=recomputed_segments() - before)
         loss = loss.detach()
         if group is not None:  # the value: the ranks' partials summed
             loss = group.all_reduce_sum(loss)
@@ -534,12 +599,13 @@ def make_sampling_fns(
     def guided_step(latents, t: int, tp: int, ramp: float, uncond_emb, cond_emb,
                     motion_rep: MotionRep, cn_cond: Optional[CnCond] = None):
         """Returns (new latents, guidance loss)."""
-        return exact_guided(latents, t, tp, ramp, uncond_emb, cond_emb, motion_rep,
-                            local_cn(cn_cond))
+        return exact_guided(latents, t, tp, ramp, Conditioning.of(uncond_emb),
+                            Conditioning.of(cond_emb), motion_rep, local_cn(cn_cond))
 
     def vanilla_step(latents, t: int, tp: int, uncond_emb, cond_emb,
                      cn_cond: Optional[CnCond] = None):
-        return exact_vanilla(latents, t, tp, uncond_emb, cond_emb, local_cn(cn_cond))
+        return exact_vanilla(latents, t, tp, Conditioning.of(uncond_emb),
+                             Conditioning.of(cond_emb), local_cn(cn_cond))
 
     def guided_step_approx(carry: _ApproxCarry, t: int, tp: int, ramp: float, flags,
                            uncond_emb, cond_emb, motion_rep: MotionRep, cn_cond):
@@ -693,6 +759,7 @@ def make_sampling_fns(
         video's ranks.  The exact schedule runs through the same steps as
         the caches, with every flag true (under a CFG pair, the pair
         steps)."""
+        uncond_emb, cond_emb = Conditioning.of(uncond_emb), Conditioning.of(cond_emb)
         with trace.span("sample", device=init_latents.device):
             cn_cond = local_cn(cn_cond)
             k_u, k_g, w_u, k_s, w_s = intervals(uncond_refresh, guidance_refresh,
@@ -767,6 +834,7 @@ def make_sampling_fns(
         build's uncond and step caches (``schedule(chunk_steps,
         plain=True)``'s flags; every flag true without them);
         ``on_step(index, False)`` is called after each step."""
+        uncond_emb, cond_emb = Conditioning.of(uncond_emb), Conditioning.of(cond_emb)
         cn_cond = local_cn(cn_cond)
         flags = schedule(chunk_steps, plain=True)
         w_u, w_s = (float(np.float32(w)) for w in (uncond_extrap, step_extrap))
@@ -794,14 +862,14 @@ def make_sampling_fns(
         b = latents.shape[0]
         if pair is None:
             res = pair_residuals(latents, t, uncond_emb, cond_emb, cn_cond)
-            lat, emb = torch.cat([latents, latents]), torch.cat([uncond_emb, cond_emb])
+            lat, emb = torch.cat([latents, latents]), uncond_emb.cat(cond_emb)
         else:
             emb = half_emb(uncond_emb, cond_emb)
             lat, res = latents, residuals(latents, t, emb, cn_cond)
         with torch.no_grad():
-            pred, probs = unet(lat, t, emb, guidance_blocks=guidance,
+            pred, probs = unet(lat, t, emb.context, guidance_blocks=guidance,
                                attention_impl=plain_impl, frame_group=group,
-                               **residual_kwargs(res))
+                               **residual_kwargs(res), **emb.unet_kwargs())
         if pair is None:
             uncond_pred, cond_pred = pred[:b], pred[b:]
         else:
@@ -818,6 +886,7 @@ def make_sampling_fns(
         Each chunk's maps go to the host before the next chunk runs; under
         a frame group their query frames are gathered, so that every rank
         holds the whole video's."""
+        uncond_emb, cond_emb = Conditioning.of(uncond_emb), Conditioning.of(cond_emb)
         cn_cond = local_cn(cn_cond)
         latents, collected = init_latents, []
         for lo, hi in chunks(chunk_steps, 0, len(ts_plain)):
@@ -843,9 +912,12 @@ def make_sampling_fns(
 class MotionClonePipeline:
     """Host-side orchestration: seeds, text and VAE integration.
 
-    ``unet`` (and the optional ``vae`` / ``text_encoder``) are moved to
-    ``device`` and ``dtype``; the default is CUDA in bfloat16, and so is the
-    optional ``controlnet``.  ``attention_impl``, ``frame_group``,
+    ``unet`` (and the optional ``vae`` / ``text_encoder`` /
+    ``text_encoder_2``) are moved to ``device`` and ``dtype``; the default
+    is CUDA in bfloat16, and so is the optional ``controlnet``.  With a
+    second text tower (SDXL) the text is a :class:`Conditioning`: both
+    towers' states joined on the last axis, the second's pooled text, and
+    the size and crop ids of the video's size.  ``attention_impl``, ``frame_group``,
     ``cfg_pair``, ``controlnet`` and the approx knobs (``uncond_interval``,
     ``guidance_interval``, ``uncond_extrap``, ``step_interval``,
     ``step_extrap``) are those of :func:`make_sampling_fns`; a ``cn_cond`` is
@@ -869,6 +941,7 @@ class MotionClonePipeline:
         *,
         vae=None,
         text_encoder=None,
+        text_encoder_2=None,
         device="cuda",
         dtype: torch.dtype = torch.bfloat16,
         attention_impl: str = "auto",
@@ -887,10 +960,9 @@ class MotionClonePipeline:
         self.unet_cfg, self.sched_cfg, self.infer_cfg = unet_cfg, sched_cfg, infer_cfg
         self.unet = unet.to(device=self.device, dtype=dtype).eval()
         self.vae = None if vae is None else vae.to(device=self.device, dtype=dtype).eval()
-        self.text_encoder = (
-            None if text_encoder is None
-            else text_encoder.to(device=self.device, dtype=dtype).eval()
-        )
+        self.text_encoder, self.text_encoder_2 = (
+            None if m is None else m.to(device=self.device, dtype=dtype).eval()
+            for m in (text_encoder, text_encoder_2))
         self.controlnet = (
             None if controlnet is None
             else controlnet.to(device=self.device, dtype=dtype).eval()
@@ -902,9 +974,25 @@ class MotionClonePipeline:
             step_extrap=step_extrap, cfg_pair=cfg_pair)
 
     @torch.no_grad()
-    def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Token ids (B, 77) -> text embeddings (B, 77, hidden)."""
-        return self.text_encoder(input_ids.to(self.device))
+    def encode_text(self, input_ids):
+        """Token ids (B, 77) -> text embeddings (B, 77, hidden); with a
+        second tower, each tower's ids (a pair) -> its :class:`Conditioning`
+        (:meth:`time_ids` of the video's size)."""
+        if self.text_encoder_2 is None:
+            return self.text_encoder(input_ids.to(self.device))
+        ids_1, ids_2 = (x.to(self.device) for x in input_ids)
+        state_1 = self.text_encoder(ids_1)
+        state_2, pooled = self.text_encoder_2.encode(ids_2)
+        return Conditioning(torch.cat([state_1, state_2], dim=-1), pooled,
+                            self.time_ids(ids_1.shape[0]))
+
+    def time_ids(self, batch: int) -> torch.Tensor:
+        """SDXL's size and crop ids (batch, 6) f32 of the video's size: the
+        original height and width, a crop at (0, 0), the target height and
+        width."""
+        h, w = self.infer_cfg.height, self.infer_cfg.width
+        return torch.tensor([[h, w, 0, 0, h, w]], dtype=torch.float32,
+                            device=self.device).repeat(batch, 1)
 
     def _draw(self, shape, seed: Seeds, domain: int) -> torch.Tensor:
         """``shape``'s noise in ``domain``: of ``seed``, or with one seed

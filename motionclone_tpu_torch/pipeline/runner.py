@@ -18,6 +18,14 @@ the approx caches; with ``weights_cache`` the loaded state dicts come from
 ``weights/cache.py`` on a warm start, and ``run_example(resume=True)``
 continues an interrupted sampling run from its last finished chunk.
 
+A directory with ``text_encoder_2/`` is SDXL's (``unet/config.json``
+then gives its three levels, per-level heads and depths and the
+``text_time`` embedding; the workload's model config its motion modules,
+schedule and ``guided_recompute``): both towers give their penultimate
+state, the second its pooled text, its ``tokenizer_2/`` pads with the pad
+token it names, and a prompt's embedding is the pipeline's
+``Conditioning`` (its size and crop ids those of the workload's video).
+
 Under a multi-device layout (``frame_shard``, ``cfg_pair``; one process
 per rank under torchrun, ``parallel/frames.Layout``) every rank of a video
 loads the same weights and runs the same example: the video's lead rank
@@ -55,12 +63,17 @@ from motionclone_tpu_torch.models.unet3d import UNet3DConditionModel
 from motionclone_tpu_torch.models.unet_blocks import match_guidance
 from motionclone_tpu_torch.models.vae import AutoencoderKL
 from motionclone_tpu_torch.parallel.frames import Layout
-from motionclone_tpu_torch.pipeline.motionclone import MotionClonePipeline, resolve_device
+from motionclone_tpu_torch.pipeline.motionclone import (
+    Conditioning,
+    MotionClonePipeline,
+    resolve_device,
+)
 from motionclone_tpu_torch.utils import rng, trace
 from motionclone_tpu_torch.weights.load import (
     apply_unet_diffusers_config,
     assemble_state_dicts,
     clip_config_from_dir,
+    has_second_tower,
     load_into,
     resolve_diffusers_module_path,
     vae_config_from_dir,
@@ -130,12 +143,14 @@ def _asset(config_root: str, path: str) -> str:
 def weights_cache_key(pretrained_model_path: str, infer_cfg: InferenceConfig,
                       dtype: torch.dtype, config_root: str = ".") -> str:
     """The weights cache's key of ``weights.load.assemble_state_dicts`` in
-    ``dtype``: every file it reads (the diffusers modules and their
-    config.json files, which set the topology, the motion module, the
-    DreamBooth checkpoint, the adapter LoRA, the controlnet and its YAML,
-    the model config), the dtype's name and the LoRA scale."""
+    ``dtype``: every file it reads (the diffusers modules, SDXL's second
+    tower among them, and their config.json files, which set the topology,
+    the motion module, the DreamBooth checkpoint, the adapter LoRA, the
+    controlnet and its YAML, the model config), the dtype's name and the
+    LoRA scale."""
     j = lambda p: _asset(config_root, p)
-    subs = ("unet", "vae", "text_encoder")
+    subs = ("unet", "vae", "text_encoder") + (
+        ("text_encoder_2",) if has_second_tower(pretrained_model_path) else ())
     sources = (
         [resolve_diffusers_module_path(pretrained_model_path, sub)
          or os.path.join(pretrained_model_path, sub) for sub in subs]
@@ -238,7 +253,11 @@ class MotionCloneRuntime:
                 "all frames would be computed per rank); the GSPMD flavour that the JAX "
                 "package falls back to is not ported")
         self.vae_cfg = vae_config_from_dir(pretrained_model_path)
-        self.clip_cfg = clip_config_from_dir(pretrained_model_path)
+        xl = has_second_tower(pretrained_model_path)
+        self.clip_cfg = clip_config_from_dir(pretrained_model_path, penultimate=xl)
+        self.clip2_cfg = (clip_config_from_dir(pretrained_model_path, "text_encoder_2",
+                                               penultimate=True, projection=True)
+                          if xl else None)
         if layout is None and (frame_shard or cfg_pair):
             layout = Layout.from_env(frames=frames, cfg=2 if cfg_pair else 1,
                                      backend=dist_backend, data=1)
@@ -255,7 +274,8 @@ class MotionCloneRuntime:
             key = weights_cache_key(pretrained_model_path, infer_cfg, dtype, config_root)
             sds = load_params(weights_cache, key)
             required = {"unet", "vae", "text_encoder"} | (
-                {"controlnet"} if infer_cfg.controlnet_path else set())
+                {"controlnet"} if infer_cfg.controlnet_path else set()) | (
+                {"text_encoder_2"} if xl else set())
             if sds is not None and not required.issubset(sds):
                 sds = None  # an entry without a required component is a miss
         self.weights_cache_state = "off" if not weights_cache else (
@@ -281,6 +301,8 @@ class MotionCloneRuntime:
         vae = load_into(lambda: AutoencoderKL(self.vae_cfg), sds["vae"], dtype, "vae")
         clip = load_into(lambda: CLIPTextModel(self.clip_cfg), sds["text_encoder"], dtype,
                          "text_encoder")
+        clip2 = None if not xl else load_into(lambda: CLIPTextModel(self.clip2_cfg),
+                                              sds["text_encoder_2"], dtype, "text_encoder_2")
         controlnet, self.cn_cfg = None, None
         if infer_cfg.controlnet_path:
             cn_yaml = load_yaml(_asset(config_root, infer_cfg.controlnet_config))
@@ -291,8 +313,11 @@ class MotionCloneRuntime:
         del sds
         self.tokenizer = ClipTokenizer.from_pretrained(pretrained_model_path,
                                                        subfolder="tokenizer")
+        self.tokenizer_2 = (ClipTokenizer.from_pretrained(pretrained_model_path, "tokenizer_2")
+                            if xl else None)
         self.pipeline = MotionClonePipeline(
             self.unet_cfg, self.sched_cfg, infer_cfg, unet, vae=vae, text_encoder=clip,
+            text_encoder_2=clip2,
             device=self.device, dtype=dtype, attention_impl=attention_impl,
             controlnet=controlnet, uncond_interval=uncond_interval,
             guidance_interval=guidance_interval, uncond_extrap=uncond_extrap,
@@ -327,19 +352,29 @@ class MotionCloneRuntime:
 
     # -- text -------------------------------------------------------------
 
-    def _tokenize(self, texts) -> torch.Tensor:
+    def _tokenize(self, texts, tokenizer: Optional[ClipTokenizer] = None) -> torch.Tensor:
         """One padded id batch (B, 77) for a str or a sequence of str."""
+        tokenizer = tokenizer or self.tokenizer
         if isinstance(texts, str):
             texts = [texts]
         ids = np.concatenate([
-            self.tokenizer.encode_padded(t, max_length=self.tokenizer.model_max_length)
+            tokenizer.encode_padded(t, max_length=tokenizer.model_max_length)
             for t in texts
         ])
         return torch.from_numpy(ids.astype(np.int64))
 
+    def _text(self, texts):
+        """The text encoders' embedding of ``texts``: CLIP's, or with a
+        second tower the :class:`Conditioning` of both."""
+        if self.tokenizer_2 is None:
+            return self.pipeline.encode_text(self._tokenize(texts))
+        return self.pipeline.encode_text((self._tokenize(texts),
+                                          self._tokenize(texts, self.tokenizer_2)))
+
     def encode_prompt(self, prompt, negative_prompt="", num_videos_per_prompt: int = 1
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(uncond, cond) CLIP embeddings, each (B * num_videos, 77, hidden).
+        """(uncond, cond) CLIP embeddings, each (B * num_videos, 77, hidden)
+        (with a second tower, each a ``Conditioning`` of as many rows).
         ``prompt``: a str or a list of str; ``negative_prompt``: a str (for
         every prompt) or a list as long as the prompts; each embedding is
         repeated ``num_videos_per_prompt`` times in a row."""
@@ -352,11 +387,11 @@ class MotionCloneRuntime:
                 raise ValueError(
                     f"negative_prompt has batch size {len(negatives)}, but prompt has "
                     f"batch size {len(prompts)}: they must match")
-        cond = self.pipeline.encode_text(self._tokenize(prompts))
-        uncond = self.pipeline.encode_text(self._tokenize(negatives))
+        cond, uncond = self._text(prompts), self._text(negatives)
         if num_videos_per_prompt > 1:
-            cond = cond.repeat_interleave(num_videos_per_prompt, dim=0)
-            uncond = uncond.repeat_interleave(num_videos_per_prompt, dim=0)
+            n = num_videos_per_prompt
+            cond, uncond = (Conditioning.of(e).repeat(n) if self.tokenizer_2 is not None
+                            else e.repeat_interleave(n, dim=0) for e in (cond, uncond))
         return uncond, cond
 
     # -- latents ----------------------------------------------------------

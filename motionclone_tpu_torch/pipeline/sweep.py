@@ -56,6 +56,7 @@ from motionclone_tpu_torch.diffusion.guidance import (
     save_motion_representation,
 )
 from motionclone_tpu_torch.io.video import preprocess_video
+from motionclone_tpu_torch.pipeline.motionclone import Conditioning
 from motionclone_tpu_torch.pipeline.runner import (
     _validate_motion_representation,
     locate_cached_rep,
@@ -167,14 +168,13 @@ def _run_batch(runtime, chunk, n_real, cfg, motion_rep_dir, output_dir, default_
                    for k in sorted(keys)}
             log(f"motion representations reused from {hits}")
 
-    # 2. one CLIP call: the prompts, the negative prompt B times, ""
+    # 2. one text call: the prompts, the negative prompt B times, ""
     t0 = time.perf_counter()
-    ids = runtime._tokenize([e.new_prompt + cfg.positive_prompt for e in chunk]
-                            + [cfg.negative_prompt] * b + [""])
-    emb = pipe.encode_text(ids)
+    emb = Conditioning.of(runtime._text([e.new_prompt + cfg.positive_prompt for e in chunk]
+                                        + [cfg.negative_prompt] * b + [""]))
     runtime._sync()
     timings["text"] = time.perf_counter() - t0
-    cond_emb, uncond_emb = emb[:b], emb[b: 2 * b]
+    cond_emb, uncond_emb = emb.rows(slice(0, b)), emb.rows(slice(b, 2 * b))
 
     # 3. VAE encode and extraction, batched (skipped on a full hit)
     if rep is None:
@@ -188,7 +188,7 @@ def _run_batch(runtime, chunk, n_real, cfg, motion_rep_dir, output_dir, default_
                 [runtime.extraction_condition(e, videos[i], latents[i: i + 1], scales[i])
                  for i, e in enumerate(chunk)], scales, runtime.dtype)
         rep = pipe.gather_motion_rep(pipe.extract_motion_representation(
-            latents, emb[2 * b:].repeat(b, 1, 1), seed=seeds, cn_cond=cn_extract))
+            latents, emb.rows(slice(2 * b, None)).repeat(b), seed=seeds, cn_cond=cn_extract))
         # each real example's representation, always as .npz (a user's
         # reference .pt is never overwritten)
         for i in range(n_real if runtime.is_lead else 0):

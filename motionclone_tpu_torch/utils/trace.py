@@ -33,6 +33,13 @@ and its ``steps``: the spans named ``step``, whose attributes give
 caches), whose ``host_ns`` is the host's issue time of the step and whose
 ``children`` are its passes.  The record holds no tensor.
 
+A span opened with ``backward=True`` (a pass's ``torch.autograd.grad``)
+hosts the spans of the backward's own work: a span opened on a thread with
+no open span of its own while it is open (autograd's device thread, where
+the backward of a CUDA pass runs) is its child.  :func:`annotate` adds
+attributes to the innermost open span of a name (a guided step's count of
+recomputed segments).
+
 ``set_enabled(False)`` makes every span one shared no-op and stops all
 recording (recording is on by default).
 """
@@ -58,6 +65,7 @@ _local = threading.local()
 _lock = threading.Lock()
 _runs: Deque["Run"] = deque()
 _pools: Dict[int, List[torch.cuda.Event]] = {}  # a device's index -> its free events
+_backward_host: List["_Open"] = []  # the open span whose backward runs, if any
 
 
 class Span:
@@ -129,16 +137,16 @@ def _keep(run: Run) -> None:
 class _Open:
     """An open span: ``span``'s context manager."""
 
-    __slots__ = ("name", "attrs", "device", "parent", "run", "span", "range")
+    __slots__ = ("name", "attrs", "device", "backward", "parent", "run", "span", "range")
 
-    def __init__(self, name: str, device, attrs: Dict):
-        self.name, self.device, self.attrs = name, device, attrs
+    def __init__(self, name: str, device, attrs: Dict, backward: bool = False):
+        self.name, self.device, self.attrs, self.backward = name, device, attrs, backward
 
     def __enter__(self) -> Optional[Span]:
         stack = getattr(_local, "stack", None)
         if stack is None:
             stack = _local.stack = []
-        self.parent = stack[-1] if stack else None
+        self.parent = stack[-1] if stack else (_backward_host[-1] if _backward_host else None)
         if self.parent is not None:
             self.run = self.parent.run
         elif self.name == "sample":
@@ -160,6 +168,8 @@ class _Open:
             rec._events = (_event(run.pool), _event(run.pool), run.pool)
             rec._events[0].record(run.stream)
         stack.append(self)
+        if self.backward:
+            _backward_host.append(self)
         return rec
 
     def __exit__(self, *exc) -> bool:
@@ -172,6 +182,8 @@ class _Open:
             self.range.__exit__(None, None, None)
         if rec is None:
             return False
+        if self.backward:
+            _backward_host.pop()
         _local.stack.pop()
         run.spans.append(rec)
         if rec.name == "step":
@@ -181,12 +193,22 @@ class _Open:
         return False
 
 
-def span(name: str, device: Optional[torch.device] = None, **attrs):
+def span(name: str, device: Optional[torch.device] = None, backward: bool = False, **attrs):
     """A context manager that records the stretch it encloses as ``name``
     (see the module's docstring); ``device``, for a ``sample`` span, is the
-    device the run samples on.  Yields the :class:`Span`, or None outside
-    a run or while recording is off."""
-    return _Open(name, device, attrs) if _enabled else _NOOP
+    device the run samples on; ``backward``: the span hosts the spans of a
+    backward it runs.  Yields the :class:`Span`, or None outside a run or
+    while recording is off."""
+    return _Open(name, device, attrs, backward) if _enabled else _NOOP
+
+
+def annotate(name: str, **attrs) -> None:
+    """Add ``attrs`` to the innermost span named ``name`` open on this
+    thread, where it is recorded (in a run, with recording on)."""
+    for op in reversed(getattr(_local, "stack", None) or ()):
+        if op.name == name:
+            op.span.attrs.update(attrs)
+            return
 
 
 def set_enabled(flag: bool) -> None:

@@ -2,8 +2,9 @@
 
 Port of ``motionclone_tpu/weights/load.py``:
 
-1. base SD1.5 weights from a diffusers-layout directory (``unet``, ``vae``,
-   ``text_encoder``; the 2D UNet holds no motion modules);
+1. base SD1.5 (or SDXL) weights from a diffusers-layout directory
+   (``unet``, ``vae``, ``text_encoder`` and SDXL's ``text_encoder_2``; the
+   2D UNet holds no motion modules);
 2. an optional DreamBooth LDM checkpoint replacing the UNet's image layers
    and the whole VAE and CLIP;
 3. the motion-module checkpoint merged in (keys holding ``motion_modules.``);
@@ -80,17 +81,15 @@ def apply_unet_diffusers_config(unet_cfg: UNet3DConfig, pretrained_dir: str) -> 
     kwargs: Dict[str, Any] = {
         k: d[k] for k in ("sample_size", "in_channels", "out_channels", "layers_per_block",
                           "norm_num_groups", "cross_attention_dim", "attention_head_dim",
-                          "flip_sin_to_cos", "freq_shift", "use_linear_projection")
+                          "flip_sin_to_cos", "freq_shift", "use_linear_projection",
+                          "transformer_layers_per_block", "addition_embed_type",
+                          "addition_time_embed_dim", "projection_class_embeddings_input_dim")
         if d.get(k) is not None
     }
-    # UNet3DConfig.attention_head_dim is the global head count
-    # (diffusers-legacy naming): a per-block list would break head arithmetic
-    ahd = kwargs.get("attention_head_dim")
-    if ahd is not None and not isinstance(ahd, int):
-        raise ValueError(
-            f"unet/config.json attention_head_dim={ahd!r}: per-block head lists are "
-            "not supported (UNet3DConfig takes a single int, the global head count)"
-        )
+    # a head count or a transformer depth per level (SDXL's lists)
+    for key in ("attention_head_dim", "transformer_layers_per_block"):
+        if isinstance(kwargs.get(key), list):
+            kwargs[key] = tuple(kwargs[key])
     if d.get("block_out_channels"):
         kwargs["block_out_channels"] = tuple(d["block_out_channels"])
     for key in ("down_block_types", "up_block_types"):
@@ -114,14 +113,27 @@ def vae_config_from_dir(pretrained_dir: str) -> VAEConfig:
     return VAEConfig(**kwargs)
 
 
-def clip_config_from_dir(pretrained_dir: str) -> CLIPTextConfig:
-    """``text_encoder/config.json`` (transformers field names) ->
-    CLIPTextConfig (SD1.5's CLIP ViT-L/14 text tower when absent)."""
-    d = load_diffusers_config(pretrained_dir, "text_encoder")
-    base = CLIPTextConfig()
+def has_second_tower(pretrained_dir: str) -> bool:
+    """Whether the directory holds SDXL's second text tower."""
+    return os.path.isdir(os.path.join(pretrained_dir, "text_encoder_2"))
+
+
+def clip_config_from_dir(pretrained_dir: str, subfolder: str = "text_encoder",
+                         penultimate: bool = False, projection: bool = False
+                         ) -> CLIPTextConfig:
+    """``<subfolder>/config.json`` (transformers field names) ->
+    CLIPTextConfig (SD1.5's CLIP ViT-L/14 text tower when absent), giving
+    the state before the last layer with ``penultimate`` and the pooled
+    text's projection (``projection_dim``) with ``projection`` (SDXL)."""
+    d = load_diffusers_config(pretrained_dir, subfolder)
+    base = CLIPTextConfig(output_hidden_state="penultimate" if penultimate else "last")
     if d is None:
+        if projection:
+            raise FileNotFoundError(f"no {pretrained_dir}/{subfolder}/config.json")
         return base
     return CLIPTextConfig(
+        output_hidden_state=base.output_hidden_state,
+        projection_dim=d.get("projection_dim", d.get("hidden_size")) if projection else None,
         vocab_size=d.get("vocab_size", base.vocab_size),
         hidden_size=d.get("hidden_size", base.hidden_size),
         num_layers=d.get("num_hidden_layers", base.num_layers),
@@ -222,14 +234,19 @@ def assemble_pipeline_state_dicts(
 # ---------------------------------------------------------------------------
 
 
-def clip_state_dict(sd: Mapping[str, torch.Tensor]) -> StateDict:
+def clip_state_dict(sd: Mapping[str, torch.Tensor], projection: bool = False) -> StateDict:
     """An HF CLIPTextModel state dict with the ``text_model.`` prefix on
-    every key (some checkpoints omit it), ``position_ids`` and
-    ``text_projection*`` dropped."""
+    every key (some checkpoints omit it), ``position_ids`` dropped, and
+    ``text_projection*`` dropped, or with ``projection`` (SDXL's
+    CLIPTextModelWithProjection) kept as ``text_projection.weight``."""
     out: StateDict = {}
     for k, v in sd.items():
         key = k[len("text_model."):] if k.startswith("text_model.") else k
-        if key.endswith("position_ids") or key.startswith("text_projection"):
+        if key.endswith("position_ids"):
+            continue
+        if key.startswith("text_projection"):
+            if projection:
+                out[key] = v
             continue
         out["text_model." + key] = v
     return out
@@ -269,6 +286,9 @@ def assemble_state_dicts(
         lora_alpha=lora_alpha, motion_lora_configs=motion_lora_configs,
         dreambooth_extract_ema=dreambooth_extract_ema)
     sds["text_encoder"] = clip_state_dict(sds["text_encoder"])
+    if has_second_tower(pretrained_dir):
+        sds["text_encoder_2"] = clip_state_dict(
+            load_diffusers_module_sd(pretrained_dir, "text_encoder_2"), projection=True)
     if controlnet_path:
         sds["controlnet"] = controlnet_state_dict(load_state_dict(controlnet_path))
     return sds

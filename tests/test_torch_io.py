@@ -150,8 +150,15 @@ def test_inference_config_spellings_and_precedence(tmp_path):
                                                                 "*.yaml"))),
                          ids=os.path.basename)
 def test_model_config_equals_jax(path):
+    # the port's UNet3DConfig has SDXL's fields beside the JAX package's: equal
+    # on the JAX package's, SD1.5's defaults on the others
+    sd15 = dataclasses.asdict(tcfg.UNet3DConfig())
     for got, want in zip(tcfg.load_model_config(path), jcfg.load_model_config(path)):
-        assert _same(dataclasses.asdict(got), dataclasses.asdict(want))
+        got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        extra = set(got) - set(want)
+        assert extra <= set(sd15)
+        assert _same({k: got[k] for k in want}, want)
+        assert all(_same(got[k], sd15[k]) for k in extra)
 
 
 @pytest.mark.parametrize("name", WORKLOADS)

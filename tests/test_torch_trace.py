@@ -35,6 +35,34 @@ def s():
     return dict(fns=fns, args=(init, uncond, cond, rep))
 
 
+def test_a_backward_span_hosts_the_spans_of_another_thread_and_annotate_marks_the_step():
+    """Autograd runs a CUDA pass's backward on its own device thread: a span
+    opened there, with no span of its own, belongs to the open span opened
+    with ``backward=True``; ``annotate`` sets attributes on the innermost
+    open span of a name."""
+    import threading
+
+    inner, lone = [], []
+
+    def run_in_thread(name, out):
+        def body():
+            with trace.span(name) as sp:
+                out.append(sp)
+        worker = threading.Thread(target=body)
+        worker.start()
+        worker.join()
+
+    with trace.span("sample"):
+        with trace.span("step", index=0, guided=True, full=True) as step:
+            with trace.span("unet_guided_bwd", backward=True) as bwd:
+                run_in_thread("unet_guided_recompute", inner)
+            trace.annotate("step", recomputed=1)
+        run_in_thread("x", lone)
+    assert bwd.children == inner and inner[0].name == "unet_guided_recompute"
+    assert step.attrs == dict(index=0, guided=True, full=True, recomputed=1)
+    assert lone == [None]  # no backward span open: another thread records nothing
+
+
 def test_spans_nest_in_their_run_and_record_nothing_outside_one():
     with trace.span("sample") as sample:
         with trace.span("step", index=0, guided=True, full=True) as step:
